@@ -1,21 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the h36x_torch serving path once on one NVIDIA GPU (H100).
+"""Drive the h36x_torch serving and training paths once on one NVIDIA GPU
+(H100).
 
     python3 chip_smoke.py
 
-1. Setup: prints the card and its power limit, builds the CUDA kernels from
-   h36x_torch/ops/csrc/ (one nvcc per source, all started together).
+1. Setup: prints the card and its power limit, builds the four CUDA kernels
+   from h36x_torch/ops/csrc/ (one nvcc per source, all started together).
 2. Each kernel against its plain PyTorch version on the card (TF32 off), at
-   the serving shapes and the edge cases, within the stated tolerance; then
-   its time, its plain version's time and its bound.
-3. The slice end to end at full model width: a seeded PHDFor3DJoints is
-   saved as a checkpoint, served by the port's BatchingServer on a local
-   socket, and answers 16 concurrent and 3 sequential (40, 2048) requests
-   and a stats query; every reply is held against the plain forward of its
-   row; the launch counters must show 4 temporal and 1 regressor launches
-   per device batch. phd_forward_fused(predict_future=True) with kernels is
-   held against its plain version too (f_AR and the second regressor pass).
-4. Prints one {"kernels": [...]} line, then the last line
+   the shapes of both paths and the edge cases, within the stated
+   tolerance: the forward kernels B1 (temporal) and B3 (regressor) against
+   the plain forward, the backward kernels B2 and B4 against autograd of
+   the plain forward (B2 at B 32, T 40, D = O 1024 with and without the
+   residual and at T 1-4 and B 1; B4 at N 1280 and N 13, with tie-free
+   weights and with init-scale weights, whose ReLU masks vary by row and
+   round, on rows drawn clear of ReLU ties), element-wise and by relative
+   norm; then each one's time, its plain version's time and its bound.
+3. One full-width phase-1 step (batch 32), fused against plain: loss and
+   every gradient leaf (by relative norm at the seeded init; element-wise
+   and by relative norm on tie-free parameters), at dropout 0 (all four
+   kernels launch) and 0.5 (the same masks both sides); the step's time
+   both ways.
+4. The serving path at full model width: a seeded PHDFor3DJoints is saved
+   as a checkpoint, served by the port's BatchingServer on a local socket,
+   and answers 16 concurrent and 3 sequential (40, 2048) requests and a
+   stats query; every reply is held against the plain forward of its row;
+   the counts must show 4 temporal and 1 regressor launches per device
+   batch. phd_forward_fused(predict_future=True) with kernels is held
+   against its plain version too (f_AR and the second regressor pass).
+5. The training path: a full-width 128-clip store (T 40, feature 2048)
+   written with the port's ShardWriter, trained for 2 epochs by
+   h36x_torch.cli.train.main with --optim.fused true --model.dropout 0 at
+   batch 32; finite losses, best/last checkpoints (last equal to the
+   trained model), 2 metrics.jsonl lines, and exactly 4 B1 + 4 B2 + 1 B3 +
+   1 B4 launches per train step and 4 B1 + 1 B3 per eval batch.
+6. Prints one {"kernels": [...]} line (launches: both paths' runs), then
+   the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero; without CUDA it exits nonzero at once.
@@ -39,6 +58,17 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth (data sheet)
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)  # FP32 both sides; sums reordered
 E2E_TOL = dict(rtol=1e-3, atol=1e-4)  # full forward (tests/test_pallas.py)
+GRAD_TOL = dict(rtol=1e-3, atol=1e-4)  # gradients (tests/test_pallas.py)
+# |got - want| / |want| per gradient leaf: two FP32 summation orders of the
+# same function agree to about 1e-6; a gradient that is dropped, misrouted
+# or masked from the wrong row or round is off by O(0.1-1)
+REL_NORM_TOL = 1e-4
+# the same at the seeded init of the full step, where the ReLU masks vary by
+# row and a few of the step's 13 M ReLU inputs lie so close to 0 that the two
+# FP32 orders flip them: each flip moves its leaf by about
+# 1/sqrt(rows * units), some 1e-3, of its norm
+SEEDED_REL_NORM_TOL = 1e-2
+LOSS_TOL = dict(rtol=1e-5, atol=0.0)  # fused vs plain step loss
 
 
 def log(obj) -> None:
@@ -66,14 +96,28 @@ def bound(flops: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict) -> dict:
+def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
+    """|got - want| / |want| (Frobenius norms, in float64); inf for want = 0."""
+    den = float(want.double().norm())
+    return float((got - want).double().norm()) / den if den > 0 else float("inf")
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol,
+            rel_norm_tol=None) -> dict:
+    """Log got against want and raise unless got is finite, within `tol`
+    element-wise (rtol/atol; None: not checked) and, when `rel_norm_tol` is
+    given, within it by relative norm."""
     torch.cuda.synchronize()
     err = (got - want).abs()
     rec = {"check": name, "shape": list(got.shape),
            "max_abs_err": float(err.max()),
            "max_rel_err": float(err.max() / want.abs().max().clamp_min(1e-30)),
-           "tol": tol, "finite": bool(torch.isfinite(got).all())}
-    ok = rec["finite"] and torch.allclose(got, want, **tol)
+           "max_abs_want": float(want.abs().max()),
+           "rel_norm_err": rel_norm(got, want),
+           "tol": tol, "rel_norm_tol": rel_norm_tol,
+           "finite": bool(torch.isfinite(got).all())}
+    ok = (rec["finite"] and (tol is None or torch.allclose(got, want, **tol))
+          and (rel_norm_tol is None or rec["rel_norm_err"] <= rel_norm_tol))
     log(rec)
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
@@ -95,8 +139,9 @@ def check_temporal(dev, g):
     scale = (1 + 0.1 * torch.randn(d, generator=g)).to(dev)
     bias = (0.1 * torch.randn(d, generator=g)).to(dev)
     worst = worst_rel = 0.0
-    for b, t, with_res in ((16, 40, False), (16, 40, True), (16, 1, False),
-                           (16, 2, True), (16, 3, False), (1, 40, True)):
+    for b, t, with_res in ((16, 40, False), (16, 40, True), (32, 40, True),
+                           (16, 1, False), (16, 2, True), (16, 3, False),
+                           (1, 40, True)):
         x = (2 * torch.randn(b, t, d, generator=g) + 0.5).to(dev)
         res = torch.randn(b, t, o, generator=g).to(dev) if with_res else None
         got = fused_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups)
@@ -115,7 +160,13 @@ def check_temporal(dev, g):
     flops = 2 * b * t * o * k * d + 10 * b * t * d + b * t * o
     nbytes = 4 * (b * t * d + 2 * d + k * d * o + o + b * t * o)
     bound_ms, bound_by = bound(flops, nbytes)
+    # the training shape (batch 32) too
+    x = (2 * torch.randn(32, t, d, generator=g) + 0.5).to(dev)
+    train_ms = time_ms(lambda: fused_gn_relu_cconv(x, scale, bias, w, cb, groups=groups))
+    train_plain_ms = time_ms(lambda: reference_gn_relu_cconv(x, scale, bias, w, cb,
+                                                             groups=groups))
     return {"name": "gn_relu_cconv", "route": "cuda",
+            "ms_train_shape": train_ms, "plain_ms_train_shape": train_plain_ms,
             "source": "h36x_torch/ops/csrc/temporal.cu",
             "replaces": "h36x/ops/pallas_temporal.py:42",
             "max_abs_err": worst,
@@ -134,7 +185,7 @@ def check_regressor(dev, g):
           uniform((h, h), h, g, dev), uniform((h,), h, g, dev),
           uniform((h, p), h, g, dev), uniform((p,), h, g, dev))
     worst = worst_rel = 0.0
-    for n in (640, 13):
+    for n in (640, 1280, 13):
         phi = torch.randn(n, d, generator=g).to(dev)
         got = fused_joint_regressor(phi, *ws, iters, p)
         want = _reference_forward(phi, *ws, iters, p)
@@ -150,12 +201,217 @@ def check_regressor(dev, g):
                                      + 2 * n * h * p + 4 * n * h + 2 * n * p)
     nbytes = 4 * (n * d + (d + p) * h + h + h * h + h + h * p + p + n * p)
     bound_ms, bound_by = bound(flops, nbytes)
+    # the training shape (N = 32 * 40) too
+    phi = torch.randn(1280, d, generator=g).to(dev)
+    train_ms = time_ms(lambda: fused_joint_regressor(phi, *ws, iters, p))
+    train_plain_ms = time_ms(lambda: _reference_forward(phi, *ws, iters, p))
     return {"name": "joint_regressor", "route": "cuda",
+            "ms_train_shape": train_ms, "plain_ms_train_shape": train_plain_ms,
             "source": "h36x_torch/ops/csrc/regressor.cu",
             "replaces": "h36x/ops/pallas_regressor.py:39",
             "max_abs_err": worst,
             "max_rel_err": worst_rel, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": f"N={n} D={d} H={h} P={p} iters={iters}",
+            "tol": KERNEL_TOL}
+
+
+def grads(fn, leaves, gout, **kw):
+    """Gradients of sum(fn(*leaves) * gout) w.r.t. every leaf (not None)."""
+    out = fn(*leaves, **kw)
+    return torch.autograd.grad(out, [v for v in leaves if v is not None], gout)
+
+
+def temporal_bwd_work(b, t, d, o, k, groups):
+    """(FLOPs, bytes) of the temporal backward: the dr and dW contractions
+    and about 20 elementwise operations per input element; x, g, W, the
+    affine and the statistics read once, dx, dW, dscale, dbias written once."""
+    flops = 2 * (2 * b * t * k * d * o) + 20 * b * t * d
+    nbytes = 4 * (2 * b * t * d + b * t * o + 2 * k * d * o + 4 * d + 2 * b * groups)
+    return flops, nbytes
+
+
+def check_temporal_bwd(dev, g):
+    from h36x_torch.ops.temporal import (
+        _launch_forward,
+        fused_gn_relu_cconv,
+        gn_relu_cconv_bwd,
+        reference_gn_relu_cconv,
+    )
+
+    d = o = 1024
+    k, groups = 3, 32
+    w = uniform((k, d, o), k * d, g, dev)
+    cb = uniform((o,), k * d, g, dev)
+    scale = (1 + 0.1 * torch.randn(d, generator=g)).to(dev)
+    bias = (0.1 * torch.randn(d, generator=g)).to(dev)
+    names = ("dx", "dscale", "dbias", "dW", "dconv_bias", "dres")
+    worst = worst_rel = 0.0
+    for b, t, with_res in ((32, 40, False), (32, 40, True), (32, 1, True),
+                           (32, 2, False), (32, 3, True), (32, 4, False),
+                           (1, 40, True), (1, 2, False)):
+        x = (2 * torch.randn(b, t, d, generator=g) + 0.5).to(dev)
+        res = torch.randn(b, t, o, generator=g).to(dev) if with_res else None
+        gout = torch.randn(b, t, o, generator=g).to(dev)
+        leaves = [None if v is None else v.clone().requires_grad_()
+                  for v in (x, scale, bias, w, cb, res)]
+        got = grads(fused_gn_relu_cconv, leaves, gout, groups=groups)
+        want = grads(reference_gn_relu_cconv, leaves, gout, groups=groups)
+        for name, a, ref in zip(names, got, want):
+            rec = compare(f"temporal bwd B={b} T={t} residual={with_res} {name}",
+                          a, ref, GRAD_TOL)
+            worst = max(worst, rec["max_abs_err"])
+            worst_rel = max(worst_rel, rec["max_rel_err"])
+    b, t = 32, 40
+    x = (2 * torch.randn(b, t, d, generator=g) + 0.5).to(dev)
+    gout = torch.randn(b, t, o, generator=g).to(dev)
+    _, mean, rstd = _launch_forward(x, scale, bias, w, cb, None, groups, 1e-5)
+    ms = time_ms(lambda: gn_relu_cconv_bwd(x, scale, bias, w, gout, mean, rstd,
+                                           groups))
+    leaves = [v.clone().requires_grad_() for v in (x, scale, bias, w, cb)]
+    out = reference_gn_relu_cconv(*leaves, groups=groups)
+    plain_ms = time_ms(lambda: torch.autograd.grad(out, leaves, gout,
+                                                   retain_graph=True))
+    bound_ms, bound_by = bound(*temporal_bwd_work(b, t, d, o, k, groups))
+    return {"name": "gn_relu_cconv_bwd", "route": "cuda",
+            "source": "h36x_torch/ops/csrc/temporal_bwd.cu",
+            "replaces": "h36x/ops/pallas_temporal.py:175",
+            "max_abs_err": worst, "max_rel_err": worst_rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            "shape": f"B={b} T={t} D={d} O={o} K={k} G={groups}",
+            "tol": GRAD_TOL}
+
+
+def regressor_bwd_work(n, d, h, p, iters):
+    """(FLOPs, bytes) of the regressor backward as the kernel does it: the
+    forward recomputed, then the unrolled loop's backward; phi, g and the
+    weights read once, dphi and the weight grads written once."""
+    fwd = 2 * n * d * h + iters * (2 * n * p * h + 2 * n * h * h + 2 * n * h * p)
+    bwd = (iters * (2 * n * p * h + 2 * n * h * h + 2 * n * h * p  # dh2, dh1, dy
+                    + 2 * n * h * p + 2 * n * h * h + 2 * n * p * h)  # dW3, dW2, dW1y
+           - 2 * n * h * p  # no dy below round 0
+           + 2 * (2 * n * d * h))  # dphi, dW1p
+    weights = (d + p) * h + h + h * h + h + h * p + p
+    return fwd + bwd, 4 * (2 * n * d + n * p + 2 * weights)
+
+
+def away_from_zero(shape, g, lo=0.6, hi=1.5):
+    """Values of random sign with lo <= |v| <= hi."""
+    mag = lo + (hi - lo) * torch.rand(shape, generator=g)
+    return torch.where(torch.rand(shape, generator=g) < 0.5, -mag, mag)
+
+
+def tie_free_regressor(d, h, p, g, dev):
+    """Regressor weights whose ReLU inputs stay at least ~0.2 away from 0:
+    weights at a tenth of their init scale, hidden biases of random sign
+    and magnitude 0.6-1.5. A gradient through a ReLU changes by a whole term
+    where its input is so close to 0 that two FP32 summation orders give it
+    different signs; at N = 1280 and H = 1024 the init-scale weights put
+    about ten of the 8 M ReLU inputs that close, so an element-wise
+    comparison of two correct implementations fails there. Away from 0 both
+    sides take the same mask and the tolerance holds; the mask is still
+    applied per element (about half the units are off)."""
+    return (0.1 * uniform((d + p, h), d + p, g, dev), away_from_zero((h,), g).to(dev),
+            0.1 * uniform((h, h), h, g, dev), away_from_zero((h,), g).to(dev),
+            uniform((h, p), h, g, dev), uniform((p,), h, g, dev))
+
+
+def relu_inputs(phi, ws, iters, p):
+    """Every ReLU input of the regressor loop in float64, round by round,
+    as a list of (N, H) tensors: [h1 round 0, h2 round 0, h1 round 1, ...]."""
+    w1, b1, w2, b2, w3, b3 = (w.double() for w in ws)
+    phi = phi.double()
+    y = phi.new_zeros(phi.shape[0], p)
+    pre = []
+    for _ in range(iters):
+        a1 = torch.cat([phi, y], -1) @ w1 + b1
+        a2 = torch.relu(a1) @ w2 + b2
+        y = y + torch.relu(a2) @ w3 + b3
+        pre += [a1, a2]
+    return pre
+
+
+def untied_rows(n, d, ws, iters, p, g, dev, margin=1e-5):
+    """(n, d) normal rows of phi none of whose ReLU inputs in the regressor
+    loop lies within `margin` of 0 (float64): a row with such a near-tie is
+    drawn again. Each row is its own forward, so this changes no other row.
+    The margin is about 100x the FP32 rounding of a pre-activation at these
+    widths, so an FP32 kernel and FP32 autograd take the same mask; the
+    masks still differ from row to row and round to round, as at init."""
+    phi = torch.randn(n, d, generator=g).to(dev)
+    redrawn = 0
+    for _ in range(50):
+        tied = torch.stack([(a.abs() < margin).any(1)
+                            for a in relu_inputs(phi, ws, iters, p)]).any(0)
+        if not tied.any():
+            return phi, redrawn
+        redrawn += int(tied.sum())
+        phi[tied] = torch.randn(int(tied.sum()), d, generator=g).to(dev)
+    raise AssertionError("could not draw rows clear of ReLU ties")
+
+
+def mask_variety(phi, ws, iters, p) -> dict:
+    """How far the ReLU masks vary: the mean share of rows on which a unit's
+    mask differs from that unit's majority (0 when every column has one
+    mask), and the share of (row, unit) whose h1/h2 mask differs between
+    round 0 and round 1."""
+    masks = [a > 0 for a in relu_inputs(phi, ws, iters, p)]
+    on = torch.stack([m.double().mean(0) for m in masks])
+    out = {"minority_share": float(torch.minimum(on, 1 - on).mean())}
+    if iters > 1:
+        out["h1_round_change"] = float((masks[0] != masks[2]).double().mean())
+        out["h2_round_change"] = float((masks[1] != masks[3]).double().mean())
+    return out
+
+
+def check_regressor_bwd(dev, g):
+    from h36x_torch.ops.regressor import (
+        _reference_forward,
+        fused_joint_regressor,
+        joint_regressor_bwd,
+    )
+
+    d = h = 1024
+    p, iters = 51, 3
+    names = ("dphi", "dw1", "db1", "dw2", "db2", "dw3", "db3")
+    worst = worst_rel = 0.0
+    # tie-free weights (every mask fixed per column), then init-scale weights
+    # (masks vary by row and round) on rows drawn clear of ReLU ties
+    init = (uniform((d + p, h), d + p, g, dev), uniform((h,), d + p, g, dev),
+            uniform((h, h), h, g, dev), uniform((h,), h, g, dev),
+            uniform((h, p), h, g, dev), uniform((p,), h, g, dev))
+    for label, ws in (("tie-free", tie_free_regressor(d, h, p, g, dev)),
+                      ("init-scale", init)):
+        for n in (1280, 13):
+            phi, redrawn = untied_rows(n, d, ws, iters, p, g, dev)
+            log({"check": f"regressor bwd {label} N={n} masks", "rows_redrawn": redrawn,
+                 **mask_variety(phi, ws, iters, p)})
+            gout = torch.randn(n, p, generator=g).to(dev)
+            leaves = [v.clone().requires_grad_() for v in (phi, *ws)]
+            got = grads(fused_joint_regressor, leaves, gout, iters=iters, out_dim=p)
+            want = grads(_reference_forward, leaves, gout, iters=iters, out_dim=p)
+            for name, a, ref in zip(names, got, want):
+                rec = compare(f"regressor bwd {label} N={n} {name}", a, ref, KERNEL_TOL,
+                              REL_NORM_TOL)
+                worst = max(worst, rec["max_abs_err"])
+                worst_rel = max(worst_rel, rec["max_rel_err"])
+    ws = init
+    n = 1280
+    phi = torch.randn(n, d, generator=g).to(dev)
+    gout = torch.randn(n, p, generator=g).to(dev)
+    ms = time_ms(lambda: joint_regressor_bwd(phi, *ws, gout, iters))
+    leaves = [v.clone().requires_grad_() for v in (phi, *ws)]
+    out = _reference_forward(*leaves, iters, p)
+    plain_ms = time_ms(lambda: torch.autograd.grad(out, leaves, gout,
+                                                   retain_graph=True))
+    bound_ms, bound_by = bound(*regressor_bwd_work(n, d, h, p, iters))
+    return {"name": "joint_regressor_bwd", "route": "cuda",
+            "source": "h36x_torch/ops/csrc/regressor_bwd.cu",
+            "replaces": "h36x/ops/pallas_regressor.py:129",
+            "max_abs_err": worst, "max_rel_err": worst_rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
             "shape": f"N={n} D={d} H={h} P={p} iters={iters}",
             "tol": KERNEL_TOL}
 
@@ -207,12 +463,10 @@ def drive_main_path(dev, g, sock_dir):
                             max_wait_ms=5.0)
     feats = torch.randn(19, SEQ_LEN, mc.feature_dim, generator=g).numpy()
 
-    fused_gn_relu_cconv.launches = 0
-    fused_joint_regressor.launches = 0
+    zero_counts()
     replies, stats = asyncio.run(drive_daemon(server, list(feats[:16]),
                                               list(feats[16:]), sock_dir))
-    launches = {"gn_relu_cconv": fused_gn_relu_cconv.launches,
-                "joint_regressor": fused_joint_regressor.launches}
+    launches = read_counts()
 
     batches = stats["batches"]
     log({"phase": "daemon", "requests": stats["requests"], "batches": batches,
@@ -225,7 +479,8 @@ def drive_main_path(dev, g, sock_dir):
         raise AssertionError(f"daemon served {stats['requests']} requests, "
                              f"{stats['rows']} rows; sent 19")
     want_launches = {"gn_relu_cconv": 2 * mc.num_blocks * batches,
-                     "joint_regressor": batches}
+                     "gn_relu_cconv_bwd": 0, "joint_regressor": batches,
+                     "joint_regressor_bwd": 0}
     if launches != want_launches:
         raise AssertionError(f"launch counts {launches} != {want_launches} "
                              f"for {batches} device batches")
@@ -258,6 +513,204 @@ def drive_main_path(dev, g, sock_dir):
     return launches
 
 
+def zero_counts():
+    from h36x_torch.ops import regressor, temporal
+
+    for fn in (temporal.fused_gn_relu_cconv, temporal.gn_relu_cconv_bwd,
+               regressor.fused_joint_regressor, regressor.joint_regressor_bwd):
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    from h36x_torch.ops import regressor, temporal
+
+    return {"gn_relu_cconv": temporal.fused_gn_relu_cconv.launches,
+            "gn_relu_cconv_bwd": temporal.gn_relu_cconv_bwd.launches,
+            "joint_regressor": regressor.fused_joint_regressor.launches,
+            "joint_regressor_bwd": regressor.joint_regressor_bwd.launches}
+
+
+def make_tie_free_(model, g) -> None:
+    """Move every ReLU input of the phase-1 path away from 0 (see
+    tie_free_regressor): GroupNorm scale 0.1 and biases of random sign and
+    magnitude 0.6-1.5, regressor as tie_free_regressor."""
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if ".gn" in name and name.endswith(".scale"):
+                prm.fill_(0.1)
+            elif ".gn" in name and name.endswith(".bias"):
+                prm.copy_(away_from_zero(prm.shape, g))
+            elif name in ("f_3D.fc1.kernel", "f_3D.fc2.kernel"):
+                prm.mul_(0.1)
+            elif name in ("f_3D.fc1.bias", "f_3D.fc2.bias"):
+                prm.copy_(away_from_zero(prm.shape, g))
+
+
+def check_train_step(dev, g):
+    """One full-width phase-1 step, fused against plain, on one batch from
+    the same generator, at dropout 0 (all four kernels) and 0.5 (the same
+    masks on both sides, regressor plain): the loss within LOSS_TOL; at the
+    seeded init every gradient leaf by relative norm within SEEDED_REL_NORM_TOL
+    (ReLU masks vary by row there, and a few of the 13 M ReLU inputs lie so
+    close to 0 that the two FP32 orders flip them); on tie-free parameters
+    every gradient leaf within GRAD_TOL and by relative norm within
+    REL_NORM_TOL. max|grad| of every leaf is logged. Also the step's time
+    both ways."""
+    from h36x_torch.config import SEQ_LEN, ModelConfig
+    from h36x_torch.models.phd import PHDFor3DJoints
+    from h36x_torch.train.state import make_optimizer
+    from h36x_torch.train.step import grads_and_metrics
+
+    mc = ModelConfig()
+    b = 32
+    model = PHDFor3DJoints(generator=torch.Generator().manual_seed(1), device=dev)
+    make_optimizer(model, 1e-4)  # phase 1: f_AR frozen
+    trainable = [(n, prm) for n, prm in model.named_parameters() if prm.requires_grad]
+    feats = torch.randn(b, SEQ_LEN, mc.feature_dim, generator=g).to(dev)
+    batch = (feats, (0.3 * torch.randn(b, SEQ_LEN, 17, 3, generator=g)).to(dev),
+             (100 * torch.randn(b, SEQ_LEN, 17, 2, generator=g)).to(dev),
+             (1000 * torch.eye(3)).expand(b, 3, 3).contiguous().to(dev))
+
+    def both(dropout):
+        model.dropout = dropout
+        out = {}
+        for fused in (True, False):
+            zero_counts()
+            gen = torch.Generator(device=dev).manual_seed(7)
+            m = grads_and_metrics(model, batch, gen, fused=fused)
+            torch.cuda.synchronize()
+            out[fused] = (m, {n: prm.grad.clone() for n, prm in trainable},
+                          read_counts())
+        return out
+
+    rec = {"phase": "train_step", "batch": b, "trainable_tensors": len(trainable)}
+    for params in ("seeded", "tie-free"):
+        if params == "tie-free":
+            make_tie_free_(model, g)
+        for dropout in (0.0, 0.5):
+            out = both(dropout)
+            (m_f, g_f, n_f), (m_p, g_p, n_p) = out[True], out[False]
+            compare(f"step loss {params} dropout={dropout}", m_f["loss"], m_p["loss"],
+                    LOSS_TOL)
+            # element-wise only where no ReLU input lies near 0
+            tol, rn_tol = ((None, SEEDED_REL_NORM_TOL) if params == "seeded"
+                           else (GRAD_TOL, REL_NORM_TOL))
+            leaves = {}
+            for name, _ in trainable:
+                got, want = g_f[name], g_p[name]
+                leaves[name] = {"rel_norm_err": rel_norm(got, want),
+                                "max_abs_err": float((got - want).abs().max()),
+                                "max_abs_grad": float(want.abs().max())}
+                if not (leaves[name]["rel_norm_err"] <= rn_tol
+                        and (tol is None or torch.allclose(got, want, **tol))):
+                    compare(f"step grad {params} dropout={dropout} {name}", got, want,
+                            tol, rn_tol)
+            want = {"gn_relu_cconv": 4, "gn_relu_cconv_bwd": 4,
+                    "joint_regressor": 1 if dropout == 0.0 else 0,
+                    "joint_regressor_bwd": 1 if dropout == 0.0 else 0}
+            if n_f != want or any(n_p.values()):
+                raise AssertionError(f"step launches fused {n_f} (want {want}), "
+                                     f"plain {n_p} (want none)")
+            log({"check": f"step grads {params} dropout={dropout}", "leaves": leaves})
+            rec[f"{params}_dropout_{dropout}"] = {
+                "loss": float(m_f["loss"]), "launches": n_f,
+                "grad_max_abs_err": max(v["max_abs_err"] for v in leaves.values()),
+                "grad_max_rel_norm_err": max(v["rel_norm_err"] for v in leaves.values()),
+                "grad_min_max_abs": min(v["max_abs_grad"] for v in leaves.values())}
+    model.dropout = 0.0
+    gen = torch.Generator(device=dev)
+    for fused in (True, False):
+        rec[f"step_ms_{'fused' if fused else 'plain'}"] = time_ms(
+            lambda: grads_and_metrics(model, batch, gen, fused=fused), reps=10)
+    rec["tol"] = {"loss": LOSS_TOL, "grad": GRAD_TOL, "rel_norm": REL_NORM_TOL,
+                  "seeded_rel_norm": SEEDED_REL_NORM_TOL}
+    log(rec)
+    return rec
+
+
+def write_store(root, g, clips=128, per_shard=16, t=40, f=2048):
+    """A full-width feature store: `clips` clips of (t, f) features, one
+    variant each, the first half subject 1 (train), the rest subject 5
+    (val), written with the port's ShardWriter."""
+    from h36x_torch.data.shards import ShardWriter, write_index
+
+    writer = ShardWriter(root, n_vars=1)
+    index = []
+    for sid in range(clips // per_shard):
+        subject = 1 if sid < clips // per_shard // 2 else 5
+        arrays = {
+            "feats": torch.randn(per_shard, t, f, generator=g).numpy(),
+            "joints3d": (300 * torch.randn(per_shard, t, 17, 3, generator=g)).numpy(),
+            "joints2d": (100 * torch.randn(per_shard, t, 17, 2, generator=g)).numpy(),
+            "K": (1000 * torch.eye(3)).expand(per_shard, 3, 3).contiguous().numpy(),
+        }
+        meta = [{"subject": subject, "action": f"A{c}", "cam": "cam_0",
+                 "start": 10 * c} for c in range(per_shard)]
+        writer.write(arrays, meta)
+        index += [{"shard_id": sid, "row": c, "subject": subject,
+                   "action": f"A{c}", "cam": "cam_0", "start": 10 * c}
+                  for c in range(per_shard)]
+    write_index(root, index, n_shards=clips // per_shard, n_clips=clips,
+                n_variants=1, aug_names=["orig"], seq_len=t, frame_skip=2,
+                feat_dtype="float32")
+
+
+def drive_train_path(g, tmp):
+    """The trainer end to end: h36x_torch.cli.train.main over a full-width
+    store, 2 epochs, fused kernels, dropout 0; returns the launch counts."""
+    import math
+
+    from h36x_torch.cli.train import main as train_main
+    from h36x_torch.train.checkpoint import load_params_only
+
+    store, outdir = os.path.join(tmp, "store"), os.path.join(tmp, "runs")
+    t0 = time.perf_counter()
+    write_store(store, g)
+    log({"phase": "store_written", "seconds": time.perf_counter() - t0})
+    epochs, batch, train_clips, val_clips = 2, 32, 64, 64
+    zero_counts()
+    t0 = time.perf_counter()
+    model, best = train_main([
+        "--train-root", store, "--train-subjects", "1", "--val-subjects", "5",
+        "--outdir", outdir, "--optim.fused", "true", "--model.dropout", "0",
+        "--optim.epochs", str(epochs), "--optim.batch-size", str(batch),
+        "--optim.log-every", "0"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+
+    steps = epochs * (train_clips // batch)
+    evals = epochs * math.ceil(val_clips / batch)
+    want = {"gn_relu_cconv": 4 * steps + 4 * evals, "gn_relu_cconv_bwd": 4 * steps,
+            "joint_regressor": steps + evals, "joint_regressor_bwd": steps}
+    with open(os.path.join(outdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    log({"phase": "trainer", "seconds": seconds, "train_steps": steps,
+         "eval_batches": evals, "launches": launches, "best_val_mpjpe": best,
+         "metrics": rows})
+    if launches != want:
+        raise AssertionError(f"trainer launches {launches} != {want}")
+    if len(rows) != epochs or not all(
+            math.isfinite(r[k]) for r in rows for k in ("train_loss", "val_loss",
+                                                        "val_mpjpe")):
+        raise AssertionError(f"metrics.jsonl: {rows}")
+    for name in ("best.msgpack", "best.json", "last.msgpack", "last.json"):
+        if not os.path.exists(os.path.join(outdir, name)):
+            raise AssertionError(f"trainer wrote no {name}")
+    saved = {k: v.cpu() for k, v in model.state_dict().items()}
+    last = load_params_only(os.path.join(outdir, "last.msgpack"), saved)
+    if not all(torch.equal(last[k], saved[k]) for k in saved):
+        raise AssertionError("last.msgpack differs from the trained model")
+    with open(os.path.join(outdir, "best.json")) as f:
+        best_epoch = json.load(f)["epoch"]
+    best_params = load_params_only(os.path.join(outdir, "best.msgpack"), saved)
+    if best_epoch == epochs - 1 and not all(
+            torch.equal(best_params[k], saved[k]) for k in saved):
+        raise AssertionError("best.msgpack (last epoch) differs from the model")
+    log({"check": "trainer checkpoints", "best_epoch": best_epoch, "ok": True})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -287,12 +740,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
-    kernels = [check_temporal(dev, g), check_regressor(dev, g)]
+    kernels = [check_temporal(dev, g), check_temporal_bwd(dev, g),
+               check_regressor(dev, g), check_regressor_bwd(dev, g)]
+    check_train_step(dev, g)
 
+    # the two main paths, each with the counts set to 0 just before it
     with tempfile.TemporaryDirectory() as tmp:
-        launches = drive_main_path(dev, g, tmp)
+        serve = drive_main_path(dev, g, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        train = drive_train_path(g, tmp)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = serve[k["name"]] + train[k["name"]]
+        k["launches_by_path"] = {"serve": serve[k["name"]], "train": train[k["name"]]}
         log(dict(k))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

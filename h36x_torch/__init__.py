@@ -10,10 +10,11 @@ kernels (K, D, O)), so a flax param tree converts to a `state_dict` and back
 bit for bit (:func:`h36x_torch.models.phd.params_from_flax`), and checkpoints
 move between the two packages in flax's msgpack format.
 
-Entry points run on `cuda` unless the caller passes `device="cpu"`. On a
-CUDA tensor every op of the serving path launches its hand-written Hopper
-kernel (:mod:`h36x_torch.ops`); on a CPU tensor it runs the op's plain
-PyTorch version.
+Entry points (the serving daemon, `h36x_torch.cli.serve`, and the phase-1
+trainer, `h36x_torch.cli.train`) run on `cuda` unless the caller passes
+`device="cpu"`. On a CUDA tensor every kernel op launches its hand-written
+Hopper kernel, forward and backward (:mod:`h36x_torch.ops`); on a CPU
+tensor it runs the op's plain PyTorch version.
 """
 
 from h36x_torch.config import FEATURE_DIM, JOINTS_NUM, LATENT_DIM, SEQ_LEN, ModelConfig

@@ -1,24 +1,53 @@
-"""Model configuration (counterpart of h36x/config.py, architecture part).
+"""Configuration (counterpart of h36x/config.py).
 
-Only what the serving slice reads is carried over: the clip geometry
-constants and the architecture fields of `ModelConfig`. The training,
-extraction and mesh configs come with their slices.
+The clip geometry constants, `ModelConfig`, and the training configs
+(`DataConfig`, `OptimConfig`, `MeshConfig`, `DistConfig`, `TrainConfig`)
+with h36x's field names and defaults, so the trainer takes the same
+`--optim.batch-size`-style flags (:func:`parse_into`). Only the fields
+that the trainer reads are carried over; values that this slice of the port
+does not run yet are refused (:func:`h36x_torch.train.loop.check_supported`).
+The phase-2 curriculum fields, the multi-process launch fields and the
+extraction and ingest configs come with their slices.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import argparse
+import dataclasses
+import typing
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
 
 SEQ_LEN = 40  # frames per clip (after subsampling)
 JOINTS_NUM = 17  # H36M 17-joint skeleton
 FEATURE_DIM = 2048  # ResNet-50 pooled feature width
 LATENT_DIM = 1024  # model latent ("movie strip") width
+BATCH_SIZE = 32
+LR = 1e-4
+EPOCHS = 50
+
+TRAIN_SUBJECTS = (1, 6, 7, 8)
+VAL_SUBJECTS = (5,)
+
+
+@dataclass
+class DataConfig:
+    """Feature-store read configuration for training."""
+
+    seq_len: int = SEQ_LEN
+    shard_cache_size: int = -1  # -1: auto (64 for the training set)
+    log_shard_loads: int = 0  # >0: print shard-cache counts every N loads
+    max_clips: Optional[int] = None  # truncate the train set (smoke runs)
+    augment: bool = True  # train on all stored variants
+    # dtype the FEATURE arrays cross the host->device link in (float32 |
+    # bfloat16 | float16); the model computes in float32 either way
+    feed_dtype: str = "float32"
 
 
 @dataclass
 class ModelConfig:
-    """PHD model hyper-parameters (the architecture fields of
-    h36x.config.ModelConfig, same names and defaults)."""
+    """PHD model hyper-parameters (same names and defaults as
+    h36x.config.ModelConfig)."""
 
     latent_dim: int = LATENT_DIM
     feature_dim: int = FEATURE_DIM
@@ -27,5 +56,141 @@ class ModelConfig:
     ar_num_blocks: int = 3  # f_AR depth
     regressor_iters: int = 3
     regressor_hidden: int = 1024
+    dropout: float = 0.5
     groups: int = 32
     kernel_size: int = 3
+    dtype: str = "float32"  # compute dtype; only float32 in this slice
+
+
+@dataclass
+class OptimConfig:
+    lr: float = LR
+    weight_decay: float = 1e-2
+    epochs: int = EPOCHS
+    batch_size: int = BATCH_SIZE
+    freeze_ar: bool = True  # phase-1: f_AR frozen
+    phase: int = 1  # 1: train f_movie+f_3D; 2: train f_AR (curriculum); 0: all
+    early_stop_patience: int = 10
+    early_stop_min_delta: float = 0.0
+    # run at most this many epochs this invocation (0 = no bound); the LR
+    # schedule still targets `epochs`
+    stop_after_epochs: int = 0
+    lambda_2d: float = 0.0  # 2D reprojection loss weight (0 = 3D MSE only)
+    seed: int = 0
+    log_every: int = 500
+    # train the phase-1 step through the hand-written kernels, forward and
+    # backward (B1/B2 for every residual block, B3/B4 for the regressor at
+    # dropout 0)
+    fused: bool = False
+    steps_per_dispatch: int = 1
+    grad_accum: int = 1
+
+
+@dataclass
+class MeshConfig:
+    """Device layout (data = batch sharding, model = tensor parallel,
+    slices = multislice); this slice runs on one device."""
+
+    data: int = -1
+    model: int = 1
+    slices: int = 1
+
+
+@dataclass
+class DistConfig:
+    """Multi-process launch; this slice runs one process."""
+
+    num_processes: int = 1
+
+
+@dataclass
+class TrainConfig:
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    dist: DistConfig = field(default_factory=DistConfig)
+    train_root: str = ""
+    val_root: str = ""
+    outdir: str = "./runs/phase1"
+    resume: str = ""
+    init_from: str = ""  # warm-start weights from a checkpoint .msgpack
+    train_subjects: List[int] = field(default_factory=lambda: list(TRAIN_SUBJECTS))
+    val_subjects: List[int] = field(default_factory=lambda: list(VAL_SUBJECTS))
+    profile_dir: str = ""
+    ckpt_backend: str = "msgpack"
+
+
+# ---------------------------------------------------------------------------
+# CLI plumbing: every dataclass field becomes a --dotted.path flag.
+# ---------------------------------------------------------------------------
+
+
+def _parse_bool(s: str) -> bool:
+    if s.lower() in ("1", "true", "yes", "on"):
+        return True
+    if s.lower() in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {s!r}")
+
+
+def add_fields(parser: argparse.ArgumentParser, cfg, prefix: str = "") -> None:
+    """Register a --dotted.path flag (default None) for every field of the
+    dataclass `cfg`, nested dataclasses included."""
+    for f in dataclasses.fields(cfg):
+        name = f"{prefix}{f.name}"
+        value = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(value):
+            add_fields(parser, value, prefix=f"{name}.")
+            continue
+        flag = "--" + name.replace("_", "-")
+        if isinstance(value, bool):
+            parser.add_argument(flag, type=_parse_bool, default=None)
+        elif isinstance(value, list):
+            hints = typing.get_type_hints(type(cfg))
+            args = typing.get_args(hints.get(f.name, None))
+            elem = args[0] if args and args[0] in (int, float, str) else int
+            parser.add_argument(flag, type=elem, nargs="*", default=None)
+        elif value is None:
+            parser.add_argument(flag, type=int, default=None)
+        else:
+            parser.add_argument(flag, type=type(value), default=None)
+
+
+def _apply(cfg, dotted: str, value) -> None:
+    head, _, rest = dotted.partition(".")
+    if rest:
+        _apply(getattr(cfg, head), rest, value)
+    else:
+        setattr(cfg, head, value)
+
+
+def _detach(dc) -> None:
+    """Copy nested dataclasses and lists in place, so edits to a parsed
+    config never reach the template it was copied from."""
+    for f in dataclasses.fields(dc):
+        v = getattr(dc, f.name)
+        if dataclasses.is_dataclass(v):
+            setattr(dc, f.name, dataclasses.replace(v))
+            _detach(getattr(dc, f.name))
+        elif isinstance(v, list):
+            setattr(dc, f.name, list(v))
+
+
+def apply_namespace(cfg, ns: argparse.Namespace, skip=()):
+    """A copy of `cfg` with every flag of `ns` that was given (not None),
+    the names in `skip` aside."""
+    out = dataclasses.replace(cfg)
+    _detach(out)
+    for key, value in vars(ns).items():
+        if value is None or key in skip:
+            continue
+        _apply(out, key.replace("-", "_"), value)
+    return out
+
+
+def parse_into(cfg, argv: Optional[Sequence[str]] = None, description: str = ""):
+    """Parse CLI arguments into (a copy of) the given config dataclass."""
+    parser = argparse.ArgumentParser(description=description)
+    add_fields(parser, cfg)
+    return apply_namespace(cfg, parser.parse_args(argv))

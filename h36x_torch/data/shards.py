@@ -1,0 +1,226 @@
+"""The feature-shard store (counterpart of h36x/data/shards.py), numpy only.
+
+The format is h36x's, so a store written by either package reads the same
+in the other. A shard file `shard_XXXXX.h36x` is
+
+    bytes 0..8      magic b"H36XSHRD"
+    bytes 8..12     uint32 LE header length H
+    bytes 12..12+H  JSON header {"version": 1, "n_vars": int,
+                    "arrays": {name: {"dtype", "shape", "offset", "nbytes",
+                    "crc32"}}, "meta": [per-row dicts]}
+    payload         little-endian raw arrays at 64-byte-aligned offsets
+
+where "crc32" is the zlib CRC32 of the array's payload bytes. A shard holds
+N_clips x n_vars rows, a clip's variants contiguous. `index.json` maps
+clips to (shard, row). bfloat16 arrays (readable by h36x through
+ml_dtypes) and the reference's torch `.pt` stores are not read here.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import zlib
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+
+MAGIC = b"H36XSHRD"
+_ALIGN = 64
+_HOST_LE = sys.byteorder == "little"
+
+ARRAY_KEYS = ("feats", "joints3d", "joints2d", "K")
+
+_DTYPE_NAMES = {"float32", "float16", "float64", "int32", "int64", "uint8"}
+
+
+def np_dtype(name: str) -> np.dtype:
+    """The little-endian numpy dtype of a shard dtype name."""
+    if name not in _DTYPE_NAMES:
+        raise ValueError(f"unsupported shard dtype {name!r} (h36x_torch reads "
+                         f"{sorted(_DTYPE_NAMES)})")
+    return np.dtype(name).newbyteorder("<")
+
+
+def shard_path(root, shard_id: int) -> Path:
+    return Path(root) / f"shard_{shard_id:05d}.h36x"
+
+
+def write_shard(path, arrays: Dict[str, np.ndarray], meta: List[dict], n_vars: int) -> None:
+    """Serialize one shard (atomic rename). `arrays` share the leading row count."""
+    rows = {k: int(v.shape[0]) for k, v in arrays.items()}
+    if len(set(rows.values())) != 1:
+        raise ValueError(f"inconsistent row counts: {rows}")
+    n_rows = next(iter(rows.values()))
+    if len(meta) != n_rows:
+        raise ValueError(f"meta has {len(meta)} entries for {n_rows} rows")
+
+    header: dict = {"version": 1, "n_vars": int(n_vars), "arrays": {}, "meta": meta}
+    entries = {}
+    for name, arr in arrays.items():
+        arr = np.ascontiguousarray(arr)
+        if arr.dtype.byteorder == ">" or (arr.dtype.byteorder == "=" and not _HOST_LE):
+            arr = arr.astype(arr.dtype.newbyteorder("<"))
+        if arr.dtype.name not in _DTYPE_NAMES:
+            raise ValueError(f"unsupported shard dtype {arr.dtype!r}")
+        entries[name] = arr
+        header["arrays"][name] = {
+            "dtype": arr.dtype.name,
+            "shape": list(arr.shape),
+            "offset": 0,
+            "nbytes": int(arr.nbytes),
+            "crc32": zlib.crc32(arr.data) & 0xFFFFFFFF,
+        }
+
+    def layout(header_len: int) -> None:
+        off = len(MAGIC) + 4 + header_len
+        for name in entries:
+            off = (off + _ALIGN - 1) // _ALIGN * _ALIGN
+            header["arrays"][name]["offset"] = off
+            off += header["arrays"][name]["nbytes"]
+
+    # the offsets are written into the header, whose length moves them:
+    # repeat until the header length settles
+    blob = json.dumps(header).encode()
+    layout(len(blob))
+    blob2 = json.dumps(header).encode()
+    while len(blob2) != len(blob):
+        blob = blob2
+        layout(len(blob))
+        blob2 = json.dumps(header).encode()
+
+    tmp = str(path) + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(MAGIC)
+        f.write(np.array(len(blob2), dtype="<u4").tobytes())
+        f.write(blob2)
+        for name, arr in entries.items():
+            f.seek(header["arrays"][name]["offset"])
+            f.write(arr.data)
+    os.replace(tmp, path)
+
+
+def read_shard(path, mmap: bool = True) -> dict:
+    """Load a shard into {'feats': ..., 'joints3d': ..., ..., 'meta': [...],
+    'n_vars': int}; with mmap=True the arrays are memory-mapped."""
+    path = str(path)
+    with open(path, "rb") as f:
+        if f.read(len(MAGIC)) != MAGIC:
+            raise ValueError(f"{path}: not an h36x shard")
+        (hlen,) = np.frombuffer(f.read(4), dtype="<u4")
+        header = json.loads(f.read(int(hlen)).decode())
+
+    out: dict = {"meta": header["meta"], "n_vars": header["n_vars"]}
+    for name, spec in header["arrays"].items():
+        dt = np_dtype(spec["dtype"])
+        shape = tuple(spec["shape"])
+        if mmap:
+            arr = np.memmap(path, dtype=dt, mode="r", offset=spec["offset"], shape=shape)
+        else:
+            arr = np.fromfile(path, dtype=dt, count=int(np.prod(shape)),
+                              offset=spec["offset"]).reshape(shape)
+        out[name] = arr
+    return out
+
+
+class ShardWriter:
+    """Writes numbered shard files, one per `write` call."""
+
+    def __init__(self, out_root, n_vars: int):
+        self.out_root = Path(out_root)
+        self.out_root.mkdir(parents=True, exist_ok=True)
+        self.n_vars = n_vars
+        self.shard_id = 0
+
+    def write(self, arrays: Dict[str, np.ndarray], meta: List[dict]) -> int:
+        sid = self.shard_id
+        write_shard(shard_path(self.out_root, sid), arrays, meta, self.n_vars)
+        self.shard_id += 1
+        return sid
+
+
+class ShardReader:
+    """LRU cache of open shards. log_loads_every > 0 prints the running
+    load/hit counts every Nth disk load."""
+
+    def __init__(self, root, cache_size: int = 2, mmap: bool = True,
+                 log_loads_every: int = 0):
+        self.root = Path(root)
+        self.cache_size = cache_size
+        self.mmap = mmap
+        self.log_loads_every = log_loads_every
+        self._cache: dict = {}
+        self._order: list = []
+        self.load_calls = 0
+        self.hits = 0
+
+    def get(self, shard_id: int) -> dict:
+        if shard_id in self._cache:
+            self.hits += 1
+            self._order.remove(shard_id)
+            self._order.append(shard_id)
+            return self._cache[shard_id]
+        # cache_size 0 means no caching: nothing to evict, nothing kept
+        while self._order and len(self._order) >= self.cache_size:
+            del self._cache[self._order.pop(0)]
+        self.load_calls += 1
+        shard = read_shard(shard_path(self.root, shard_id), mmap=self.mmap)
+        if self.cache_size > 0:
+            self._cache[shard_id] = shard
+            self._order.append(shard_id)
+        if self.log_loads_every and self.load_calls % self.log_loads_every == 0:
+            print(f"[shards] {self.load_calls} loads / {self.hits} hits "
+                  f"(cache {self.cache_size}, shard {shard_id})", flush=True)
+        return shard
+
+    def stats(self) -> dict:
+        return {"loads": self.load_calls, "hits": self.hits,
+                "cache_size": self.cache_size}
+
+
+def write_index(
+    root,
+    clips: List[dict],
+    *,
+    n_shards: int,
+    n_clips: int,
+    n_variants: int,
+    aug_names: List[str],
+    seq_len: int,
+    frame_skip: int,
+    feat_dtype: str,
+    shuffle_seed: Optional[int] = None,
+    shuffle_pool: Optional[int] = None,
+) -> None:
+    """Write index.json describing the shard set (atomic rename)."""
+    payload = {
+        "version": 1,
+        "clips": clips,
+        "n_shards": n_shards,
+        "n_clips": n_clips,
+        "n_variants": n_variants,
+        "aug_names": aug_names,
+        "seq_len": seq_len,
+        "frame_skip": frame_skip,
+        "feat_dtype": feat_dtype,
+        "variants_grouped": True,
+        "shuffle_seed": shuffle_seed,
+        "shuffle_pool": shuffle_pool,
+    }
+    tmp = Path(root) / "index.json.tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f)
+    os.replace(tmp, Path(root) / "index.json")
+
+
+def load_index(root) -> dict:
+    """Load index.json of a store."""
+    path = Path(root) / "index.json"
+    if not path.exists():
+        raise FileNotFoundError(
+            f"no index.json under {root}; run the extract stage first (the "
+            "reference's index.pt stores are not read by h36x_torch)")
+    with open(path) as f:
+        return json.load(f)

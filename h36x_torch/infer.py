@@ -9,6 +9,10 @@ PHDFor3DJoints over a flax-layout param tree of tensors (see
   - the iterative joint regressor -> one fused call
     (:mod:`h36x_torch.ops.regressor`).
 
+:func:`phd_forward_train_fused` is the training forward of the phase-1
+loss path through the same ops, differentiable (their backward kernels on
+CUDA tensors).
+
 With `use_kernels=True` (the default) those calls go to the CUDA kernels
 for CUDA tensors and to the plain versions for CPU tensors;
 `use_kernels=False` runs the plain versions on any device. The model's own
@@ -31,12 +35,14 @@ def sorted_blocks(net_params: dict):
     return sorted(net_params.keys(), key=lambda n: int(n.removeprefix("block")))
 
 
-def _plain_block(x, p, groups, valid_len=None):
+def _plain_block(x, p, groups, valid_len=None, dropout_mask=None):
     h = reference_gn_relu_cconv(
         x, p["gn1"]["scale"], p["gn1"]["bias"],
         p["conv1"]["kernel"], p["conv1"]["bias"], groups=groups,
         valid_len=valid_len,
     )
+    if dropout_mask is not None:
+        h = h * dropout_mask
     return reference_gn_relu_cconv(
         h, p["gn2"]["scale"], p["gn2"]["bias"],
         p["conv2"]["kernel"], p["conv2"]["bias"],
@@ -127,3 +133,76 @@ def make_fused_forward(joints_num: int = 17, groups: int = 32,
                           iters=regressor_iters)
 
     return forward
+
+
+def dropout_mask(shape, keep: float, generator: torch.Generator, like: torch.Tensor):
+    """Inverted-dropout mask (Bernoulli(keep) / keep) drawn from `generator`,
+    which lives on the tensors' device."""
+    u = torch.rand(shape, generator=generator, device=like.device, dtype=like.dtype)
+    return (u < keep).to(like.dtype) / keep
+
+
+def _regressor_train(phi, reg_params, generator, dropout, iters, joints_num,
+                     use_kernels):
+    """Training-mode regressor. At dropout 0 it is the eval regressor (with
+    `use_kernels`, the fused one: B3 forward, B4 backward on CUDA tensors);
+    with dropout the per-round masks of the flax JointRegressor sit inside
+    the loop, which the kernel cannot take, so it runs as plain torch with
+    autograd."""
+    if dropout == 0.0:
+        return _regressor(phi, reg_params, joints_num, use_kernels, iters=iters)
+    b, t, d = phi.shape
+    out_dim = joints_num * 3
+    w1, b1 = reg_params["fc1"]["kernel"], reg_params["fc1"]["bias"]
+    w2, b2 = reg_params["fc2"]["kernel"], reg_params["fc2"]["bias"]
+    w3, b3 = reg_params["fc3"]["kernel"], reg_params["fc3"]["bias"]
+    phi2d = phi.reshape(b * t, d)
+    keep = 1.0 - dropout
+    y = torch.zeros((b * t, out_dim), dtype=phi.dtype, device=phi.device)
+    for _ in range(iters):
+        h = torch.relu(torch.cat([phi2d, y], dim=-1) @ w1 + b1)
+        h = h * dropout_mask(h.shape, keep, generator, h)
+        h = torch.relu(h @ w2 + b2)
+        y = y + h @ w3 + b3
+    return y.reshape(b, t, joints_num, 3)
+
+
+def phd_forward_train_fused(
+    params: dict,
+    feats: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    dropout: float = 0.5,
+    joints_num: int = 17,
+    groups: int = 32,
+    regressor_iters: int = 3,
+    use_kernels: bool = True,
+):
+    """Training forward of the phase-1 loss path (feats -> input_proj ->
+    f_movie -> f_3D), with gradients. With `use_kernels` every residual block
+    is two fused calls (B1 forward, B2 backward on CUDA tensors) with the
+    dropout mask between them, where the flax ResidualBlock puts it; the
+    regressor follows :func:`_regressor_train`. `use_kernels=False` is the
+    plain autograd path of the same function (the model's train forward).
+    Masks are drawn from `generator` (needed when dropout > 0): one per
+    block, then one per regressor round, in that order on both paths. f_AR is
+    not run: the phase-1 loss never reads it.
+
+    Returns (phi, joints)."""
+    if dropout > 0.0 and generator is None:
+        raise ValueError("dropout > 0 needs a torch.Generator for its masks")
+    x = feats @ params["input_proj"]["kernel"] + params["input_proj"]["bias"]
+    keep = 1.0 - dropout
+    for name in sorted_blocks(params["f_movie"]):
+        p = params["f_movie"][name]
+        mask = None
+        if dropout > 0.0:
+            shape = x.shape[:2] + (p["conv1"]["kernel"].shape[-1],)
+            mask = dropout_mask(shape, keep, generator, x)
+        if use_kernels:
+            x = fused_residual_block(x, p, groups=groups, dropout_mask=mask)
+        else:
+            x = _plain_block(x, p, groups, dropout_mask=mask)
+    joints = _regressor_train(x, params["f_3D"], generator, dropout,
+                              regressor_iters, joints_num, use_kernels)
+    return x, joints

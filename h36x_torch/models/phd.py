@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from h36x_torch.infer import phd_forward_fused
+from h36x_torch.infer import phd_forward_fused, phd_forward_train_fused
 from h36x_torch.utils.runtime import resolve_device
 
 
@@ -107,17 +107,25 @@ class PHDFor3DJoints(nn.Module):
     Parameters are drawn from `generator` (a CPU torch.Generator; seed 0
     when None) and then moved to `device` (cuda unless the caller asks for
     another).
+
+    `train=True` runs the training forward of the phase-1 loss path with
+    gradients and dropout (masks from `dropout_generator`, on the model's
+    device) and returns (phi, joints_phi): f_AR is not run, no phase-1 loss
+    reads it. With `use_kernels=False` that is plain autograd through the
+    plain ops, the counterpart of `model.apply(train=True)`.
     """
 
     def __init__(self, latent_dim: int = 1024, feature_dim: int = 2048,
                  joints_num: int = 17, number_blocks: int = 2,
                  ar_blocks: int = 3, groups: int = 32, kernel_size: int = 3,
-                 regressor_iters: int = 3, regressor_hidden: int = 1024, *,
+                 regressor_iters: int = 3, regressor_hidden: int = 1024,
+                 dropout: float = 0.5, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         device = resolve_device(device)
         self.joints_num = joints_num
         self.groups = groups
+        self.dropout = dropout
         self.regressor_iters = regressor_iters
         self.input_proj = Dense(feature_dim, latent_dim)
         self.f_movie = CausalTemporalNet(latent_dim, number_blocks, kernel_size)
@@ -130,14 +138,22 @@ class PHDFor3DJoints(nn.Module):
                 m.reset_parameters(generator)
         self.to(device)
 
-    @torch.inference_mode()
     def forward(self, feats: torch.Tensor, predict_future: bool = False, *,
-                use_kernels: bool = True):
-        return phd_forward_fused(
-            param_tree(self), feats, predict_future,
-            joints_num=self.joints_num, groups=self.groups,
-            use_kernels=use_kernels, regressor_iters=self.regressor_iters,
-        )
+                use_kernels: bool = True, train: bool = False,
+                dropout_generator: Optional[torch.Generator] = None):
+        if train:
+            return phd_forward_train_fused(
+                param_tree(self), feats, dropout_generator,
+                dropout=self.dropout, joints_num=self.joints_num,
+                groups=self.groups, regressor_iters=self.regressor_iters,
+                use_kernels=use_kernels,
+            )
+        with torch.inference_mode():
+            return phd_forward_fused(
+                param_tree(self), feats, predict_future,
+                joints_num=self.joints_num, groups=self.groups,
+                use_kernels=use_kernels, regressor_iters=self.regressor_iters,
+            )
 
 
 def _nest(flat: dict) -> dict:

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # source name -> {C symbol: argtypes}; every symbol returns cudaError_t (int)
+# but those listed in RESTYPES
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "temporal": {
@@ -36,11 +37,24 @@ SIGNATURES = {
         # B, T, D, O, K, G, eps, stream
         "h36x_gn_relu_cconv": [_P] * 9 + [_I] * 6 + [_F, _P],
     },
+    "temporal_bwd": {
+        # x, scale, bias, w, g, mean, rstd, da, part, dx, dw, dscale, dbias,
+        # B, T, D, O, K, G, stream
+        "h36x_gn_relu_cconv_bwd": [_P] * 13 + [_I] * 6 + [_P],
+    },
     "regressor": {
         # phi, w1, b1, w2, b2, w3, b3, out, N, D, H, out_dim, iters, stream
         "h36x_joint_regressor": [_P] * 8 + [_I] * 5 + [_P],
     },
+    "regressor_bwd": {
+        # N, H, P, iters -> workspace bytes
+        "h36x_joint_regressor_bwd_workspace": [_I] * 4,
+        # phi, w1, b1, w2, b2, w3, b3, g, ws, dphi, dw1, db1, dw2, db2, dw3,
+        # db3, N, D, H, P, iters, stream
+        "h36x_joint_regressor_bwd": [_P] * 16 + [_I] * 5 + [_P],
+    },
 }
+RESTYPES = {"h36x_joint_regressor_bwd_workspace": ctypes.c_size_t}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -62,7 +76,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the key covers the shared headers too, so a changed header rebuilds
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
@@ -107,7 +123,7 @@ def load(*names: str) -> list:
             for sym, argtypes in SIGNATURES[n].items():
                 fn = getattr(lib, sym)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(sym, ctypes.c_int)
             _libs[n] = lib
         return [_libs[n] for n in names]
 
@@ -121,16 +137,11 @@ def check(rc: int, what: str) -> None:
 
 
 def require_cuda_f32(what: str, **tensors) -> None:
-    """The kernels take contiguous float32 CUDA tensors on one device, and
-    have no backward yet: a tensor that needs a gradient is refused rather
-    than silently cut from the graph."""
+    """The kernels take contiguous float32 CUDA tensors on one device."""
     device = None
     for name, t in tensors.items():
         if t is None:
             continue
-        if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(f"{what}: {name} requires grad, but the kernel "
-                               "has no backward; run it under torch.no_grad()")
         if t.device.type != "cuda":
             raise ValueError(f"{what}: {name} is on {t.device}, expected cuda")
         if t.dtype != torch.float32:

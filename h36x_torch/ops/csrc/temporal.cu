@@ -27,8 +27,9 @@
 //      stayed in VMEM. Every row carries its own (b, t), so a shifted read
 //      never reaches into the previous sample; the ragged edges of M = B*T,
 //      N = O and K*D are masked. Conv bias and residual are added in the
-//      epilogue. The tiles are 32 x 64 with a depth of 32 and 4 x 4 outputs
-//      a thread (128 threads), on the FP32 FMA pipes: at the serving shape
+//      epilogue. The tile (gemm_tile.cuh, shared with the backward kernels)
+//      is 32 x 64 with a depth of 32 and 4 x 4 outputs a thread (128
+//      threads), on the FP32 FMA pipes: at the serving shape
 //      that is 320 blocks, two to three on each of the 132 SMs, which a tile
 //      sweep on the H100 found faster than larger tiles with fewer blocks.
 //      Each thread loads one fixed column of the A tile, so its rows' (b, t)
@@ -40,7 +41,11 @@
 
 #include <cuda_runtime.h>
 
+#include "gemm_tile.cuh"
+
 namespace {
+
+using namespace h36x;
 
 constexpr int kStatsThreads = 256;
 
@@ -82,23 +87,14 @@ __global__ void gn_stats(const float* __restrict__ x, float* __restrict__ mean,
   }
 }
 
-constexpr int BM = 32, BN = 64, BK = 32, TM = 4, TN = 4;
-constexpr int kGemmThreads = (BM / TM) * (BN / TN);  // 128
-constexpr int APAD = 4;  // breaks the bank stride of the transposed A store
-constexpr int A_ROWS = BM * BK / kGemmThreads;  // A-tile rows each thread loads
-constexpr int B_ROWS = BK * BN / kGemmThreads;  // B-tile rows each thread loads
-static_assert(kGemmThreads % BK == 0 && kGemmThreads % BN == 0, "load layout");
-static_assert(TM % 4 == 0 && TN % 4 == 0, "float4 shared-memory reads");
-
-// grid (ceil(O/BN), ceil(B*T/BM)), block kGemmThreads
-__global__ void __launch_bounds__(kGemmThreads)
+// grid (ceil(O/BN), ceil(B*T/BM)), block kThreads
+__global__ void __launch_bounds__(kThreads)
 cconv_gemm(const float* __restrict__ x, const float* __restrict__ scale,
            const float* __restrict__ bias, const float* __restrict__ w,
            const float* __restrict__ cb, const float* __restrict__ res,
            const float* __restrict__ mean, const float* __restrict__ rstd,
            float* __restrict__ out, int B, int T, int D, int O, int K, int G) {
-  __shared__ __align__(16) float As[BK][BM + APAD];
-  __shared__ __align__(16) float Bs[BK][BN];
+  __shared__ __align__(16) Tile s;
 
   const int M = B * T, KD = K * D, gs = D / G;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -108,10 +104,10 @@ cconv_gemm(const float* __restrict__ x, const float* __restrict__ scale,
   // A loads: each thread keeps one reduction column (a_kl) of the tile and
   // rows a_row + 4 e, so its (b, t) bookkeeping is done once, here.
   const int a_kl = tid % BK, a_row = tid / BK;
-  int a_bt[A_ROWS], a_t[A_ROWS], a_b[A_ROWS];
+  int a_bt[A_ELEMS], a_t[A_ELEMS], a_b[A_ELEMS];
 #pragma unroll
-  for (int e = 0; e < A_ROWS; ++e) {
-    const int m = m0 + a_row + e * (kGemmThreads / BK);
+  for (int e = 0; e < A_ELEMS; ++e) {
+    const int m = m0 + a_row + e * (kThreads / BK);
     const int b = m < M ? m / T : -1;
     a_b[e] = b;
     a_t[e] = m < M ? m - b * T : 0;
@@ -123,7 +119,7 @@ cconv_gemm(const float* __restrict__ x, const float* __restrict__ scale,
   const int b_nl = tid % BN, b_kl = tid / BN;
   const int b_n = n0 + b_nl;
 
-  float ra[A_ROWS], rmu[A_ROWS], rrs[A_ROWS], rsc = 0.f, rbi = 0.f, rb[B_ROWS];
+  float ra[A_ELEMS], rmu[A_ELEMS], rrs[A_ELEMS], rsc = 0.f, rbi = 0.f, rb[B_ELEMS];
   bool rk_ok = false;
 
   auto load = [&](int k0) {
@@ -133,7 +129,7 @@ cconv_gemm(const float* __restrict__ x, const float* __restrict__ scale,
       rsc = scale[a_c];
       rbi = bias[a_c];
 #pragma unroll
-      for (int e = 0; e < A_ROWS; ++e) {
+      for (int e = 0; e < A_ELEMS; ++e) {
         if (a_b[e] >= 0) {
           const int src = max(a_t[e] - shift, 0);
           ra[e] = x[(size_t)(a_bt[e] + src) * D + a_c];
@@ -145,49 +141,29 @@ cconv_gemm(const float* __restrict__ x, const float* __restrict__ scale,
     a_c += BK;
     while (a_c >= D) { a_c -= D; ++a_tap; }
 #pragma unroll
-    for (int e = 0; e < B_ROWS; ++e) {
-      const int kk = k0 + b_kl + e * (kGemmThreads / BN);
+    for (int e = 0; e < B_ELEMS; ++e) {
+      const int kk = k0 + b_kl + e * (kThreads / BN);
       rb[e] = (kk < KD && b_n < O) ? w[(size_t)kk * O + b_n] : 0.f;
     }
   };
 
   float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  zero_acc(acc);
 
   load(0);
   for (int k0 = 0; k0 < KD; k0 += BK) {
     // normalise + affine + ReLU on the way into shared memory
 #pragma unroll
-    for (int e = 0; e < A_ROWS; ++e) {
+    for (int e = 0; e < A_ELEMS; ++e) {
       const float v = (rk_ok && a_b[e] >= 0)
           ? fmaxf((ra[e] - rmu[e]) * rrs[e] * rsc + rbi, 0.f) : 0.f;
-      As[a_kl][a_row + e * (kGemmThreads / BK)] = v;
+      s.a[a_kl][a_row + e * (kThreads / BK)] = v;
     }
 #pragma unroll
-    for (int e = 0; e < B_ROWS; ++e) Bs[b_kl + e * (kGemmThreads / BN)][b_nl] = rb[e];
+    for (int e = 0; e < B_ELEMS; ++e) s.b[b_kl + e * (kThreads / BN)][b_nl] = rb[e];
     __syncthreads();
     if (k0 + BK < KD) load(k0 + BK);  // next tile's loads overlap this tile's math
-#pragma unroll
-    for (int kl = 0; kl < BK; ++kl) {
-      float a[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(&As[kl][ty * TM + i]);
-        a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
-      }
-#pragma unroll
-      for (int j = 0; j < TN; j += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(&Bs[kl][tx * TN + j]);
-        bv[j] = v.x; bv[j + 1] = v.y; bv[j + 2] = v.z; bv[j + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
+    tile_fma(s, acc, tx, ty);
     __syncthreads();
   }
 
@@ -219,7 +195,7 @@ extern "C" int h36x_gn_relu_cconv(const float* x, const float* scale,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((O + BN - 1) / BN, (B * T + BM - 1) / BM);
-  cconv_gemm<<<grid, kGemmThreads, 0, s>>>(x, scale, bias, w, cb, res, mean,
+  cconv_gemm<<<grid, kThreads, 0, s>>>(x, scale, bias, w, cb, res, mean,
                                            rstd, out, B, T, D, O, K, G);
   return (int)cudaGetLastError();
 }

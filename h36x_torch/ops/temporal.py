@@ -8,7 +8,9 @@ block; a full block is two calls (:func:`fused_residual_block`).
 - :func:`fused_gn_relu_cconv` is the wrapper of the CUDA kernel
   `csrc/temporal.cu`: on a CUDA tensor it launches the kernel and counts the
   launch in `fused_gn_relu_cconv.launches`; on a CPU tensor it runs the
-  plain version; on any other device it raises.
+  plain version; on any other device it raises. It is differentiable: its
+  backward on CUDA tensors is the kernel `csrc/temporal_bwd.cu`
+  (:func:`gn_relu_cconv_bwd`, counted in `gn_relu_cconv_bwd.launches`).
 """
 
 from __future__ import annotations
@@ -50,25 +52,11 @@ def reference_gn_relu_cconv(x, scale, bias, kernel, conv_bias, residual=None,
     return out
 
 
-def fused_gn_relu_cconv(x: torch.Tensor, scale: torch.Tensor,
-                        bias: torch.Tensor, kernel: torch.Tensor,
-                        conv_bias: torch.Tensor,
-                        residual: Optional[torch.Tensor] = None, *,
-                        groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """x (B, T, D), scale/bias (D,), kernel (K, D, O), conv_bias (O,),
-    residual optional (B, T, O). Returns (B, T, O) float32."""
+def _launch_forward(x, scale, bias, kernel, conv_bias, residual, groups, eps):
+    """B1 on CUDA tensors: (out, mean, rstd), mean/rstd (B, G) the GroupNorm
+    statistics the backward reuses."""
     b, t_len, d = x.shape
-    k_taps, d_in, d_out = kernel.shape
-    if d_in != d or d % groups != 0:
-        raise ValueError(f"kernel {tuple(kernel.shape)} / groups {groups} do "
-                         f"not fit x {tuple(x.shape)}")
-    if residual is not None and tuple(residual.shape) != (b, t_len, d_out):
-        raise ValueError(f"residual {tuple(residual.shape)} != {(b, t_len, d_out)}")
-    if x.device.type == "cpu":
-        return reference_gn_relu_cconv(x, scale, bias, kernel, conv_bias,
-                                       residual, groups=groups, eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_gn_relu_cconv runs on cuda or cpu, not {x.device}")
+    k_taps, _, d_out = kernel.shape
     _build.require_cuda_f32("fused_gn_relu_cconv", x=x, scale=scale, bias=bias,
                             kernel=kernel, conv_bias=conv_bias,
                             residual=residual)
@@ -86,19 +74,109 @@ def fused_gn_relu_cconv(x: torch.Tensor, scale: torch.Tensor,
             b, t_len, d, d_out, k_taps, groups, eps, stream)
     _build.check(rc, "fused_gn_relu_cconv")
     fused_gn_relu_cconv.launches += 1
-    return out
+    return out, mean, rstd
+
+
+def gn_relu_cconv_bwd(x, scale, bias, kernel, g, mean, rstd, groups: int = 32):
+    """Wrapper of the backward kernel `csrc/temporal_bwd.cu` (CUDA tensors
+    only): (dx, dW, dscale, dbias) of GN -> ReLU -> causal conv at output
+    gradient g (B, T, O), from the forward's statistics mean/rstd (B, G).
+    The conv-bias and residual gradients are not part of it."""
+    b, t_len, d = x.shape
+    k_taps, _, d_out = kernel.shape
+    if tuple(g.shape) != (b, t_len, d_out) or tuple(mean.shape) != (b, groups):
+        raise ValueError(f"g {tuple(g.shape)} / mean {tuple(mean.shape)} do not "
+                         f"fit x {tuple(x.shape)}, kernel {tuple(kernel.shape)}, "
+                         f"groups {groups}")
+    _build.require_cuda_f32("gn_relu_cconv_bwd", x=x, scale=scale, bias=bias,
+                            kernel=kernel, g=g, mean=mean, rstd=rstd)
+    dev = x.device
+    da = torch.empty((b, t_len, d), device=dev, dtype=torch.float32)
+    part = torch.empty((2, b, d), device=dev, dtype=torch.float32)
+    dx = torch.empty_like(da)
+    dw = torch.empty((k_taps, d, d_out), device=dev, dtype=torch.float32)
+    dscale = torch.empty((d,), device=dev, dtype=torch.float32)
+    dbias = torch.empty_like(dscale)
+    (lib,) = _build.load("temporal_bwd")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.h36x_gn_relu_cconv_bwd(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), kernel.data_ptr(),
+            g.data_ptr(), mean.data_ptr(), rstd.data_ptr(), da.data_ptr(),
+            part.data_ptr(), dx.data_ptr(), dw.data_ptr(), dscale.data_ptr(),
+            dbias.data_ptr(), b, t_len, d, d_out, k_taps, groups, stream)
+    _build.check(rc, "gn_relu_cconv_bwd")
+    gn_relu_cconv_bwd.launches += 1
+    return dx, dw, dscale, dbias
+
+
+gn_relu_cconv_bwd.launches = 0  # kernel launches
+
+
+class _GnReluCconv(torch.autograd.Function):
+    """B1 forward, B2 backward (the custom_vjp of the JAX op)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, kernel, conv_bias, residual, groups, eps):
+        out, mean, rstd = _launch_forward(x, scale, bias, kernel, conv_bias,
+                                          residual, groups, eps)
+        ctx.save_for_backward(x, scale, bias, kernel, mean, rstd)
+        ctx.groups = groups
+        ctx.has_residual = residual is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, kernel, mean, rstd = ctx.saved_tensors
+        g = g.contiguous()
+        dx, dw, dscale, dbias = gn_relu_cconv_bwd(x, scale, bias, kernel, g,
+                                                  mean, rstd, ctx.groups)
+        # the conv-bias and residual grads stay outside the kernel, as on the TPU
+        dres = g if ctx.has_residual else None
+        return dx, dscale, dbias, dw, g.sum(dim=(0, 1)), dres, None, None
+
+
+def fused_gn_relu_cconv(x: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, kernel: torch.Tensor,
+                        conv_bias: torch.Tensor,
+                        residual: Optional[torch.Tensor] = None, *,
+                        groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """x (B, T, D), scale/bias (D,), kernel (K, D, O), conv_bias (O,),
+    residual optional (B, T, O). Returns (B, T, O) float32.
+
+    Differentiable: on CUDA tensors the backward is the kernel of
+    :func:`gn_relu_cconv_bwd`; on CPU tensors autograd runs through the
+    plain version."""
+    b, t_len, d = x.shape
+    k_taps, d_in, d_out = kernel.shape
+    if d_in != d or d % groups != 0:
+        raise ValueError(f"kernel {tuple(kernel.shape)} / groups {groups} do "
+                         f"not fit x {tuple(x.shape)}")
+    if residual is not None and tuple(residual.shape) != (b, t_len, d_out):
+        raise ValueError(f"residual {tuple(residual.shape)} != {(b, t_len, d_out)}")
+    if x.device.type == "cpu":
+        return reference_gn_relu_cconv(x, scale, bias, kernel, conv_bias,
+                                       residual, groups=groups, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_gn_relu_cconv runs on cuda or cpu, not {x.device}")
+    return _GnReluCconv.apply(x, scale, bias, kernel, conv_bias, residual,
+                              groups, eps)
 
 
 fused_gn_relu_cconv.launches = 0  # kernel launches on CUDA tensors
 
 
-def fused_residual_block(x, params, *, groups: int = 32):
-    """Full ResidualBlock (eval mode) as two fused calls, the residual added
-    in the second. params: {gn1, conv1, gn2, conv2} as in the flax tree."""
+def fused_residual_block(x, params, *, groups: int = 32, dropout_mask=None):
+    """Full ResidualBlock as two fused calls, the residual added in the
+    second; `dropout_mask`, if given, multiplies the first call's output (the
+    training placement). params: {gn1, conv1, gn2, conv2} as in the flax
+    tree."""
     h = fused_gn_relu_cconv(
         x, params["gn1"]["scale"], params["gn1"]["bias"],
         params["conv1"]["kernel"], params["conv1"]["bias"], groups=groups,
     )
+    if dropout_mask is not None:
+        h = h * dropout_mask
     return fused_gn_relu_cconv(
         h, params["gn2"]["scale"], params["gn2"]["bias"],
         params["conv2"]["kernel"], params["conv2"]["bias"],

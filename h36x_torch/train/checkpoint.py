@@ -1,11 +1,12 @@
-"""Checkpoints, params-only subset (counterpart of h36x/train/checkpoint.py).
+"""Checkpoints (counterpart of h36x/train/checkpoint.py).
 
 Reads the params of h36x's msgpack checkpoints — a full TrainState blob
 (its `params` entry) or a bare params blob — without jax or the `msgpack`
-package, and writes the port's own params blob in flax's format next to the
-same JSON manifest (sha256, nbytes, config), so either package can open
-what the other wrote. Orbax checkpoint directories come with the
-checkpoint slice of the port and raise here.
+package. Writes the port's params blob, or a full training checkpoint
+{params, opt_state, step} (:func:`save_checkpoint`), with params in flax's
+format next to the same JSON manifest, so either package can open the
+params the other wrote. Orbax checkpoint directories and resuming from a
+checkpoint's optimizer state come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -113,21 +114,18 @@ def load_params_only(path, state_dict: dict) -> dict:
     return got
 
 
-def save_params(directory, name: str, state_dict: dict,
-                config: Optional[dict] = None) -> Path:
-    """Write <directory>/<name>.msgpack (a flax-format bare params blob) and
-    <directory>/<name>.json (sha256, nbytes, config), each by atomic rename,
-    the manifest after the blob it describes."""
+def _write(directory, name: str, blob: bytes, manifest: dict) -> Path:
+    """<directory>/<name>.msgpack then <directory>/<name>.json (manifest +
+    sha256 + nbytes of the blob), each by atomic rename: the manifest
+    commits after the blob it describes."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
-    blob = msgpack_lite.packb(params_to_flax(state_dict))
     data_path = directory / f"{name}.msgpack"
     tmp = f"{data_path}.tmp"
     with open(tmp, "wb") as f:
         f.write(blob)
     os.replace(tmp, data_path)
-    manifest = {"config": config or {},
-                "sha256": hashlib.sha256(blob).hexdigest(),
+    manifest = {**manifest, "sha256": hashlib.sha256(blob).hexdigest(),
                 "nbytes": len(blob)}
     mpath = directory / f"{name}.json"
     tmp = f"{mpath}.tmp"
@@ -135,3 +133,48 @@ def save_params(directory, name: str, state_dict: dict,
         json.dump(manifest, f, indent=2)
     os.replace(tmp, mpath)
     return data_path
+
+
+def save_params(directory, name: str, state_dict: dict,
+                config: Optional[dict] = None) -> Path:
+    """Write <directory>/<name>.msgpack (a flax-format bare params blob) and
+    <directory>/<name>.json (config, sha256, nbytes)."""
+    blob = msgpack_lite.packb(params_to_flax(state_dict))
+    return _write(directory, name, blob, {"config": config or {}})
+
+
+def opt_state_tree(model, optimizer) -> dict:
+    """The optimizer's state in the port's own layout: {"lr", "count",
+    "mu", "nu"} with mu/nu (AdamW's first and second moments,
+    :class:`h36x_torch.train.state.AdamW`) as flax-layout trees of the
+    trainable parameters that have state."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    mu, nu, count = {}, {}, 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "mu" not in st:
+                continue
+            mu[names[id(p)]] = st["mu"]
+            nu[names[id(p)]] = st["nu"]
+            count = int(st["count"])
+    return {"lr": float(optimizer.param_groups[0]["lr"]), "count": count,
+            "mu": params_to_flax(mu), "nu": params_to_flax(nu)}
+
+
+def save_checkpoint(directory, name: str, model, optimizer, epoch: int,
+                    best_val: float, step: int, config: Optional[dict] = None,
+                    extra: Optional[dict] = None) -> Path:
+    """Write <directory>/<name>.msgpack, a {params, opt_state, step} blob
+    (params in flax layout, so h36x's `load_params_raw` reads them;
+    opt_state in the port's layout, :func:`opt_state_tree`), and the
+    manifest <name>.json: epoch, best_val, step, config, sha256, nbytes and
+    the `extra` entries."""
+    blob = msgpack_lite.packb({
+        "params": params_to_flax(model.state_dict()),
+        "opt_state": opt_state_tree(model, optimizer),
+        "step": int(step),
+    })
+    return _write(directory, name, blob,
+                  {"epoch": int(epoch), "best_val": float(best_val),
+                   "step": int(step), "config": config or {}, **(extra or {})})

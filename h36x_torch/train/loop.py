@@ -1,0 +1,287 @@
+"""Epoch-level training loop on one device (counterpart of
+h36x/train/loop.py, phases 1 and 0).
+
+Per epoch: the sampler reshuffles (`set_epoch`), the cosine learning rate
+is set, the train pass runs (batches fed by a background thread), then the
+weighted eval pass; `best` is saved on a val-MPJPE improvement before
+`last`, a record goes to <outdir>/metrics.jsonl, and early stopping and
+`stop_after_epochs` end the run. What this slice does not run yet raises
+(:func:`check_supported`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from h36x_torch.config import TrainConfig
+from h36x_torch.models.phd import PHDFor3DJoints
+from h36x_torch.parallel.feed import feed_dtype, prefetch_to_device
+from h36x_torch.train import checkpoint as ckpt
+from h36x_torch.train.state import cosine_lr, make_optimizer, set_learning_rate
+from h36x_torch.train.step import make_train_step, make_weighted_eval_step
+from h36x_torch.utils.runtime import resolve_device
+from h36x_torch.utils.timers import PhaseTimers
+
+_LATER = "is not ported to h36x_torch yet (it comes with a later slice)"
+
+
+def check_supported(cfg: TrainConfig) -> None:
+    """Raise for every setting this slice of the port does not run, rather
+    than run something else."""
+    o, m = cfg.optim, cfg.model
+    if o.phase == 2:
+        raise NotImplementedError(
+            f"--optim.phase 2 (the f_AR curriculum, make_future_train_step) {_LATER}")
+    if o.phase not in (0, 1):
+        raise ValueError(f"unknown --optim.phase {o.phase} (0, 1 or 2)")
+    if cfg.resume:
+        raise NotImplementedError(f"--resume {_LATER}; --init-from warm-starts "
+                                  "the weights")
+    if cfg.ckpt_backend == "orbax":
+        raise NotImplementedError(f"--ckpt-backend orbax {_LATER}")
+    if cfg.ckpt_backend != "msgpack":
+        raise ValueError(f"unknown ckpt_backend {cfg.ckpt_backend!r}")
+    if m.dtype in ("bfloat16", "bf16"):
+        raise NotImplementedError(f"--model.dtype bfloat16 {_LATER}")
+    if m.dtype != "float32":
+        raise ValueError(f"unknown --model.dtype {m.dtype!r}")
+    if cfg.profile_dir:
+        raise NotImplementedError(f"--profile-dir {_LATER}")
+    if (cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1 or cfg.mesh.slices != 1
+            or cfg.dist.num_processes != 1):
+        raise NotImplementedError(
+            f"training on more than one device or process {_LATER}; leave "
+            "--mesh.* and --dist.* at their defaults")
+
+
+def build_model(cfg: TrainConfig, device=None,
+                generator: Optional[torch.Generator] = None) -> PHDFor3DJoints:
+    m = cfg.model
+    return PHDFor3DJoints(
+        latent_dim=m.latent_dim,
+        feature_dim=m.feature_dim,
+        joints_num=m.joints_num,
+        number_blocks=m.num_blocks,
+        ar_blocks=m.ar_num_blocks,
+        groups=m.groups,
+        kernel_size=m.kernel_size,
+        regressor_iters=m.regressor_iters,
+        regressor_hidden=m.regressor_hidden,
+        dropout=m.dropout,
+        generator=generator,
+        device=device,
+    )
+
+
+def _batches(dataset, sampler, device, feats_dtype, with_weights: bool = False):
+    """Host batches -> device batches, prefetched by a background thread.
+    With with_weights every batch gains a float32 (B,) weight vector of
+    ones (the weighted eval step's contract; one device pads no rows)."""
+
+    def gen():
+        for idx_batch in sampler:
+            idx_batch = list(idx_batch)
+            batch = dataset.get_batch(idx_batch)[:4]
+            if with_weights:
+                batch = (*batch, np.ones(len(idx_batch), dtype=np.float32))
+            yield batch
+
+    return prefetch_to_device(gen(), device, feats_dtype=feats_dtype)
+
+
+def _drain(pending: list, totals: dict) -> None:
+    """Add the device metric dicts of `pending` into `totals` (one copy to
+    the host), then empty `pending`."""
+    if not pending:
+        return
+    keys = list(totals)
+    host = torch.stack([torch.stack([m[k] for k in keys]) for m in pending])
+    for k, col in zip(keys, host.double().sum(dim=0).tolist()):
+        totals[k] += col
+    pending.clear()
+
+
+def train_epoch(train_step, dataset, sampler, device, feats_dtype, generator,
+                log_every: int = 500):
+    """One epoch. Metric tensors stay on the device until a log point or
+    the epoch's end, so steps are not synchronised one by one."""
+    timers = PhaseTimers()
+    pending: list = []
+    totals = {"loss": 0.0, "l3d": 0.0, "l2d": 0.0, "mpjpe": 0.0}
+    n = 0
+    last_log = 0
+    epoch_start = time.perf_counter()
+
+    timers.start("data")
+    for batch in _batches(dataset, sampler, device, feats_dtype):
+        timers.stop("data")
+        timers.start("step")
+        pending.append(train_step(batch, generator))
+        n += 1
+        timers.stop("step")
+        if log_every > 0 and n - last_log >= log_every:
+            last_log = n
+            _drain(pending, totals)
+            print(f"[3D]  iter {n:05d} | loss {totals['loss']/n:.6f} "
+                  f"(3d {totals['l3d']/n:.6f}) | mpjpe {totals['mpjpe']/n:.3f} | "
+                  f"epoch {time.perf_counter()-epoch_start:.1f}s", flush=True)
+        timers.start("data")
+    timers.stop("data")
+    timers.start("drain")
+    _drain(pending, totals)
+    timers.stop("drain")
+    if n == 0:
+        print("WARNING: the train sampler yielded ZERO batches this epoch — "
+              "check batch_size / shards_per_batch against the store's shard "
+              "count and split sizes.", flush=True)
+    print("[Train timing]\n" + timers.summary(n), flush=True)
+    means = {k: v / max(n, 1) for k, v in totals.items()}
+    means["_timing"] = {k: round(v, 4) for k, v in timers.totals.items()}
+    means["_steps"] = n
+    return means
+
+
+def evaluate(eval_step, dataset, sampler, device, feats_dtype):
+    """Validation pass with a weighted eval step (per-batch sums over real
+    rows plus the row count), drained once at the end."""
+    timers = PhaseTimers()
+    pending: list = []
+    n = 0
+    timers.start("data")
+    for batch in _batches(dataset, sampler, device, feats_dtype, with_weights=True):
+        timers.stop("data")
+        timers.start("step")
+        pending.append(eval_step(batch))
+        timers.stop("step")
+        n += 1
+        timers.start("data")
+    timers.stop("data")
+    timers.start("drain")
+    totals = {"loss": 0.0, "l3d": 0.0, "mpjpe": 0.0, "bone": 0.0, "n": 0.0}
+    _drain(pending, totals)
+    rows = totals.pop("n")
+    timers.stop("drain")
+    print("[Val timing]\n" + timers.summary(n), flush=True)
+    if rows == 0.0:
+        # zero-row averages would read as val MPJPE 0.000, a fake new best
+        print("WARNING: the val sampler yielded ZERO rows — check val "
+              "subjects / batch size against the store; val metrics are inf "
+              "this epoch and no 'best' checkpoint will be saved.", flush=True)
+        out = {k: float("inf") for k in totals}
+    else:
+        out = {k: v / rows for k, v in totals.items()}
+    out["_timing"] = {k: round(v, 4) for k, v in timers.totals.items()}
+    return out
+
+
+def _append_metrics(outdir, record: dict) -> None:
+    # inf/nan would print as non-RFC JSON tokens: write null
+    record = {k: (None if isinstance(v, float) and not math.isfinite(v) else v)
+              for k, v in record.items()}
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "metrics.jsonl"), "a") as f:
+        f.write(json.dumps(record) + "\n")
+
+
+def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
+        device=None):
+    """Full training run on one device (cuda unless the caller asks for
+    another); returns (model, best_val)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    phase = cfg.optim.phase
+    model = build_model(cfg, device,
+                        torch.Generator().manual_seed(cfg.optim.seed))
+    optimizer, _ = make_optimizer(model, cfg.optim.lr, cfg.optim.weight_decay,
+                                  freeze_ar=cfg.optim.freeze_ar,
+                                  phase=phase if phase != 1 else None)
+    if cfg.init_from:
+        model.load_state_dict(ckpt.load_params_only(cfg.init_from, model.state_dict()))
+        print(f"Initialized model weights from {cfg.init_from}")
+    train_step = make_train_step(
+        model, optimizer, fused=cfg.optim.fused, lambda_2d=cfg.optim.lambda_2d,
+        scan_steps=cfg.optim.steps_per_dispatch, accum_steps=cfg.optim.grad_accum)
+    eval_step = make_weighted_eval_step(model, use_kernels=cfg.optim.fused)
+    feats_dtype = feed_dtype(cfg.data.feed_dtype)
+
+    best_val = float("inf")
+    no_improve = 0
+    steps = 0
+    cfg_json = dataclasses.asdict(cfg)
+
+    for epoch in range(cfg.optim.epochs):
+        train_sampler.set_epoch(epoch)
+        lr = cosine_lr(epoch, cfg.optim.lr, cfg.optim.epochs)
+        set_learning_rate(optimizer, lr)
+        print(f"\nEpoch {epoch+1}/{cfg.optim.epochs} (lr {lr:.2e})", flush=True)
+        t0 = time.perf_counter()
+        # dropout masks of an epoch come from a generator seeded by (seed,
+        # epoch), not a stream carried across epochs
+        gen = torch.Generator(device=device).manual_seed(
+            cfg.optim.seed * 1_000_003 + epoch)
+        tr = train_epoch(train_step, train_set, train_sampler, device,
+                         feats_dtype, gen, log_every=cfg.optim.log_every)
+        steps += tr["_steps"]
+        va = evaluate(eval_step, val_set, val_sampler, device, feats_dtype)
+
+        print(f"Train: loss={tr['loss']:.6f}"
+              + (f" (2d {tr['l2d']:.6f})" if tr.get("l2d") else "")
+              + f" | mpjpe={tr['mpjpe']:.3f}\n"
+              f"Val:   loss={va['loss']:.6f} (3d {va['l3d']:.6f}) | mpjpe={va['mpjpe']:.3f}\n"
+              f"Epoch time: {time.perf_counter()-t0:.2f}s", flush=True)
+
+        # `best` commits before `last`, so a crash between the two saves
+        # never pairs a new best_val with stale best params
+        improved = (best_val - va["mpjpe"]) > cfg.optim.early_stop_min_delta
+        if improved:
+            best_val = va["mpjpe"]
+            no_improve = 0
+            ckpt.save_checkpoint(cfg.outdir, "best", model, optimizer, epoch,
+                                 best_val, steps, cfg_json)
+        else:
+            no_improve += 1
+        ckpt.save_checkpoint(cfg.outdir, "last", model, optimizer, epoch,
+                             best_val, steps, cfg_json,
+                             extra={"no_improve": no_improve})
+        _append_metrics(cfg.outdir, {
+            "epoch": epoch,
+            "lr": lr,
+            "train_loss": tr["loss"],
+            "train_mpjpe": tr["mpjpe"],
+            "val_loss": va["loss"],
+            "val_mpjpe": va["mpjpe"],
+            "val_bone": va.get("bone"),
+            "epoch_seconds": time.perf_counter() - t0,
+            "train_data_s": tr["_timing"].get("data"),
+            "train_step_s": tr["_timing"].get("step"),
+            "train_drain_s": tr["_timing"].get("drain"),
+            "val_data_s": va["_timing"].get("data"),
+            "val_step_s": va["_timing"].get("step"),
+            "val_drain_s": va["_timing"].get("drain"),
+        })
+
+        if improved:
+            print(f"New best val MPJPE: {best_val:.3f} (saved best)")
+        else:
+            print(f"No improvement for {no_improve}/{cfg.optim.early_stop_patience} "
+                  f"epochs (best {best_val:.3f}, current {va['mpjpe']:.3f})")
+        if cfg.optim.early_stop_patience > 0 and no_improve >= cfg.optim.early_stop_patience:
+            print(f"Early stopping at epoch {epoch+1}. Best val MPJPE: {best_val:.3f}")
+            break
+        stop_after = cfg.optim.stop_after_epochs
+        if stop_after > 0 and epoch + 1 >= stop_after:
+            print(f"Stopping after {stop_after} epoch(s) this run "
+                  f"(--optim.stop-after-epochs; schedule targets "
+                  f"{cfg.optim.epochs})")
+            break
+
+    print(f"\nDone. Best val MPJPE: {best_val:.3f}")
+    return model, best_val

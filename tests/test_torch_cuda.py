@@ -1,7 +1,8 @@
 """h36x_torch CUDA kernels against their plain versions on the card, at
-small odd shapes that the serving shapes do not reach (ragged tiles, group
+small odd shapes that the main paths do not reach (ragged tiles, group
 sizes, tap counts, widths that are no multiple of a tile), plus what the
-wrappers refuse. Marked `cuda`: they skip without a GPU. On a machine with
+wrappers refuse. The backward kernels are held against autograd of the
+plain versions. Marked `cuda`: they skip without a GPU. On a machine with
 one, and without jax, run them with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -10,11 +11,20 @@ one, and without jax, run them with
 import pytest
 import torch
 
-from h36x_torch.ops.regressor import _reference_forward, fused_joint_regressor
-from h36x_torch.ops.temporal import fused_gn_relu_cconv, reference_gn_relu_cconv
+from h36x_torch.ops.regressor import (
+    _reference_forward,
+    fused_joint_regressor,
+    joint_regressor_bwd,
+)
+from h36x_torch.ops.temporal import (
+    fused_gn_relu_cconv,
+    gn_relu_cconv_bwd,
+    reference_gn_relu_cconv,
+)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)  # FP32 on both sides; sums reordered
+GRAD_TOL = dict(rtol=1e-3, atol=1e-4)  # the gradient tolerance of test_pallas.py
 
 
 @pytest.fixture
@@ -87,8 +97,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                             scale, bias, w, cb, groups=8)
     with pytest.raises(ValueError, match="expected cuda"):
         fused_gn_relu_cconv(x, scale.cpu(), bias, w, cb, groups=8)
-    with pytest.raises(RuntimeError, match="requires grad"):
-        fused_gn_relu_cconv(x, scale.requires_grad_(), bias, w, cb, groups=8)
+    # a tensor that requires grad is taken: its gradient is the backward kernel's
+    before = gn_relu_cconv_bwd.launches
+    fused_gn_relu_cconv(x, scale.requires_grad_(), bias, w, cb, groups=8).sum().backward()
+    assert scale.grad is not None and gn_relu_cconv_bwd.launches == before + 1
     phi = torch.randn(4, 64, device=dev)
 
     def weights(h):
@@ -103,3 +115,140 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     assert fused_joint_regressor.launches == before
     # the refused launch leaves no error behind for the next one
     assert fused_joint_regressor(phi, *weights(64), 3, 51).shape == (4, 51)
+
+
+def _grads(fn, leaves, gout, **kw):
+    out = fn(*leaves, **kw)
+    return torch.autograd.grad(out, [v for v in leaves if v is not None], gout)
+
+
+@pytest.mark.parametrize("b, t, d, o, k, groups, residual", [
+    (3, 7, 96, 80, 3, 8, True),
+    (2, 5, 64, 64, 3, 1, False),
+    (1, 1, 64, 48, 3, 8, True),
+    (1, 2, 32, 40, 3, 4, False),
+    (5, 9, 32, 130, 1, 2, False),
+    (2, 33, 64, 64, 2, 16, True),
+    (1, 70, 128, 64, 5, 32, False),
+])
+def test_temporal_backward_kernel_matches_autograd(dev, b, t, d, o, k, groups,
+                                                  residual):
+    args = _temporal(dev, b, t, d, o, k, groups, residual)
+    leaves = [None if a is None else a.clone().requires_grad_() for a in args]
+    gout = torch.randn(b, t, o, generator=torch.Generator().manual_seed(2)).to(dev)
+    before = gn_relu_cconv_bwd.launches
+    got = _grads(fused_gn_relu_cconv, leaves, gout, groups=groups)
+    torch.cuda.synchronize()
+    assert gn_relu_cconv_bwd.launches == before + 1
+    want = _grads(reference_gn_relu_cconv, leaves, gout, groups=groups)
+    for name, a, w in zip(("dx", "dscale", "dbias", "dW", "dcb", "dres"), got, want):
+        torch.testing.assert_close(a, w, **GRAD_TOL, msg=name)
+
+
+def _regressor_weights(dev, d, h, p, seed=1):
+    """Hidden biases 0.6-1.5 away from 0 and small weights: no ReLU input
+    lies near 0, where two summation orders could pick different masks."""
+    g = torch.Generator().manual_seed(seed)
+
+    def away(n):
+        mag = 0.6 + 0.9 * torch.rand(n, generator=g)
+        return torch.where(torch.rand(n, generator=g) < 0.5, -mag, mag)
+
+    ws = [0.1 * torch.randn(d + p, h, generator=g) / (d + p) ** 0.5, away(h),
+          0.1 * torch.randn(h, h, generator=g) / h ** 0.5, away(h),
+          torch.randn(h, p, generator=g) / h ** 0.5, 0.1 * torch.randn(p, generator=g)]
+    return [w.to(dev) for w in ws]
+
+
+def _init_weights(dev, d, h, p, seed=5):
+    """Weights and biases at their init scale, U(+-1/sqrt(fan_in))."""
+    g = torch.Generator().manual_seed(seed)
+
+    def init(shape, fan_in):
+        return (torch.rand(shape, generator=g) * 2 - 1) / fan_in ** 0.5
+
+    ws = [init((d + p, h), d + p), init(h, d + p), init((h, h), h), init(h, h),
+          init((h, p), h), init(p, h)]
+    return [w.to(dev) for w in ws]
+
+
+def _untied_rows(dev, n, d, ws, iters, p, margin=1e-5, seed=4):
+    """(n, d) normal rows none of whose ReLU inputs in the regressor loop
+    lies within `margin` of 0 in float64 (a row with a near-tie is drawn
+    again), so that FP32 kernel and FP32 autograd take the same masks."""
+    g = torch.Generator().manual_seed(seed)
+    w1, b1, w2, b2, w3, b3 = (w.double() for w in ws)
+    phi = torch.randn(n, d, generator=g).double().to(dev)
+    for _ in range(50):
+        y, tied = phi.new_zeros(n, p), torch.zeros(n, dtype=torch.bool, device=dev)
+        for _ in range(iters):
+            a1 = torch.cat([phi, y], -1) @ w1 + b1
+            a2 = torch.relu(a1) @ w2 + b2
+            y = y + torch.relu(a2) @ w3 + b3
+            tied |= (a1.abs() < margin).any(1) | (a2.abs() < margin).any(1)
+        if not tied.any():
+            return phi.float()
+        phi[tied] = torch.randn(int(tied.sum()), d, generator=g).double().to(dev)
+    raise AssertionError("could not draw rows clear of ReLU ties")
+
+
+@pytest.mark.parametrize("weights", ["tie-free", "init-scale"])
+@pytest.mark.parametrize("n, d, h, p, iters", [
+    (37, 96, 200, 51, 3),
+    (5, 1000, 64, 30, 2),
+    (100, 128, 256, 64, 4),
+    (33, 64, 96, 51, 1),
+])
+def test_regressor_backward_kernel_matches_autograd(dev, weights, n, d, h, p, iters):
+    """Every gradient element-wise and by relative norm. At init scale the
+    ReLU masks differ from row to row and round to round, so a mask taken
+    from the wrong row or round shows; tie-free weights fix each unit's mask
+    for every row."""
+    ws = (_regressor_weights if weights == "tie-free" else _init_weights)(dev, d, h, p)
+    phi = _untied_rows(dev, n, d, ws, iters, p)
+    if weights == "init-scale":
+        masks = (torch.cat([phi, torch.zeros(n, p, device=dev)], -1) @ ws[0] + ws[1]) > 0
+        assert masks.any(0).float().mean() > 0.9 and (~masks).any(0).float().mean() > 0.9
+    gout = torch.randn(n, p, generator=torch.Generator().manual_seed(3)).to(dev)
+    leaves = [v.clone().requires_grad_() for v in (phi, *ws)]
+    before = joint_regressor_bwd.launches
+    got = _grads(fused_joint_regressor, leaves, gout, iters=iters, out_dim=p)
+    torch.cuda.synchronize()
+    assert joint_regressor_bwd.launches == before + 1
+    want = _grads(_reference_forward, leaves, gout, iters=iters, out_dim=p)
+    for name, a, w in zip(("dphi", "dw1", "db1", "dw2", "db2", "dw3", "db3"), got, want):
+        torch.testing.assert_close(a, w, **TOL, msg=name)
+        assert float((a - w).norm() / w.norm()) <= 1e-4, name
+
+
+def test_refused_regressor_backward_raises_and_leaves_no_error(dev):
+    # more than 65535 row tiles of 32: the grid of the backward's GEMMs
+    # refuses the launch (widths of 1 keep the tensors small)
+    n = 65536 * 32
+    phi = torch.randn(n, 1, device=dev)
+    ws = _regressor_weights(dev, 1, 1, 1)
+    before = joint_regressor_bwd.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        joint_regressor_bwd(phi, *ws, torch.ones(n, 1, device=dev), 3)
+    assert joint_regressor_bwd.launches == before
+    # the refused launch leaves no error behind for the next one
+    phi = torch.randn(40, 16, device=dev)
+    grads = joint_regressor_bwd(phi, *_regressor_weights(dev, 16, 8, 51),
+                                torch.ones(40, 51, device=dev), 3)
+    torch.cuda.synchronize()
+    assert grads[0].shape == (40, 16) and all(bool(torch.isfinite(t).all()) for t in grads)
+
+
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, scale, bias, w, cb, _ = _temporal(dev, 2, 4, 64, 64, 3, 8, False)
+    mean = torch.zeros(2, 8, device=dev)
+    with pytest.raises(ValueError, match="do not fit"):
+        gn_relu_cconv_bwd(x, scale, bias, w, torch.ones(2, 4, 32, device=dev),
+                          mean, mean, 8)
+    with pytest.raises(TypeError, match="float32"):
+        gn_relu_cconv_bwd(x, scale, bias, w, torch.ones(2, 4, 64, device=dev).double(),
+                          mean, mean, 8)
+    with pytest.raises(ValueError, match="iters"):
+        joint_regressor_bwd(torch.ones(4, 16, device=dev),
+                            *_regressor_weights(dev, 16, 8, 51),
+                            torch.ones(4, 51, device=dev), 0)

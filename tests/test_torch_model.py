@@ -117,3 +117,18 @@ def test_golden_phd_outputs():
                       ("phd_joints", joints)):
         np.testing.assert_allclose(got.numpy(), golden[name], rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+def test_flagship_forward_matches_flax_apply():
+    """The flagship width (latent 1024, feature 2048, f_movie 2 blocks, f_AR
+    3, regressor H 1024, G 32, T 40), batch 2, seeded: the port's model
+    against model.apply from the same params, all four outputs."""
+    feats = np.random.default_rng(3).normal(size=(2, 40, 2048)).astype(np.float32)
+    flax_model, params = _flax_params(feats, key=1)
+    apply = jax.jit(functools.partial(flax_model.apply, predict_future=True))
+    want = apply({"params": params}, jnp.asarray(feats))
+    got = _port(params)(torch.from_numpy(feats), predict_future=True)
+    for name, g, w in zip(("phi", "phi_hat", "joints_phi", "joints_hat"), got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-3, atol=1e-4,
+                                   err_msg=name)

@@ -178,3 +178,83 @@ class TestRegressor:
         ins = [v.to("meta") for v in _t(*_regressor_inputs(rng, n=4))]
         with pytest.raises(ValueError, match="cuda or cpu"):
             fused_joint_regressor(*ins, 3, 51)
+
+
+# -- gradients: the port's autograd against jax.grad through the JAX ops'
+# custom_vjp (their Pallas backward kernels in interpret mode; the JAX op
+# itself takes its XLA vjp for T <= K) ------------------------------------
+GRAD_TOL = dict(rtol=1e-3, atol=1e-4)  # tests/test_pallas.py's gradient tolerance
+
+
+@functools.partial(jax.jit, static_argnames=("groups", "has_res"))
+def _jax_temporal_grads(x, scale, bias, w, cb, res, gout, *, groups, has_res):
+    def loss(*a):
+        out = jax_fused(*a[:5], a[5] if has_res else None, groups=groups,
+                        tile_o=32, interpret=True)
+        return jnp.sum(out * gout)
+
+    return jax.grad(loss, argnums=tuple(range(6 if has_res else 5)))(
+        x, scale, bias, w, cb, res)
+
+
+def _torch_grads(fn, arrays, gout, **kw):
+    leaves = [torch.from_numpy(np.asarray(a)).requires_grad_() for a in arrays]
+    out = fn(*leaves, **kw)
+    return torch.autograd.grad(out, leaves, torch.from_numpy(gout))
+
+
+@pytest.mark.parametrize("b, t, with_residual", [
+    (2, 8, True), (2, 8, False), (2, 1, True), (2, 2, False), (2, 3, True),
+    (5, 9, False),  # batch accumulation of the weight grads
+])
+def test_temporal_grads_match_h36x(rng, b, t, with_residual):
+    ins = list(_temporal_inputs(rng, b=b, t=t))
+    if with_residual:
+        ins.append(rng.normal(size=ins[0].shape).astype(np.float32))
+    gout = rng.normal(size=(b, t, 64)).astype(np.float32)
+    want = _jax_temporal_grads(*[jnp.asarray(v) for v in ins[:5]],
+                               jnp.asarray(ins[5]) if with_residual else None,
+                               jnp.asarray(gout), groups=8, has_res=with_residual)
+    got = _torch_grads(fused_gn_relu_cconv, ins, gout, groups=8)
+    for name, a, w in zip(("dx", "dscale", "dbias", "dW", "dcb", "dres"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **GRAD_TOL,
+                                   err_msg=name)
+
+
+@functools.partial(jax.jit, static_argnames=("iters",))
+def _jax_regressor_grads(phi, w1, b1, w2, b2, w3, b3, gout, *, iters):
+    def loss(*a):
+        return jnp.sum(jax_reg_fused(*a, iters, 51, 8, True) * gout)
+
+    return jax.grad(loss, argnums=tuple(range(7)))(phi, w1, b1, w2, b2, w3, b3)
+
+
+@pytest.mark.parametrize("n", [40, 13])
+def test_regressor_grads_match_h36x(rng, n):
+    ins = _regressor_inputs(rng, n=n)
+    gout = rng.normal(size=(n, 51)).astype(np.float32)
+    want = _jax_regressor_grads(*[jnp.asarray(v) for v in ins], jnp.asarray(gout),
+                                iters=3)
+    got = _torch_grads(fused_joint_regressor, ins, gout, iters=3, out_dim=51)
+    for name, a, w in zip(("dphi", "dw1", "db1", "dw2", "db2", "dw3", "db3"),
+                          got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL, err_msg=name)
+
+
+def test_residual_block_dropout_mask_between_the_calls(rng):
+    d = 64
+    x = torch.from_numpy(rng.normal(size=(2, 8, d)).astype(np.float32))
+    p = {}
+    for i in (1, 2):
+        p[f"gn{i}"] = {"scale": torch.ones(d), "bias": torch.zeros(d)}
+        p[f"conv{i}"] = {
+            "kernel": torch.from_numpy((rng.normal(size=(3, d, d)) * 0.1).astype(np.float32)),
+            "bias": torch.zeros(d)}
+    mask = torch.from_numpy((rng.random((2, 8, d)) < 0.5).astype(np.float32) * 2)
+    got = fused_residual_block(x, p, groups=8, dropout_mask=mask)
+    h = reference_gn_relu_cconv(x, p["gn1"]["scale"], p["gn1"]["bias"],
+                                p["conv1"]["kernel"], p["conv1"]["bias"], groups=8)
+    want = reference_gn_relu_cconv(h * mask, p["gn2"]["scale"], p["gn2"]["bias"],
+                                   p["conv2"]["kernel"], p["conv2"]["bias"],
+                                   residual=x, groups=8)
+    assert torch.equal(got, want)
