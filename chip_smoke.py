@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the h36x_torch serving and training paths once on one NVIDIA GPU
-(H100).
+"""Drive the h36x_torch serving, training and feature-extraction paths once
+on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
-1. Setup: prints the card and its power limit, builds the four CUDA kernels
+1. Setup: prints the card and its power limit, builds the five CUDA kernels
    from h36x_torch/ops/csrc/ (one nvcc per source, all started together).
 2. Each kernel against its plain PyTorch version on the card (TF32 off), at
    the shapes of both paths and the edge cases, within the stated
@@ -14,12 +14,20 @@
    residual and at T 1-4 and B 1; B4 at N 1280 and N 13, with tie-free
    weights and with init-scale weights, whose ReLU masks vary by row and
    round, on rows drawn clear of ReLU ties), element-wise and by relative
-   norm; then each one's time, its plain version's time and its bound.
+   norm; then each one's time, its plain version's time and its bound. B5,
+   the fused ResNet bottleneck, at the shapes of the 13 stride-1 blocks at
+   224 px (the projection block layer1_0 included), at N 1 and at the
+   extraction dispatch size (480 frames), in float32 (element-wise) and
+   bfloat16 (relative norm), and at odd sizes (9x9, 5x3); timed per shape
+   in bfloat16 at the dispatch size.
 3. One full-width phase-1 step (batch 32), fused against plain: loss and
    every gradient leaf (by relative norm at the seeded init; element-wise
    and by relative norm on tie-free parameters), at dropout 0 (all four
    kernels launch) and 0.5 (the same masks both sides); the step's time
-   both ways.
+   both ways. The full ResNet-50 at 224 px on 480 u8 frames, the folded
+   `opt` engine (13 B5 launches) against the plain module (cuDNN), both
+   bfloat16, and each against the float32 module, by relative norm; each
+   engine's frames/s.
 4. The serving path at full model width: a seeded PHDFor3DJoints is saved
    as a checkpoint, served by the port's BatchingServer on a local socket,
    and answers 16 concurrent and 3 sequential (40, 2048) requests and a
@@ -33,7 +41,17 @@
    batch 32; finite losses, best/last checkpoints (last equal to the
    trained model), 2 metrics.jsonl lines, and exactly 4 B1 + 4 B2 + 1 B3 +
    1 B4 launches per train step and 4 B1 + 1 B3 per eval batch.
-6. Prints one {"kernels": [...]} line (launches: both paths' runs), then
+6. The extraction path: h36x_torch.extract.pipeline.run_extract (what
+   h36x_torch.cli.extract calls) over an in-memory video source made from a
+   seed (SyntheticVideos: the machine has no OpenCV to decode mp4), at the
+   traffic of EXTRACT (1000x1000 frames, seq_len 40, stride 5, 224 px, the
+   4 variants, the unique-frame scheduler's production profile, the port's
+   native crop library), once with --engine opt and once with flax:
+   exactly 13 B5 launches per dispatch and none with flax; both stores pass
+   verify_store, index.json and every non-feature array are byte-identical
+   between them, the features finite and within the bf16 tolerance; one
+   batch of the store runs through the PHD forward. Clips/s of each run.
+7. Prints one {"kernels": [...]} line (launches: every path's run), then
    the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
@@ -55,6 +73,7 @@ import numpy as np
 import torch
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth (data sheet)
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)  # FP32 both sides; sums reordered
 E2E_TOL = dict(rtol=1e-3, atol=1e-4)  # full forward (tests/test_pallas.py)
@@ -69,6 +88,29 @@ REL_NORM_TOL = 1e-4
 # 1/sqrt(rows * units), some 1e-3, of its norm
 SEEDED_REL_NORM_TOL = 1e-2
 LOSS_TOL = dict(rtol=1e-5, atol=0.0)  # fused vs plain step loss
+# B5 in bfloat16 against its plain version: both sum the same bf16 products
+# in f32 in another order, so `a`, `b` and the output round to a
+# neighbouring bf16 value now and then; one bf16 ulp (2^-8 relative) bounds
+# the relative norm
+BF16_REL_NORM = 2.0 ** -8
+# the whole bfloat16 ResNet-50 by relative norm, two engines or one against
+# the float32 module: they round at other points (folded weights, cuDNN's
+# own), compounded over 16 blocks to about 3e-3 to 7e-3 (CPU, 64 and 224
+# px); a wrong weight, block or pixel is off by O(1)
+BACKBONE_REL_NORM = 2e-2
+
+# the 13 stride-1 bottlenecks of ResNet-50 at 224 px: (blocks, how many of
+# them, side, C_in, C_mid, C_out); layer1_0 is the projection block
+B5_SHAPES = (("layer1_0", 1, 56, 64, 64, 256), ("layer1_1-2", 2, 56, 256, 64, 256),
+             ("layer2_1-3", 3, 28, 512, 128, 512), ("layer3_1-5", 5, 14, 1024, 256, 1024),
+             ("layer4_1-2", 2, 7, 2048, 512, 2048))
+# the extraction traffic: H36M's 1000x1000 frames, clips of 40 subsampled
+# frames at stride 5, 224 px crops, the 4 variants, the unique-frame
+# scheduler in its production profile. Cut to size: 2 videos of 100
+# subsampled frames (26 clips), and --batch-size 4 (480 backbone frames per
+# dispatch, 3840 at the default 32) so that each engine runs 2 dispatches
+EXTRACT = dict(videos=2, frames=100, raw=1000, seq_len=40, stride=5, resize=224,
+               batch_size=4)
 
 
 def log(obj) -> None:
@@ -91,8 +133,8 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -480,7 +522,7 @@ def drive_main_path(dev, g, sock_dir):
                              f"{stats['rows']} rows; sent 19")
     want_launches = {"gn_relu_cconv": 2 * mc.num_blocks * batches,
                      "gn_relu_cconv_bwd": 0, "joint_regressor": batches,
-                     "joint_regressor_bwd": 0}
+                     "joint_regressor_bwd": 0, "fused_bottleneck": 0}
     if launches != want_launches:
         raise AssertionError(f"launch counts {launches} != {want_launches} "
                              f"for {batches} device batches")
@@ -514,20 +556,22 @@ def drive_main_path(dev, g, sock_dir):
 
 
 def zero_counts():
-    from h36x_torch.ops import regressor, temporal
+    from h36x_torch.ops import bottleneck, regressor, temporal
 
     for fn in (temporal.fused_gn_relu_cconv, temporal.gn_relu_cconv_bwd,
-               regressor.fused_joint_regressor, regressor.joint_regressor_bwd):
+               regressor.fused_joint_regressor, regressor.joint_regressor_bwd,
+               bottleneck.fused_bottleneck):
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    from h36x_torch.ops import regressor, temporal
+    from h36x_torch.ops import bottleneck, regressor, temporal
 
     return {"gn_relu_cconv": temporal.fused_gn_relu_cconv.launches,
             "gn_relu_cconv_bwd": temporal.gn_relu_cconv_bwd.launches,
             "joint_regressor": regressor.fused_joint_regressor.launches,
-            "joint_regressor_bwd": regressor.joint_regressor_bwd.launches}
+            "joint_regressor_bwd": regressor.joint_regressor_bwd.launches,
+            "fused_bottleneck": bottleneck.fused_bottleneck.launches}
 
 
 def make_tie_free_(model, g) -> None:
@@ -607,7 +651,8 @@ def check_train_step(dev, g):
                             tol, rn_tol)
             want = {"gn_relu_cconv": 4, "gn_relu_cconv_bwd": 4,
                     "joint_regressor": 1 if dropout == 0.0 else 0,
-                    "joint_regressor_bwd": 1 if dropout == 0.0 else 0}
+                    "joint_regressor_bwd": 1 if dropout == 0.0 else 0,
+                    "fused_bottleneck": 0}
             if n_f != want or any(n_p.values()):
                 raise AssertionError(f"step launches fused {n_f} (want {want}), "
                                      f"plain {n_p} (want none)")
@@ -682,7 +727,8 @@ def drive_train_path(g, tmp):
     steps = epochs * (train_clips // batch)
     evals = epochs * math.ceil(val_clips / batch)
     want = {"gn_relu_cconv": 4 * steps + 4 * evals, "gn_relu_cconv_bwd": 4 * steps,
-            "joint_regressor": steps + evals, "joint_regressor_bwd": steps}
+            "joint_regressor": steps + evals, "joint_regressor_bwd": steps,
+            "fused_bottleneck": 0}
     with open(os.path.join(outdir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     log({"phase": "trainer", "seconds": seconds, "train_steps": steps,
@@ -709,6 +755,303 @@ def drive_train_path(g, tmp):
         raise AssertionError("best.msgpack (last epoch) differs from the model")
     log({"check": "trainer checkpoints", "best_epoch": best_epoch, "ok": True})
     return launches
+
+
+def bottleneck_work(n, side, c_in, c_mid, c_out, itemsize):
+    """(FLOPs, bytes) of one fused bottleneck over n frames: the three
+    contractions and the projection; x, the weights and biases read once,
+    the output written once."""
+    weights = c_in * c_mid + 9 * c_mid * c_mid + c_mid * c_out
+    biases = 2 * c_mid + c_out
+    if c_in != c_out:
+        weights += c_in * c_out
+        biases += c_out
+    px = n * side * side
+    return 2 * px * weights, itemsize * (px * (c_in + c_out) + weights) + 4 * biases
+
+
+def bottleneck_weights(c_in, c_mid, c_out, gd, dev):
+    """Random folded weights (f32, h36x's layouts, 1/sqrt(fan-in) scale); a
+    projection whenever C_in != C_out, as in ResNet-50."""
+
+    def init(shape, fan_in):
+        return torch.randn(shape, generator=gd, device=dev) / fan_in ** 0.5
+
+    def bias(c):
+        return 0.1 * torch.randn(c, generator=gd, device=dev)
+
+    f = {"w1": init((c_in, c_mid), c_in), "b1": bias(c_mid),
+         "w2": init((3, 3, c_mid, c_mid), 9 * c_mid), "b2": bias(c_mid),
+         "w3": init((c_mid, c_out), c_mid), "b3": bias(c_out)}
+    if c_in != c_out:
+        f["wp"], f["bp"] = init((c_in, c_out), c_in), bias(c_out)
+    return f
+
+
+def check_bottleneck(dev, n_dispatch):
+    """B5 against its plain version at the 13 stride-1 blocks' shapes (the
+    projection block layer1_0 included) at N 1 and at the dispatch size, in
+    float32 (element-wise, KERNEL_TOL) and bfloat16 (relative norm,
+    BF16_REL_NORM), and at two odd sizes; then, in bfloat16 at the dispatch
+    size, each shape's time, its plain version's time and its bound. The
+    kernels line takes the sums over one forward's 13 blocks."""
+    from h36x_torch.ops.bottleneck import (
+        fused_bottleneck,
+        prepare_bottleneck,
+        reference_bottleneck,
+    )
+
+    gd = torch.Generator(device=dev).manual_seed(5)
+    cases = [(name, side, side, c_in, c_mid, c_out, n)
+             for name, _, side, c_in, c_mid, c_out in B5_SHAPES for n in (1, n_dispatch)]
+    cases += [("odd 9x9", 9, 9, 64, 16, 64, 3), ("odd 9x9 projection", 9, 9, 32, 16, 64, 3),
+              ("odd 5x3", 5, 3, 20, 12, 36, 2)]
+    worst = worst_rel = worst_f32 = 0.0
+    for name, h, w, c_in, c_mid, c_out, n in cases:
+        folded = bottleneck_weights(c_in, c_mid, c_out, gd, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.relu(torch.randn(n, h * w, c_in, generator=gd, device=dev)).to(dtype)
+            p = prepare_bottleneck(folded, dtype, dev)
+            got = fused_bottleneck(x, p, h, w)
+            want = reference_bottleneck(x, p, h, w)
+            label = f"bottleneck {name} N={n} {h}x{w} {c_in}/{c_mid}/{c_out} {dtype}"
+            if dtype == torch.float32:
+                rec = compare(label, got, want, KERNEL_TOL)
+                worst_f32 = max(worst_f32, rec["max_abs_err"])
+            else:
+                rec = compare(label, got.float(), want.float(), None, BF16_REL_NORM)
+            worst = max(worst, rec["max_abs_err"])
+            worst_rel = max(worst_rel, rec["rel_norm_err"])
+    per_shape = []
+    totals = {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    for name, count, side, c_in, c_mid, c_out in B5_SHAPES:
+        p = prepare_bottleneck(bottleneck_weights(c_in, c_mid, c_out, gd, dev),
+                               torch.bfloat16, dev)
+        x = torch.relu(torch.randn(n_dispatch, side * side, c_in, generator=gd,
+                                   device=dev)).bfloat16()
+        ms = time_ms(lambda: fused_bottleneck(x, p, side, side))
+        plain_ms = time_ms(lambda: reference_bottleneck(x, p, side, side))
+        flops, nbytes = bottleneck_work(n_dispatch, side, c_in, c_mid, c_out, 2)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        rec = {"blocks": name, "per_forward": count, "N": n_dispatch,
+               "shape": f"{side}x{side} {c_in}/{c_mid}/{c_out}", "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+               "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
+        log({"check": "bottleneck timing", **rec})
+        per_shape.append(rec)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("flops", flops),
+                       ("bytes", nbytes)):
+            totals[key] += count * v
+    bound_ms, bound_by = bound(totals["flops"], totals["bytes"], PEAK_BF16_FLOPS)
+    return {"name": "fused_bottleneck", "route": "cuda",
+            "source": "h36x_torch/ops/csrc/bottleneck.cu",
+            "replaces": "h36x/ops/pallas_bottleneck.py:87",
+            "max_abs_err": worst, "max_abs_err_f32": worst_f32,
+            "max_rel_norm_err": worst_rel, "ms": totals["ms"],
+            "plain_ms": totals["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "per_shape": per_shape,
+            "shape": f"the 13 stride-1 blocks of one ResNet-50 forward, N={n_dispatch} "
+                     "frames at 224 px, bfloat16",
+            "tol": {"f32": KERNEL_TOL, "bf16_rel_norm": BF16_REL_NORM}}
+
+
+def check_backbone(dev, n):
+    """The full ResNet-50 at 224 px on the same u8 frames: the folded engine
+    (13 B5 launches) and the plain module (cuDNN), both bfloat16, against
+    each other and against the float32 module (TF32 off) by relative norm;
+    then each engine's frames/s."""
+    from h36x_torch.extract.pipeline import make_feature_fn
+    from h36x_torch.models.resnet import ResNet50
+    from h36x_torch.ops.bottleneck import fused_bottleneck
+
+    gd = torch.Generator(device=dev).manual_seed(6)
+    frames = torch.randint(0, 256, (n, 224, 224, 3), generator=gd, device=dev,
+                           dtype=torch.uint8)
+    ref = make_feature_fn(ResNet50(dtype=torch.float32, device=dev), "flax")(frames)
+    model = ResNet50(dtype=torch.bfloat16, device=dev)
+    engines = {"opt": make_feature_fn(model, "opt"), "flax": make_feature_fn(model, "flax")}
+    before = fused_bottleneck.launches
+    got = {name: fn(frames) for name, fn in engines.items()}
+    torch.cuda.synchronize()
+    if fused_bottleneck.launches - before != 13:
+        raise AssertionError(f"one opt forward launched B5 "
+                             f"{fused_bottleneck.launches - before} times, not 13")
+    compare("backbone bf16: opt (B5) vs flax (cuDNN)", got["opt"], got["flax"], None,
+            BACKBONE_REL_NORM)
+    for name in engines:
+        compare(f"backbone bf16 {name} vs float32 module", got[name], ref, None,
+                BACKBONE_REL_NORM)
+    rec = {"phase": "backbone", "frames": n, "tol_rel_norm": BACKBONE_REL_NORM}
+    for name, fn in engines.items():
+        ms = time_ms(lambda: fn(frames), reps=5)
+        rec[f"{name}_ms"] = ms
+        rec[f"{name}_frames_per_s"] = n / ms * 1e3
+    log(rec)
+    return rec
+
+
+class SyntheticVideos:
+    """An in-memory, video-structured clip source, made from a seed, with
+    the interface of tests/test_dedup.py::FakeOverlapDataset (`clips`,
+    `clip_annotations`, `video_groups`, `video_joints2d`, `__getitem__`)
+    and the sequential cursor of the real dataset (`open_video`): u8 frames
+    at H36M's raw size, a person's 2D joints drifting slowly, H36M-like
+    intrinsics. It stands in for the mp4 tree because the machine with the
+    card has no OpenCV to decode one."""
+
+    class Cursor:
+        def __init__(self, frames):
+            self.frames = frames
+
+        def get(self, start, end):
+            return self.frames[start:end]
+
+        def close(self):
+            pass
+
+    def __init__(self, seed, videos, frames, raw, seq_len, stride):
+        from h36x_torch.data.clips import ClipIndex
+
+        rng = np.random.default_rng(seed)
+        self.frames, self.j2d, self.j3d, self.clips = [], [], [], []
+        for v in range(videos):
+            self.frames.append(rng.integers(0, 256, (frames, raw, raw, 3), dtype=np.uint8))
+            centre = raw / 2 + rng.uniform(-100, 100, 2)
+            pose = rng.uniform(-1, 1, (1, 17, 2)) * [100, 200]
+            drift = np.cumsum(rng.normal(0, 2, (frames, 1, 2)), axis=0)
+            self.j2d.append((centre + pose + drift).astype(np.float32))
+            self.j3d.append((300 * rng.normal(size=(frames, 17, 3))).astype(np.float32))
+            cam = {"f": np.array([1145.0, 1144.0]), "c": np.array([raw / 2, raw / 2]),
+                   "k": np.zeros(5), "rt": np.eye(3), "t": np.zeros(3)}
+            for start in range(0, frames - seq_len + 1, stride):
+                self.clips.append(ClipIndex(
+                    video_path=f"synthetic_{v}.mp4", gt_path=f"synthetic_{v}.pkl",
+                    subject=1 + v, action="Walking", cam="cam_0", cam_params=cam,
+                    start=start, end=start + seq_len, video_idx=v))
+
+    def __len__(self):
+        return len(self.clips)
+
+    def clip_annotations(self, i):
+        ci = self.clips[i]
+        v = ci.video_idx
+        return (self.j3d[v][ci.start:ci.end].copy(), self.j2d[v][ci.start:ci.end].copy(),
+                ci.cam_params, ci)
+
+    def video_groups(self):
+        groups = {}
+        for i, ci in enumerate(self.clips):
+            groups.setdefault(ci.video_idx, []).append(i)
+        return [groups[v] for v in sorted(groups)]
+
+    def video_joints2d(self, video_idx):
+        return self.j2d[video_idx]
+
+    def open_video(self, video_idx):
+        return self.Cursor(self.frames[video_idx])
+
+    def __getitem__(self, i):
+        j3d, j2d, cam, ci = self.clip_annotations(i)
+        return self.frames[ci.video_idx][ci.start:ci.end], j3d, j2d, cam, ci
+
+
+def frames_per_dispatch() -> int:
+    """The unique-frame scheduler's default device batch: batch_size *
+    seq_len * 3 pixel variants."""
+    return EXTRACT["batch_size"] * EXTRACT["seq_len"] * 3
+
+
+def drive_extract_path(dev, dataset, out, engine):
+    """Extraction end to end through run_extract, the function
+    h36x_torch.cli.extract calls, with the counts set to 0 just before it
+    and read just after: B5 must launch 13 times per dispatch with the `opt`
+    engine and never with `flax`, and no other kernel launches."""
+    import math
+
+    from h36x_torch.config import ExtractConfig
+    from h36x_torch.extract.pipeline import run_extract, store_provenance
+
+    e = EXTRACT
+    if store_provenance()["crop_backend"] != "native":
+        raise AssertionError("the port's native crop library did not build")
+    cfg = ExtractConfig(out=out, seq_len=e["seq_len"], stride=e["stride"],
+                        resize=e["resize"], batch_size=e["batch_size"], num_workers=4,
+                        augment=True, shard_size=8, shuffle_pool=16, engine=engine)
+    zero_counts()
+    t0 = time.perf_counter()
+    summary = run_extract(cfg, dataset=dataset, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    dispatches = math.ceil(summary["backbone_frames"] / frames_per_dispatch())
+    want = dict.fromkeys(launches, 0)
+    want["fused_bottleneck"] = 13 * dispatches if engine == "opt" else 0
+    # the run's own rate (summary["seconds"]: from the backbone's load to
+    # the index) and the call's wall time, the load included
+    log({"phase": f"extract {engine}", "call_seconds": seconds,
+         "run_seconds": summary["seconds"], "launches": launches,
+         "dispatches": dispatches, "clips_per_s": summary["clips_per_sec"],
+         "backbone_frames_per_s": summary["backbone_frames"] / summary["seconds"],
+         **{k: summary[k] for k in ("n_clips", "n_shards", "backbone_frames",
+                                    "dedup_ratio", "crop_scope", "jitter_key")}})
+    if launches != want or dispatches < 2:
+        raise AssertionError(f"extract {engine}: launches {launches} != {want} "
+                             f"over {dispatches} dispatches")
+    if (summary["n_clips"], summary["crop_scope"], summary["jitter_key"]) != (
+            len(dataset), "video", "video"):
+        raise AssertionError(f"extract {engine}: {summary}")
+    return launches, summary
+
+
+def compare_stores(opt_root, flax_root, dev):
+    """The two engines' stores: both pass verify_store; index.json, every
+    non-feature array and every meta entry byte-identical; features finite
+    and within BACKBONE_REL_NORM of each other by relative norm. Then one
+    batch of the opt store, read through h36x_torch.data.features, runs
+    through the PHD forward."""
+    from h36x_torch.data.features import FeatureClipDataset
+    from h36x_torch.data.shards import load_index, read_shard, shard_path, verify_store
+    from h36x_torch.infer import make_fused_forward
+    from h36x_torch.models.phd import PHDFor3DJoints, param_tree
+
+    for root in (opt_root, flax_root):
+        rep = verify_store(root)
+        if rep["errors"] or not rep["arrays_checked"]:
+            raise AssertionError(f"verify_store({root}): {rep}")
+    index = [open(os.path.join(r, "index.json"), "rb").read() for r in (opt_root, flax_root)]
+    if index[0] != index[1]:
+        raise AssertionError("index.json differs between the engines")
+    diff2 = ref2 = 0.0
+    finite = True
+    n_shards = load_index(opt_root)["n_shards"]
+    for sid in range(n_shards):
+        a = read_shard(shard_path(opt_root, sid), mmap=False)
+        b = read_shard(shard_path(flax_root, sid), mmap=False)
+        if a.keys() != b.keys() or a["meta"] != b["meta"]:
+            raise AssertionError(f"shard {sid}: meta differs between the engines")
+        for name in a:
+            if name in ("meta", "n_vars", "feats"):
+                continue
+            if a[name].dtype != b[name].dtype or a[name].tobytes() != b[name].tobytes():
+                raise AssertionError(f"shard {sid}: {name} differs between the engines")
+        fa, fb = torch.from_numpy(a["feats"]).double(), torch.from_numpy(b["feats"]).double()
+        finite &= bool(torch.isfinite(fa).all() and torch.isfinite(fb).all())
+        diff2 += float(((fa - fb) ** 2).sum())
+        ref2 += float((fb ** 2).sum())
+    rel = (diff2 / ref2) ** 0.5 if ref2 > 0 else float("inf")
+    log({"check": "stores opt vs flax", "shards": n_shards, "feats_rel_norm": rel,
+         "tol_rel_norm": BACKBONE_REL_NORM, "finite": finite})
+    if not finite or rel > BACKBONE_REL_NORM:
+        raise AssertionError(f"store features: finite {finite}, rel norm {rel}")
+    ds = FeatureClipDataset(opt_root, augment=True)
+    feats = ds.get_batch(list(range(8)))[0]
+    model = PHDFor3DJoints(generator=torch.Generator().manual_seed(2), device=dev)
+    joints = make_fused_forward()(param_tree(model), torch.from_numpy(feats).to(dev))
+    if joints.shape != (8, feats.shape[1], 17, 3) or not torch.isfinite(joints).all():
+        raise AssertionError(f"PHD forward on the store: {tuple(joints.shape)}")
+    log({"check": "store -> PHD forward", "rows": len(ds), "joints": list(joints.shape),
+         "ok": True})
 
 
 def main() -> int:
@@ -741,17 +1084,30 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
     kernels = [check_temporal(dev, g), check_temporal_bwd(dev, g),
-               check_regressor(dev, g), check_regressor_bwd(dev, g)]
+               check_regressor(dev, g), check_regressor_bwd(dev, g),
+               check_bottleneck(dev, frames_per_dispatch())]
     check_train_step(dev, g)
+    check_backbone(dev, frames_per_dispatch())
 
-    # the two main paths, each with the counts set to 0 just before it
+    # the main paths, each with the counts set to 0 just before it
+    paths = {}
     with tempfile.TemporaryDirectory() as tmp:
-        serve = drive_main_path(dev, g, tmp)
+        paths["serve"] = drive_main_path(dev, g, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        train = drive_train_path(g, tmp)
+        paths["train"] = drive_train_path(g, tmp)
+    t0 = time.perf_counter()
+    e = EXTRACT
+    videos = SyntheticVideos(0, e["videos"], e["frames"], e["raw"], e["seq_len"], e["stride"])
+    log({"phase": "videos_made", "seconds": time.perf_counter() - t0,
+         "clips": len(videos), **e})
+    with tempfile.TemporaryDirectory() as tmp:
+        for engine in ("opt", "flax"):
+            paths[f"extract_{engine}"], _ = drive_extract_path(
+                dev, videos, os.path.join(tmp, engine), engine)
+        compare_stores(os.path.join(tmp, "opt"), os.path.join(tmp, "flax"), dev)
     for k in kernels:
-        k["launches"] = serve[k["name"]] + train[k["name"]]
-        k["launches_by_path"] = {"serve": serve[k["name"]], "train": train[k["name"]]}
+        k["launches_by_path"] = {p: counts[k["name"]] for p, counts in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
         log(dict(k))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -2,12 +2,14 @@
 
 The clip geometry constants, `ModelConfig`, and the training configs
 (`DataConfig`, `OptimConfig`, `MeshConfig`, `DistConfig`, `TrainConfig`)
-with h36x's field names and defaults, so the trainer takes the same
-`--optim.batch-size`-style flags (:func:`parse_into`). Only the fields
-that the trainer reads are carried over; values that this slice of the port
-does not run yet are refused (:func:`h36x_torch.train.loop.check_supported`).
-The phase-2 curriculum fields, the multi-process launch fields and the
-extraction and ingest configs come with their slices.
+and the extraction config (`ExtractConfig`) with h36x's field names and
+defaults, so the trainer and the extractor take the same
+`--optim.batch-size`-style flags (:func:`parse_into`). Only the training
+fields that the trainer reads are carried over; values that this slice of
+the port does not run yet are refused
+(:func:`h36x_torch.train.loop.check_supported`). The phase-2 curriculum
+fields, the multi-process launch fields and the ingest config come with
+their slices.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import typing
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
+FRAME_SKIP = 2  # temporal subsampling applied when decoding video
 SEQ_LEN = 40  # frames per clip (after subsampling)
 JOINTS_NUM = 17  # H36M 17-joint skeleton
 FEATURE_DIM = 2048  # ResNet-50 pooled feature width
@@ -28,6 +31,7 @@ EPOCHS = 50
 
 TRAIN_SUBJECTS = (1, 6, 7, 8)
 VAL_SUBJECTS = (5,)
+ALL_SUBJECTS = (1, 5, 6, 7, 8, 9, 11)
 
 
 @dataclass
@@ -119,6 +123,51 @@ class TrainConfig:
     val_subjects: List[int] = field(default_factory=lambda: list(VAL_SUBJECTS))
     profile_dir: str = ""
     ckpt_backend: str = "msgpack"
+
+
+@dataclass
+class ExtractConfig:
+    """Feature-extraction stage: h36x's fields, names and defaults."""
+
+    root: str = ""
+    out: str = ""
+    seq_len: int = SEQ_LEN
+    frame_skip: int = FRAME_SKIP
+    stride: int = 5
+    resize: int = 224
+    batch_size: int = 32
+    num_workers: int = 8
+    subjects: List[int] = field(default_factory=lambda: list(ALL_SUBJECTS))
+    save_fp16: bool = False
+    augment: bool = False
+    shard_size: int = 512  # clips per shard file
+    shuffle_pool: int = 8192  # clips buffered before a shuffled flush
+    # host-RAM budget of that buffer in GiB: flush early once the buffered
+    # arrays reach it (moves rows between shards, never changes row bytes);
+    # 0 = unbounded
+    shuffle_pool_gb: float = 8.0
+    shuffle_seed: int = 123
+    weights: str = ""  # torchvision-layout ResNet-50 state_dict (.pt)
+    resume: bool = False  # continue an interrupted extraction (progress.json)
+    # read the finished store back and recompute every shard's CRC32s
+    verify_after: bool = False
+    # 'flax': the plain ResNet50 module (cuDNN on the card); 'opt': BN and
+    # normalize folded, space-to-depth stem, every stride-1 block one
+    # launch of the fused bottleneck kernel
+    engine: str = "flax"
+    partition: str = ""  # "i/N": extract only clips i::N of the index
+    partition_by: str = "clip"  # 'clip' (round-robin clips) | 'video'
+    dedup: bool = True  # unique-frame scheduling (h36x_torch/extract/dedup.py)
+    # 'auto' = 'video' on the unique-frame scheduler (the production
+    # profile) and 'clip' on the per-clip one; 'clip' = the reference's
+    # per-clip box
+    crop_scope: str = "auto"
+    # color-jitter rng keying: 'auto' ('video' on the unique-frame
+    # scheduler, 'clip' on the per-clip one) | 'clip' | 'video' | 'frame'
+    jitter_key: str = "auto"
+    # device batch rows of the unique-frame scheduler; 0 = batch_size *
+    # seq_len * pixel variants
+    frames_per_dispatch: int = 0
 
 
 # ---------------------------------------------------------------------------

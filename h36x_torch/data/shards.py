@@ -126,19 +126,93 @@ def read_shard(path, mmap: bool = True) -> dict:
 
 
 class ShardWriter:
-    """Writes numbered shard files, one per `write` call."""
+    """Writes numbered shard files, one per `write` call; with an
+    `async_writer` (:class:`h36x_torch.extract.writer.AsyncWriter`) the
+    serialization runs on its thread, in submission order."""
 
-    def __init__(self, out_root, n_vars: int):
+    def __init__(self, out_root, n_vars: int, async_writer=None):
         self.out_root = Path(out_root)
         self.out_root.mkdir(parents=True, exist_ok=True)
         self.n_vars = n_vars
         self.shard_id = 0
+        self._async = async_writer
 
     def write(self, arrays: Dict[str, np.ndarray], meta: List[dict]) -> int:
         sid = self.shard_id
-        write_shard(shard_path(self.out_root, sid), arrays, meta, self.n_vars)
+        path = shard_path(self.out_root, sid)
+        if self._async is not None:
+            self._async.submit(write_shard, path, arrays, meta, self.n_vars)
+        else:
+            write_shard(path, arrays, meta, self.n_vars)
         self.shard_id += 1
         return sid
+
+
+def verify_store(root) -> dict:
+    """Integrity check of a store: read every shard in full (no mmap),
+    recompute each array's recorded CRC32, check payload sizes, row counts
+    and meta lengths, and that the index's clip -> shard mapping agrees with
+    what is on disk.
+
+    Returns {"n_shards", "rows", "arrays_checked", "arrays_unchecked",
+    "errors": [str]}; `arrays_unchecked` counts arrays written without a
+    checksum."""
+    root = Path(root)
+    idx = load_index(root)
+    n_shards = int(idx["n_shards"])
+    n_vars = int(idx["n_variants"])
+    per_shard: Dict[int, int] = {}
+    for c in idx["clips"]:
+        sid = int(c["shard_id"])
+        per_shard[sid] = per_shard.get(sid, 0) + 1
+    errors: List[str] = [
+        f"index maps {n} clip(s) to nonexistent shard {sid} (store has {n_shards})"
+        for sid, n in per_shard.items() if sid < 0 or sid >= n_shards]
+    rows = checked = unchecked = 0
+    for sid in range(n_shards):
+        path = shard_path(root, sid)
+        shard_rows = None
+        try:
+            with open(path, "rb") as f:
+                if f.read(len(MAGIC)) != MAGIC:
+                    raise ValueError("bad magic")
+                (hlen,) = np.frombuffer(f.read(4), dtype="<u4")
+                header = json.loads(f.read(int(hlen)).decode())
+                for name, spec in header["arrays"].items():
+                    f.seek(int(spec["offset"]))
+                    buf = f.read(int(spec["nbytes"]))
+                    if len(buf) != int(spec["nbytes"]):
+                        errors.append(f"{path.name}:{name}: truncated "
+                                      f"({len(buf)}/{spec['nbytes']} payload bytes)")
+                        continue
+                    want = spec.get("crc32")
+                    if want is None:
+                        unchecked += 1
+                    elif zlib.crc32(buf) & 0xFFFFFFFF != int(want):
+                        errors.append(f"{path.name}:{name}: CRC32 mismatch "
+                                      f"(recorded {int(want):#010x}) — payload corrupted")
+                    else:
+                        checked += 1
+                    if spec["shape"]:
+                        if shard_rows is None:
+                            shard_rows = int(spec["shape"][0])
+                        elif int(spec["shape"][0]) != shard_rows:
+                            errors.append(f"{path.name}: arrays disagree on row "
+                                          f"count ({spec['shape'][0]} vs {shard_rows})")
+                if shard_rows is not None and len(header["meta"]) != shard_rows:
+                    errors.append(f"{path.name}: {len(header['meta'])} meta entries "
+                                  f"for {shard_rows} rows")
+        except Exception as e:  # noqa: BLE001 — report, keep scanning
+            errors.append(f"{path.name}: unreadable ({type(e).__name__}: {e})")
+            continue
+        expect = per_shard.get(sid, 0) * n_vars
+        if shard_rows is not None and shard_rows != expect:
+            errors.append(f"{path.name}: {shard_rows} rows on disk but the index "
+                          f"maps {per_shard.get(sid, 0)} clip(s) x {n_vars} "
+                          f"variants = {expect}")
+        rows += shard_rows or 0
+    return {"n_shards": n_shards, "rows": rows, "arrays_checked": checked,
+            "arrays_unchecked": unchecked, "errors": errors}
 
 
 class ShardReader:

@@ -1,0 +1,600 @@
+"""Unique-frame extraction scheduling (counterpart of h36x/extract/dedup.py):
+compute each overlapping frame once.
+
+At stride 5 and seq_len 40 every subsampled frame belongs to up to 8
+clips; the per-clip pipeline decodes and runs the backbone on it once per
+clip. This scheduler works per unique frame instead:
+
+- **decode**: one sequential pass per video (SequentialVideoCursor);
+- **crop**: the crop box is computed from the clip's whole 2D-joint
+  window, so the caches are content-addressed by (frame_idx, box): the
+  store matches the per-clip pipeline's byte for byte at any box
+  stability, and every repeated (frame, box) pair is paid once;
+- **backbone**: per (frame, box) the deterministic variants (orig, hflip)
+  are computed once; temporal-reverse is the orig features reversed. The
+  color-jitter pass is per-clip keyed under jitter_key='clip' (reference
+  parity, not dedupable); jitter_key='video'|'frame' re-keys it per video
+  or frame, which makes it dedupable too;
+- **crop_scope='video'**: one box per video, from all its subsampled
+  frames' joints, which guarantees the full seq_len/stride dedup at the
+  cost of a looser crop. crop_scope='video' with jitter_key='video' is the
+  production profile ('auto').
+
+Steady-state device cost per clip of T frames at stride s (stable boxes):
+  per-clip pipeline:                    3T   (=120)  backbone-frames
+  dedup, jitter_key='clip':             T+2s (= 50)
+  dedup, jitter_key='video'/'frame':    3s   (= 15)
+
+The store contract, row order (clips enter the shuffle pool in global
+clip-index order), per-clip jitter rng and resume/partition semantics are
+those of the per-clip pipeline. On the card, the features of a dispatch
+stay on the device until the next dispatch has been queued and the host
+finalizes this one.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from pathlib import Path
+from queue import Queue
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from h36x_torch.config import ExtractConfig
+from h36x_torch.data.augment import (
+    AUG_NAMES,
+    hflip_joints,
+    jitter_u8,
+    reverse_joints,
+    sample_jitter_params,
+)
+from h36x_torch.geometry.camera import adjust_camera_after_crop_and_resize
+from h36x_torch.geometry.crop import (
+    adjust_joints2d_after_crop_and_resize,
+    compute_square_crop_from_2d,
+)
+
+# (subsampled frame index, (top, left, side)) — the content address of a crop
+FrameKey = Tuple[int, Tuple[int, int, int]]
+
+
+class _ConsumerGone(Exception):
+    """Raised inside a worker when the consumer has stopped listening."""
+
+
+@dataclass
+class ClipJob:
+    """One clip's schedule: which cached features it needs and which unique
+    frames it is responsible for computing (first-seen within its video)."""
+
+    index: int  # global clip index
+    video_idx: int
+    ci: object  # ClipIndex-like metadata
+    j3d: np.ndarray
+    j2d_raw: np.ndarray
+    cam: dict
+    box: np.ndarray  # (4,)
+    window_keys: List[FrameKey]  # seq_len keys, in time order
+    # first-seen (key, crop u8 (o,o,3)) pairs this job must compute
+    miss: List[Tuple[FrameKey, np.ndarray]] = field(default_factory=list)
+    # first-seen jittered crops (jitter_key='video'|'frame')
+    cj_miss: List[Tuple[FrameKey, np.ndarray]] = field(default_factory=list)
+    # per-clip jittered window (jitter_key='clip'), filled in order
+    cj_window: Optional[np.ndarray] = None  # (T,o,o,3) u8
+    cj_feats: Optional[list] = None  # len-T list of rows, set at dispatch
+
+
+def _frame_jitter_rng(seed: int, video_idx: int, frame_idx: int):
+    return np.random.default_rng(
+        seed * 3_000_017 + video_idx * 1_000_003 + frame_idx
+    )
+
+
+def _video_jitter_rng(seed: int, video_idx: int):
+    return np.random.default_rng(seed * 2_000_003 + video_idx)
+
+
+def _video_worker(
+    dataset,
+    group: List[int],
+    todo_set,
+    cfg: ExtractConfig,
+    out_q: Queue,
+    stop,
+) -> None:
+    """Process one video's clips in start order; emit ClipJobs.
+
+    Owns the sequential decode cursor and the host-side crop cache; the
+    first-seen bookkeeping here is independent of device batching, so the
+    set of computed unique frames is deterministic for a given todo set.
+    `stop` (threading.Event) aborts the worker when the consumer dies —
+    workers block on bounded queues, so without it an error on the consumer
+    side would hang the executor shutdown.
+    """
+    from queue import Full
+
+    from h36x_torch.extract.pipeline import crop_resize_frames
+
+    def put(item):
+        while True:
+            if stop.is_set():
+                raise _ConsumerGone()
+            try:
+                out_q.put(item, timeout=0.2)
+                return
+            except Full:
+                continue
+
+    cursor = None
+    try:
+        todo = [i for i in group if i in todo_set]
+        if not todo:
+            put(("done", None))
+            return
+        video_idx = dataset.clips[todo[0]].video_idx
+        if hasattr(dataset, "open_video"):
+            cursor = dataset.open_video(video_idx)
+        crop_cache: Dict[FrameKey, np.ndarray] = {}
+        seen: set = set()
+        seen_cj: set = set()
+        video_box = None
+        video_params = None
+        if cfg.augment and cfg.jitter_key == "video":
+            video_params = sample_jitter_params(
+                _video_jitter_rng(cfg.shuffle_seed, video_idx)
+            )
+
+        for i in todo:
+            j3d, j2d_raw, cam, ci = dataset.clip_annotations(i)
+            if cursor is not None:
+                frames = cursor.get(ci.start, ci.end)
+            else:  # no sequential access: per-clip decode fallback
+                frames = dataset[i][0]
+            t_len, img_h, img_w, _ = frames.shape
+
+            if cfg.crop_scope == "video":
+                if video_box is None:
+                    video_box = compute_square_crop_from_2d(
+                        dataset.video_joints2d(video_idx), img_h, img_w,
+                        scale=1.6,
+                    )
+                box = video_box
+            else:  # 'clip': the reference's per-clip box
+                box = compute_square_crop_from_2d(
+                    j2d_raw, img_h, img_w, scale=1.6
+                )
+            bkey = (int(box[0]), int(box[1]), int(box[2]))
+
+            for k in [k for k in crop_cache if k[0] < ci.start]:
+                del crop_cache[k]
+
+            keys = [(ci.start + t, bkey) for t in range(t_len)]
+            new_t = [t for t in range(t_len) if keys[t] not in crop_cache]
+            if new_t:
+                cropped = crop_resize_frames(frames[new_t], box, cfg.resize)
+                for j, t in enumerate(new_t):
+                    crop_cache[keys[t]] = cropped[j]
+            window = np.stack([crop_cache[k] for k in keys])
+
+            job = ClipJob(
+                index=i, video_idx=video_idx, ci=ci, j3d=j3d,
+                j2d_raw=j2d_raw, cam=cam, box=np.asarray(box),
+                window_keys=keys,
+            )
+            for t, k in enumerate(keys):
+                if k not in seen:
+                    seen.add(k)
+                    # copy the row: a view would pin this clip's WHOLE
+                    # (T,o,o,3) window until the consumer dispatches it. In
+                    # the max-dedup modes a job contributes only ~stride
+                    # first-seen rows, and `pending` can hold hundreds of
+                    # jobs' entries — views would transiently pin GBs of
+                    # windows for MBs of needed rows.
+                    job.miss.append((k, window[t].copy()))
+            if cfg.augment:
+                if cfg.jitter_key == "clip":
+                    rng = np.random.default_rng(
+                        cfg.shuffle_seed * 1_000_003 + i
+                    )
+                    job.cj_window = jitter_u8(window, sample_jitter_params(rng))
+                elif cfg.jitter_key == "video":
+                    # one params set for the whole video: jitter every
+                    # first-seen frame in ONE kernel call (per-frame calls
+                    # pay a thread spawn/join each — pure waste in the mode
+                    # built for maximum dedup throughput)
+                    new_ts = [t for t, k in enumerate(keys)
+                              if k not in seen_cj]
+                    if new_ts:
+                        cjs = jitter_u8(window[new_ts], video_params)
+                        for j, t in enumerate(new_ts):
+                            seen_cj.add(keys[t])
+                            job.cj_miss.append((keys[t], cjs[j]))
+                else:  # jitter_key == "frame": distinct params per frame
+                    for t, k in enumerate(keys):
+                        if k in seen_cj:
+                            continue
+                        seen_cj.add(k)
+                        params = sample_jitter_params(
+                            _frame_jitter_rng(cfg.shuffle_seed, video_idx,
+                                              k[0])
+                        )
+                        cj = jitter_u8(window[t : t + 1], params)[0]
+                        job.cj_miss.append((k, cj))
+            put(("job", job))
+        put(("done", None))
+    except _ConsumerGone:
+        pass  # consumer already failed; nothing to report
+    except BaseException as e:  # propagate to the consumer thread
+        try:
+            put(("error", e))
+        except _ConsumerGone:
+            pass
+    finally:
+        if cursor is not None:
+            cursor.close()  # even on error paths: the cv2 capture holds an fd
+
+
+class _Assembler:
+    """In-order clip assembly over the per-video feature cache."""
+
+    def __init__(self, cfg: ExtractConfig, pool, feat_dtype, aug_names,
+                 on_clip_done):
+        self.cfg = cfg
+        self.pool = pool
+        self.feat_dtype = feat_dtype
+        self.aug_names = aug_names
+        self.on_clip_done = on_clip_done
+        self.fifo: deque = deque()
+        # video_idx -> {(FrameKey, variant): feature row}
+        self.cache: Dict[int, Dict[Tuple[FrameKey, str], np.ndarray]] = {}
+        self.backbone_rows = 0  # real (unpadded) rows sent to the device
+
+    def store(self, tag, row: np.ndarray) -> None:
+        kind = tag[0]
+        if kind == "cache":
+            _, vid, key, var = tag
+            self.cache.setdefault(vid, {})[(key, var)] = row
+        else:  # ("job", job, t): per-clip jitter row
+            _, job, t = tag
+            job.cj_feats[t] = row
+
+    def _ready(self, job: ClipJob) -> bool:
+        cache = self.cache.get(job.video_idx, {})
+        for k in job.window_keys:
+            if (k, "o") not in cache:
+                return False
+            if self.cfg.augment and (k, "h") not in cache:
+                return False
+        if self.cfg.augment:
+            if job.cj_feats is not None:  # per-clip-keyed jitter rows
+                if any(r is None for r in job.cj_feats):
+                    return False
+            else:  # video/frame-keyed jitter: rows come from the cache
+                for k in job.window_keys:
+                    if (k, "c") not in cache:
+                        return False
+        return True
+
+    def drain(self) -> None:
+        while self.fifo and self._ready(self.fifo[0]):
+            job = self.fifo.popleft()
+            self._assemble(job)
+            # Videos are processed in ascending video_idx (video_groups
+            # order), so assembling a job of video v means every EARLIER
+            # video is fully done; later videos may already have rows
+            # cached from in-flight dispatches — keep those.
+            for vid in [v for v in self.cache if v < job.video_idx]:
+                del self.cache[vid]
+            # Frames before this clip's start are out of every later window
+            # (workers emit clips in start order).
+            cache = self.cache.get(job.video_idx)
+            if cache is not None:
+                for ck in [ck for ck in cache if ck[0][0] < job.ci.start]:
+                    del cache[ck]
+
+    def _assemble(self, job: ClipJob) -> None:
+        cfg = self.cfg
+        cache = self.cache[job.video_idx]
+        f_orig = np.stack([cache[(k, "o")] for k in job.window_keys])
+        ci, box = job.ci, job.box
+        j2d = adjust_joints2d_after_crop_and_resize(
+            job.j2d_raw, box, cfg.resize
+        )
+        K = adjust_camera_after_crop_and_resize(
+            job.cam["f"], job.cam["c"], box, cfg.resize
+        )
+        base_meta = {
+            "subject": int(ci.subject),
+            "action": ci.action,
+            "cam": ci.cam,
+            "start": int(ci.start),
+            "end": int(ci.end),
+            "frame_skip": int(cfg.frame_skip),
+            "box": [int(v) for v in box],
+        }
+        if cfg.augment:
+            f_hf = np.stack([cache[(k, "h")] for k in job.window_keys])
+            if job.cj_feats is not None:  # per-clip-keyed jitter
+                f_cj = np.stack(job.cj_feats)
+            else:  # video/frame-keyed jitter: rows live in the cache
+                f_cj = np.stack([cache[(k, "c")] for k in job.window_keys])
+            f_trev = f_orig[::-1].copy()
+            j3d_hf, j2d_hf, K_hf = hflip_joints(
+                job.j3d, j2d, K, width=cfg.resize
+            )
+            j3d_tr, j2d_tr = reverse_joints(job.j3d, j2d)
+            rows = (
+                (f_orig, job.j3d, j2d, K),
+                (f_cj, job.j3d, j2d, K),
+                (f_hf, j3d_hf, j2d_hf, K_hf),
+                (f_trev, j3d_tr, j2d_tr, K),
+            )
+        else:
+            rows = ((f_orig, job.j3d, j2d, K),)
+        group = [
+            {
+                "feat": feat,
+                "joints3d": np.asarray(jj3, np.float32),
+                "joints2d": np.asarray(jj2, np.float32),
+                "K": np.asarray(kk, np.float32),
+                "meta": dict(base_meta, aug=self.aug_names[v]),
+            }
+            for v, (feat, jj3, jj2, kk) in enumerate(rows)
+        ]
+        self.pool.add(group)
+        self.on_clip_done()
+
+
+def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
+    """Unique-frame extraction on `device` (default cuda); the same store
+    contract as pipeline.run_extract."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from h36x_torch.data.shards import ShardWriter
+    from h36x_torch.extract.pipeline import (
+        DeviceFeatures,
+        ShufflePool,
+        ThroughputPrinter,
+        _clip_key,
+        _load_backbone,
+        _parse_partition,
+        finalize_store,
+        frames_to_device,
+        make_feature_fn,
+        make_progress_writer,
+        resolve_extract_modes,
+        restore_resume_state,
+        store_provenance,
+        validate_extract_config,
+    )
+    from h36x_torch.extract.writer import AsyncWriter
+    from h36x_torch.utils.runtime import resolve_device
+
+    validate_extract_config(cfg)  # one validator for both schedulers
+    # direct callers may pass 'auto' sentinels; this scheduler's auto = the
+    # production profile (video/video)
+    cfg = resolve_extract_modes(cfg, production=True)
+    device = resolve_device(device)
+
+    out_root = Path(cfg.out)
+    out_root.mkdir(parents=True, exist_ok=True)
+    n_vars = len(AUG_NAMES) if cfg.augment else 1
+    aug_names = list(AUG_NAMES) if cfg.augment else ["orig"]
+    feat_np_dtype = np.float16 if cfg.save_fp16 else np.float32
+    progress_path = out_root / "progress.json"
+
+    groups = dataset.video_groups()
+    n_clips = len(dataset)
+    part_i, part_n = _parse_partition(cfg.partition)
+    partition_by = cfg.partition_by
+    if partition_by == "video":
+        groups = groups[part_i::part_n]
+        owned = [i for g in groups for i in g]
+    else:  # clip round-robin: preserves the per-clip pipeline's semantics
+        owned = set(range(n_clips)[part_i::part_n] if part_n > 1
+                    else range(n_clips))
+        owned = [i for g in groups for i in g if i in owned]
+    part_note = (f" [partition {part_i}/{part_n} by {partition_by}]"
+                 if part_n > 1 else "")
+    profile = ("production" if (cfg.crop_scope, cfg.jitter_key)
+               == ("video", "video") else "reference-keyed"
+               if (cfg.crop_scope, cfg.jitter_key) == ("clip", "clip")
+               else "mixed")
+    print(
+        f"Extracting {n_clips} clips x {n_vars} variant(s) "
+        f"(shards of {cfg.shard_size} clips, unique-frame scheduling, "
+        f"{profile} profile: crop_scope={cfg.crop_scope} "
+        f"jitter_key={cfg.jitter_key}) "
+        f"-> {out_root}{part_note}"
+    )
+
+    model = _load_backbone(cfg, device)
+    feature_fn = make_feature_fn(model, engine=cfg.engine)
+
+    async_writer = AsyncWriter()
+    shard_writer = ShardWriter(out_root, n_vars, async_writer=async_writer)
+
+    run_config = {
+        "n_vars": n_vars, "seq_len": cfg.seq_len, "resize": cfg.resize,
+        "frame_skip": cfg.frame_skip, "save_fp16": bool(cfg.save_fp16),
+        "shuffle_seed": cfg.shuffle_seed,
+        "partition": cfg.partition,
+    }
+    if part_n > 1:
+        # partition semantics change the owned clip set; resuming a part
+        # store under the other scheme would append the wrong clips
+        run_config["partition_by"] = partition_by
+    if cfg.crop_scope != "clip" or cfg.jitter_key != "clip":
+        # deviation modes change feature bytes: a resume mixing them with
+        # default-mode rows would corrupt the store silently
+        run_config["crop_scope"] = cfg.crop_scope
+        run_config["jitter_key"] = cfg.jitter_key
+    provenance = store_provenance()
+    run_config["crop_backend"] = provenance["crop_backend"]
+    if n_vars > 1:
+        run_config["jitter_backend"] = provenance["jitter_backend"]
+
+    write_progress = make_progress_writer(progress_path, run_config,
+                                          async_writer)
+    pool = ShufflePool(
+        shard_writer, n_vars, cfg.shard_size, cfg.shuffle_pool,
+        cfg.shuffle_seed, on_flush=write_progress,
+        max_bytes=int(cfg.shuffle_pool_gb * 2**30),
+    )
+    done_keys = restore_resume_state(cfg, progress_path, run_config, pool,
+                                     shard_writer)
+
+    todo_set = {
+        i for i in owned
+        if not done_keys or _clip_key(dataset.clips[i]) not in done_keys
+    }
+    n_todo = len(todo_set)
+    if n_todo < len(owned):
+        print(f"{len(owned) - n_todo} clips already done; {n_todo} to go")
+
+    t_all = time.perf_counter()
+    printer = ThroughputPrinter(n_todo, pool, shard_writer)
+
+    assembler = _Assembler(cfg, pool, feat_np_dtype, aug_names,
+                           printer.clip_done)
+
+    # --- device batching: a fixed frame-batch shape, the transfer
+    # granularity of the per-clip pipeline's default batches
+    frames_per_dispatch = cfg.frames_per_dispatch or (
+        cfg.batch_size * cfg.seq_len * (3 if cfg.augment else 1)
+    )
+    if frames_per_dispatch < 1:
+        # validate with the other dedup flags: a negative value would only
+        # blow up as an opaque numpy negative-dimension error deep in the
+        # hot loop, after the backbone load and worker startup
+        raise ValueError(
+            f"--frames-per-dispatch must be positive, got {frames_per_dispatch}")
+    pending: List[tuple] = []  # (tag, crop u8 (o,o,3))
+    inflight = None
+
+    def dispatch(chunk):
+        nonlocal inflight
+        n = len(chunk)
+        frames = np.stack([c for _, c in chunk])
+        if n < frames_per_dispatch:
+            padder = np.zeros(
+                (frames_per_dispatch - n,) + frames.shape[1:], np.uint8
+            )
+            frames = np.concatenate([frames, padder])
+        feats_dev = DeviceFeatures(feature_fn(frames_to_device(frames, device)))
+        assembler.backbone_rows += n
+        new = (feats_dev, [t for t, _ in chunk], n)
+        if inflight is not None:
+            finalize(inflight)
+        inflight = new
+
+    def finalize(batch):
+        feats_dev, tags, n = batch
+        feats = feats_dev.numpy(feat_np_dtype)[:n]
+        for tag, row in zip(tags, feats):
+            assembler.store(tag, row)
+        assembler.drain()
+
+    def enqueue(job: ClipJob):
+        for k, crop in job.miss:
+            pending.append((("cache", job.video_idx, k, "o"), crop))
+            if cfg.augment:
+                pending.append(
+                    (("cache", job.video_idx, k, "h"), crop[:, ::-1, :])
+                )
+        for k, cj in job.cj_miss:
+            pending.append((("cache", job.video_idx, k, "c"), cj))
+        if job.cj_window is not None:
+            t_len = job.cj_window.shape[0]
+            job.cj_feats = [None] * t_len
+            for t in range(t_len):
+                pending.append((("job", job, t), job.cj_window[t]))
+            job.cj_window = None  # crops live in `pending` now; free the ref
+        # clear the miss lists too: jobs can sit in the fifo for many
+        # dispatches awaiting rows — `pending` owns the frames from here
+        # (miss rows are per-row copies made in the worker, so dropping
+        # the job-side refs genuinely frees memory as pending drains)
+        job.miss = []
+        job.cj_miss = []
+        assembler.fifo.append(job)
+        while len(pending) >= frames_per_dispatch:
+            dispatch(pending[:frames_per_dispatch])
+            del pending[:frames_per_dispatch]
+
+    # --- run the per-video workers with bounded job queues (prefetch across
+    # videos), consuming jobs strictly in video order = global clip order
+    stop = threading.Event()
+    queues = [Queue(maxsize=8) for _ in groups]
+    futures = []  # bound before try: the except block iterates it even
+    # when the submit comprehension itself is what raised
+    with ThreadPoolExecutor(max_workers=max(1, cfg.num_workers)) as ex:
+        try:
+            futures = [
+                ex.submit(_video_worker, dataset, g, todo_set, cfg, q, stop)
+                for g, q in zip(groups, queues)
+            ]
+            for q in queues:
+                while True:
+                    kind, payload = q.get()
+                    if kind == "error":
+                        raise payload
+                    if kind == "done":
+                        break
+                    enqueue(payload)
+            while pending:
+                chunk = pending[:frames_per_dispatch]
+                del pending[:frames_per_dispatch]
+                dispatch(chunk)
+            if inflight is not None:
+                finalize(inflight)
+        except BaseException:
+            # unblock every worker (they poll `stop` while their queue is
+            # full) so the executor's shutdown join cannot hang
+            stop.set()
+            for f in futures:
+                f.cancel()
+            raise
+
+    if assembler.fifo:
+        raise RuntimeError(
+            f"{len(assembler.fifo)} clips left unassembled — dedup "
+            "scheduler bookkeeping bug"
+        )
+
+    pool.finish()
+    async_writer.wait()
+    async_writer.stop()
+
+    finalize_store(out_root, cfg, pool, shard_writer, n_vars, aug_names,
+                   progress_path)
+
+    total = time.perf_counter() - t_all
+    legacy_rows = n_todo * cfg.seq_len * (3 if cfg.augment else 1)
+    summary = {
+        "n_clips": len(pool.clip_index),
+        "n_processed": n_todo,
+        "n_vars": n_vars,
+        "n_shards": shard_writer.shard_id,
+        "seconds": total,
+        "clips_per_sec": n_todo / total if total > 0 else 0.0,
+        "frames_per_sec": n_todo * cfg.seq_len / total if total > 0 else 0.0,
+        "backbone_frames": assembler.backbone_rows,
+        "dedup_ratio": (legacy_rows / assembler.backbone_rows
+                        if assembler.backbone_rows else 1.0),
+        # RESOLVED modes (the 'auto' sentinel never reaches this point):
+        # what the store was actually built with
+        "crop_scope": cfg.crop_scope,
+        "jitter_key": cfg.jitter_key,
+        "device": str(device),
+    }
+    print(
+        f"Done: {n_todo} clips x {n_vars} variants -> {shard_writer.shard_id} "
+        f"shards in {total:.1f}s ({summary['clips_per_sec']:.1f} clips/s); "
+        f"backbone frames {assembler.backbone_rows} vs {legacy_rows} "
+        f"per-clip ({summary['dedup_ratio']:.2f}x dedup)"
+    )
+    return summary

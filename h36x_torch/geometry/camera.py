@@ -1,9 +1,34 @@
-"""Pinhole projection through intrinsics K (counterpart of
-h36x/geometry/camera.py::project_with_K)."""
+"""Camera models (counterpart of h36x/geometry/camera.py): pinhole
+projection through intrinsics K (torch), and the host-side numpy
+intrinsics helpers that extraction reads."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def intrinsics_matrix(f, c, dtype=np.float32) -> np.ndarray:
+    """K = [[fx, 0, cx], [0, fy, cy], [0, 0, 1]] from focal lengths and centre."""
+    f = np.asarray(f, dtype=dtype).reshape(2)
+    c = np.asarray(c, dtype=dtype).reshape(2)
+    return np.array(
+        [[f[0], 0.0, c[0]], [0.0, f[1], c[1]], [0.0, 0.0, 1.0]], dtype=dtype
+    )
+
+
+def adjust_camera_after_crop_and_resize(f, c, box, out_size: int = 224) -> np.ndarray:
+    """K after cropping to `box` (top, left, h, w) and resizing to
+    out_size x out_size: the principal point shifts by the crop offset and
+    everything scales by out / crop."""
+    top, left, hh, ww = (float(v) for v in np.asarray(box).reshape(4))
+    sx = out_size / ww
+    sy = out_size / hh
+    f = np.asarray(f, dtype=np.float32).reshape(2)
+    c = np.asarray(c, dtype=np.float32).reshape(2)
+    f_new = np.array([f[0] * sx, f[1] * sy], dtype=np.float32)
+    c_new = np.array([(c[0] - left) * sx, (c[1] - top) * sy], dtype=np.float32)
+    return intrinsics_matrix(f_new, c_new)
 
 
 def project_with_K(P_cam: torch.Tensor, K: torch.Tensor,

@@ -53,6 +53,11 @@ SIGNATURES = {
         # db3, N, D, H, P, iters, stream
         "h36x_joint_regressor_bwd": [_P] * 16 + [_I] * 5 + [_P],
     },
+    "bottleneck": {
+        # x, w1, b1, w2, b2, w3p, b3p, a_ws, b_ws, out,
+        # B, H, W, C_in, C_mid, C_out, has_proj, dtype, stream
+        "h36x_fused_bottleneck": [_P] * 10 + [_I] * 8 + [_P],
+    },
 }
 RESTYPES = {"h36x_joint_regressor_bwd_workspace": ctypes.c_size_t}
 

@@ -11,6 +11,7 @@ one, and without jax, run them with
 import pytest
 import torch
 
+from h36x_torch.ops.bottleneck import fused_bottleneck, reference_bottleneck
 from h36x_torch.ops.regressor import (
     _reference_forward,
     fused_joint_regressor,
@@ -252,3 +253,82 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
         joint_regressor_bwd(torch.ones(4, 16, device=dev),
                             *_regressor_weights(dev, 16, 8, 51),
                             torch.ones(4, 51, device=dev), 0)
+
+
+# -- B5, the fused bottleneck ---------------------------------------------------
+
+# bfloat16 against its plain version: both sum the same bf16 products in f32
+# in another order, so `a`, `b` and the output round to a neighbouring bf16
+# value now and then; one bf16 ulp (2^-8 relative) bounds the relative norm
+BF16_REL_NORM = 2.0 ** -8
+
+
+def _folded(c_in, c_mid, c_out, seed=0):
+    """Random folded weights (f32, h36x's layouts); a projection whenever
+    C_in != C_out, as in ResNet-50."""
+    g = torch.Generator().manual_seed(seed)
+
+    def init(shape, fan_in):
+        return torch.randn(shape, generator=g) / fan_in ** 0.5
+
+    f = {"w1": init((c_in, c_mid), c_in), "b1": 0.1 * torch.randn(c_mid, generator=g),
+         "w2": init((3, 3, c_mid, c_mid), 9 * c_mid),
+         "b2": 0.1 * torch.randn(c_mid, generator=g),
+         "w3": init((c_mid, c_out), c_mid), "b3": 0.1 * torch.randn(c_out, generator=g)}
+    if c_in != c_out:
+        f["wp"] = init((c_in, c_out), c_in)
+        f["bp"] = 0.1 * torch.randn(c_out, generator=g)
+    return f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, h, w, c_in, c_mid, c_out", [
+    (2, 56, 56, 64, 64, 256),      # layer1_0: projection
+    (2, 56, 56, 256, 64, 256),     # layer1
+    (2, 28, 28, 512, 128, 512),    # layer2
+    (2, 14, 14, 1024, 256, 1024),  # layer3
+    (2, 7, 7, 2048, 512, 2048),    # layer4
+    (3, 9, 9, 64, 16, 64),         # odd size, 81 rows: a ragged row tile
+    (2, 5, 3, 20, 12, 36),         # widths no multiple of 16 bytes: scalar loads
+    (1, 1, 1, 32, 8, 32),          # a single pixel: every tap but the centre is padding
+    (1, 1, 7, 16, 16, 16),
+])
+def test_bottleneck_kernel_matches_plain(dev, dtype, b, h, w, c_in, c_mid, c_out):
+    folded = _folded(c_in, c_mid, c_out)
+    g = torch.Generator().manual_seed(1)
+    x = torch.relu(torch.randn(b, h * w, c_in, generator=g)).to(dev, dtype)
+    before = fused_bottleneck.launches
+    got = fused_bottleneck(x, folded, h, w)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h * w, c_out)
+    want = reference_bottleneck(x, folded, h, w)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        rel = float((got.float() - want.float()).norm() / want.float().norm())
+        assert rel <= BF16_REL_NORM, rel
+
+
+def test_bottleneck_refused_launch_raises_and_leaves_no_error(dev):
+    folded = _folded(64, 16, 64)
+    x = torch.randn(0, 16, 64, device=dev)  # no rows: a grid of 0 blocks
+    before = fused_bottleneck.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_bottleneck(x, folded, 4, 4)
+    assert fused_bottleneck.launches == before
+    x = torch.randn(2, 16, 64, device=dev)
+    got = fused_bottleneck(x, folded, 4, 4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, reference_bottleneck(x, folded, 4, 4), **TOL)
+
+
+def test_bottleneck_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    folded = _folded(64, 16, 64)
+    x = torch.randn(2, 16, 64, device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_bottleneck(x.half(), folded, 4, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_bottleneck(x.transpose(0, 1).contiguous().transpose(0, 1), folded, 4, 4)
+    with pytest.raises(ValueError, match="do not fit"):
+        fused_bottleneck(torch.randn(2, 16, 32, device=dev), folded, 4, 4)
