@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the h36x_torch serving, training and feature-extraction paths once
-on one NVIDIA GPU (H100).
+"""Drive the h36x_torch serving, training, feature-extraction and
+prediction paths and the matmul probe once on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
-1. Setup: prints the card and its power limit, builds the five CUDA kernels
+1. Setup: prints the card and its power limit, builds the six CUDA kernels
    from h36x_torch/ops/csrc/ (one nvcc per source, all started together).
 2. Each kernel against its plain PyTorch version on the card (TF32 off), at
    the shapes of both paths and the edge cases, within the stated
@@ -19,7 +19,12 @@ on one NVIDIA GPU (H100).
    224 px (the projection block layer1_0 included), at N 1 and at the
    extraction dispatch size (480 frames), in float32 (element-wise) and
    bfloat16 (relative norm), and at odd sizes (9x9, 5x3); timed per shape
-   in bfloat16 at the dispatch size.
+   in bfloat16 at the dispatch size. B1 also at the rollout's and the
+   stream's shapes (B 8, every T from 40 to 64 as the prefix of a longer
+   buffer, strided and dense; B 1 at T 20 and 40), B3 also at N 1 and N 200.
+   B6, the tiled matmul probe, at 4096^3 and at 256 x 1024 x 512 with every
+   compiled tile, int8 bit for bit and bfloat16 by relative norm; its time
+   per mode beside torch.matmul's and torch._int_mm's and its bound.
 3. One full-width phase-1 step (batch 32), fused against plain: loss and
    every gradient leaf (by relative norm at the seeded init; element-wise
    and by relative norm on tie-free parameters), at dropout 0 (all four
@@ -51,7 +56,20 @@ on one NVIDIA GPU (H100).
    verify_store, index.json and every non-feature array are byte-identical
    between them, the features finite and within the bf16 tolerance; one
    batch of the store runs through the PHD forward. Clips/s of each run.
-7. Prints one {"kernels": [...]} line (launches: every path's run), then
+7. The prediction path at full width, on a store that write_store makes
+   and a seeded checkpoint: h36x_torch.cli.predict.main in its three modes
+   (batch rollout of 8 clips x 25 steps; --streaming --freeze with a
+   25-step forecast; --forecast 0), each NPZ held against the same call with
+   the plain engines (future frames included), with exact launch counts: a
+   rollout 4 + 150 B1 and 2 B3, an exact push 4 B1 + 1 B3, a frozen push
+   1 B3, a forecast 4 + 150 B1 and 1 B3. Then ms per rollout and per push
+   (exact and frozen, medians), evaluate_test over the store (against the
+   plain eval) and dump_debug_batch. h36x_torch.cli.results as a whole
+   re-decodes mp4 clips, for which that machine has no OpenCV: its whole run
+   is the CPU test's (tests/test_torch_results.py).
+8. The matmul probe's own entry point, h36x_torch.benchmarks.
+   int8_kernel_probe.main, once (B6's main path).
+9. Prints one {"kernels": [...]} line (launches: every path's run), then
    the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
@@ -74,6 +92,7 @@ import torch
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor cores (data sheet)
+PEAK_INT8_OPS = 1979e12  # H100 SXM int8 dense tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth (data sheet)
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)  # FP32 both sides; sums reordered
 E2E_TOL = dict(rtol=1e-3, atol=1e-4)  # full forward (tests/test_pallas.py)
@@ -194,6 +213,42 @@ def check_temporal(dev, g):
         worst_rel = max(worst_rel, rec["max_rel_err"])
         if (b, t, with_res) == (16, 40, False):
             flagship = x
+    # the rollout's shapes: the first T rows of each sample of a (8, 65, D)
+    # buffer for every T from 40 to 64, x and the residual strided along the
+    # batch, bit for bit the dense call; the stream's: B 1 at T 20 and 40
+    x_buf = (2 * torch.randn(8, 65, d, generator=g) + 0.5).to(dev)
+    r_buf = torch.randn(8, 65, o, generator=g).to(dev)
+    prefix_worst = 0.0
+    for t in range(40, 65):
+        x, res = x_buf[:, :t], r_buf[:, :t]
+        got = fused_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups)
+        dense = fused_gn_relu_cconv(x.contiguous(), scale, bias, w, cb,
+                                    res.contiguous(), groups=groups)
+        want = reference_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups)
+        torch.cuda.synchronize()
+        if x.is_contiguous() or not torch.equal(got, dense):
+            raise AssertionError(f"temporal prefix T={t}: strided call differs "
+                                 "from the dense one")
+        if not torch.allclose(got, want, **KERNEL_TOL):
+            compare(f"temporal prefix B=8 T={t} of 65", got, want, KERNEL_TOL)
+        prefix_worst = max(prefix_worst, float((got - want).abs().max()))
+    log({"check": "temporal prefix B=8 T=40..64 of 65, strided = dense, vs plain",
+         "max_abs_err": prefix_worst, "tol": KERNEL_TOL, "ok": True})
+    worst = max(worst, prefix_worst)
+    for t in (20, 40):
+        x = (2 * torch.randn(1, t, d, generator=g) + 0.5).to(dev)
+        got = fused_gn_relu_cconv(x, scale, bias, w, cb, x, groups=groups)
+        want = reference_gn_relu_cconv(x, scale, bias, w, cb, x, groups=groups)
+        worst = max(worst, compare(f"temporal B=1 T={t} residual=True", got, want,
+                                   KERNEL_TOL)["max_abs_err"])
+    x52 = x_buf[:, :52]
+    rollout_ms = time_ms(lambda: fused_gn_relu_cconv(x52, scale, bias, w, cb,
+                                                     groups=groups))
+    rollout_plain_ms = time_ms(lambda: reference_gn_relu_cconv(x52, scale, bias, w, cb,
+                                                               groups=groups))
+    stream_ms = time_ms(lambda: fused_gn_relu_cconv(x, scale, bias, w, cb, groups=groups))
+    stream_plain_ms = time_ms(lambda: reference_gn_relu_cconv(x, scale, bias, w, cb,
+                                                              groups=groups))
     x = flagship
     b, t, _ = x.shape
     ms = time_ms(lambda: fused_gn_relu_cconv(x, scale, bias, w, cb, groups=groups))
@@ -209,6 +264,10 @@ def check_temporal(dev, g):
                                                              groups=groups))
     return {"name": "gn_relu_cconv", "route": "cuda",
             "ms_train_shape": train_ms, "plain_ms_train_shape": train_plain_ms,
+            "ms_rollout_shape_B8_T52_strided": rollout_ms,
+            "plain_ms_rollout_shape_B8_T52_strided": rollout_plain_ms,
+            "ms_stream_shape_B1_T40": stream_ms,
+            "plain_ms_stream_shape_B1_T40": stream_plain_ms,
             "source": "h36x_torch/ops/csrc/temporal.cu",
             "replaces": "h36x/ops/pallas_temporal.py:42",
             "max_abs_err": worst,
@@ -227,7 +286,9 @@ def check_regressor(dev, g):
           uniform((h, h), h, g, dev), uniform((h,), h, g, dev),
           uniform((h, p), h, g, dev), uniform((p,), h, g, dev))
     worst = worst_rel = 0.0
-    for n in (640, 1280, 13):
+    # 640 and 1280: serving and training; 13: a ragged tile; 1: one streamed
+    # frame; 200: the 8 x 25 future strips of a rollout
+    for n in (640, 1280, 13, 1, 200):
         phi = torch.randn(n, d, generator=g).to(dev)
         got = fused_joint_regressor(phi, *ws, iters, p)
         want = _reference_forward(phi, *ws, iters, p)
@@ -247,8 +308,12 @@ def check_regressor(dev, g):
     phi = torch.randn(1280, d, generator=g).to(dev)
     train_ms = time_ms(lambda: fused_joint_regressor(phi, *ws, iters, p))
     train_plain_ms = time_ms(lambda: _reference_forward(phi, *ws, iters, p))
+    phi1 = torch.randn(1, d, generator=g).to(dev)
+    stream_ms = time_ms(lambda: fused_joint_regressor(phi1, *ws, iters, p))
+    stream_plain_ms = time_ms(lambda: _reference_forward(phi1, *ws, iters, p))
     return {"name": "joint_regressor", "route": "cuda",
             "ms_train_shape": train_ms, "plain_ms_train_shape": train_plain_ms,
+            "ms_stream_shape_N1": stream_ms, "plain_ms_stream_shape_N1": stream_plain_ms,
             "source": "h36x_torch/ops/csrc/regressor.cu",
             "replaces": "h36x/ops/pallas_regressor.py:39",
             "max_abs_err": worst,
@@ -520,9 +585,8 @@ def drive_main_path(dev, g, sock_dir):
     if stats["requests"] != 19 or stats["rows"] != 19:
         raise AssertionError(f"daemon served {stats['requests']} requests, "
                              f"{stats['rows']} rows; sent 19")
-    want_launches = {"gn_relu_cconv": 2 * mc.num_blocks * batches,
-                     "gn_relu_cconv_bwd": 0, "joint_regressor": batches,
-                     "joint_regressor_bwd": 0, "fused_bottleneck": 0}
+    want_launches = expect_counts(gn_relu_cconv=2 * mc.num_blocks * batches,
+                                  joint_regressor=batches)
     if launches != want_launches:
         raise AssertionError(f"launch counts {launches} != {want_launches} "
                              f"for {batches} device batches")
@@ -555,23 +619,30 @@ def drive_main_path(dev, g, sock_dir):
     return launches
 
 
-def zero_counts():
-    from h36x_torch.ops import bottleneck, regressor, temporal
+def counted() -> dict:
+    """Kernel name -> the wrapper that counts its launches."""
+    from h36x_torch.ops import bottleneck, matmul_probe, regressor, temporal
 
-    for fn in (temporal.fused_gn_relu_cconv, temporal.gn_relu_cconv_bwd,
-               regressor.fused_joint_regressor, regressor.joint_regressor_bwd,
-               bottleneck.fused_bottleneck):
+    return {"gn_relu_cconv": temporal.fused_gn_relu_cconv,
+            "gn_relu_cconv_bwd": temporal.gn_relu_cconv_bwd,
+            "joint_regressor": regressor.fused_joint_regressor,
+            "joint_regressor_bwd": regressor.joint_regressor_bwd,
+            "fused_bottleneck": bottleneck.fused_bottleneck,
+            "matmul_probe": matmul_probe.probe_matmul}
+
+
+def zero_counts():
+    for fn in counted().values():
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    from h36x_torch.ops import bottleneck, regressor, temporal
+    return {name: fn.launches for name, fn in counted().items()}
 
-    return {"gn_relu_cconv": temporal.fused_gn_relu_cconv.launches,
-            "gn_relu_cconv_bwd": temporal.gn_relu_cconv_bwd.launches,
-            "joint_regressor": regressor.fused_joint_regressor.launches,
-            "joint_regressor_bwd": regressor.joint_regressor_bwd.launches,
-            "fused_bottleneck": bottleneck.fused_bottleneck.launches}
+
+def expect_counts(**launched) -> dict:
+    """The full count dict with `launched` set and every other kernel at 0."""
+    return {**dict.fromkeys(counted(), 0), **launched}
 
 
 def make_tie_free_(model, g) -> None:
@@ -649,10 +720,9 @@ def check_train_step(dev, g):
                         and (tol is None or torch.allclose(got, want, **tol))):
                     compare(f"step grad {params} dropout={dropout} {name}", got, want,
                             tol, rn_tol)
-            want = {"gn_relu_cconv": 4, "gn_relu_cconv_bwd": 4,
-                    "joint_regressor": 1 if dropout == 0.0 else 0,
-                    "joint_regressor_bwd": 1 if dropout == 0.0 else 0,
-                    "fused_bottleneck": 0}
+            want = expect_counts(gn_relu_cconv=4, gn_relu_cconv_bwd=4,
+                                 joint_regressor=1 if dropout == 0.0 else 0,
+                                 joint_regressor_bwd=1 if dropout == 0.0 else 0)
             if n_f != want or any(n_p.values()):
                 raise AssertionError(f"step launches fused {n_f} (want {want}), "
                                      f"plain {n_p} (want none)")
@@ -726,9 +796,9 @@ def drive_train_path(g, tmp):
 
     steps = epochs * (train_clips // batch)
     evals = epochs * math.ceil(val_clips / batch)
-    want = {"gn_relu_cconv": 4 * steps + 4 * evals, "gn_relu_cconv_bwd": 4 * steps,
-            "joint_regressor": steps + evals, "joint_regressor_bwd": steps,
-            "fused_bottleneck": 0}
+    want = expect_counts(gn_relu_cconv=4 * steps + 4 * evals,
+                         gn_relu_cconv_bwd=4 * steps,
+                         joint_regressor=steps + evals, joint_regressor_bwd=steps)
     with open(os.path.join(outdir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     log({"phase": "trainer", "seconds": seconds, "train_steps": steps,
@@ -755,6 +825,239 @@ def drive_train_path(g, tmp):
         raise AssertionError("best.msgpack (last epoch) differs from the model")
     log({"check": "trainer checkpoints", "best_epoch": best_epoch, "ok": True})
     return launches
+
+
+def check_matmul_probe(dev):
+    """B6 against its plain version: at 4096^3 (the probe's size) with the
+    default tile and at 256 x 1024 x 512 (unequal sizes, 16 to 32 K steps)
+    with every compiled tile, int8 bit for bit and bfloat16 by relative norm
+    within BF16_REL_NORM (element-wise error logged). Then, per mode at
+    4096^3: the kernel's time, the plain version's, the library call's
+    (torch.matmul, torch._int_mm) and the bound. The kernels line carries
+    the int8 mode (the probe's question) and both modes under `modes`."""
+    from h36x_torch.benchmarks.int8_kernel_probe import make_inputs
+    from h36x_torch.ops.matmul_probe import TILES, probe_matmul, reference_matmul
+
+    worst = worst_rel = 0.0
+    for m, k, n, tiles in ((4096, 4096, 4096, TILES[:1]), (256, 1024, 512, TILES)):
+        for mode in ("bf16", "int8"):
+            x, y = make_inputs(f"kernel_{mode}", m, k, n, dev)
+            want = reference_matmul(x, y)
+            for tile in tiles:
+                got = probe_matmul(x, y, tile)
+                label = f"matmul_probe {mode} {m}x{k}x{n} tile {tile}"
+                if mode == "int8":
+                    torch.cuda.synchronize()
+                    equal = bool(torch.equal(got, want))
+                    log({"check": label, "bit_for_bit": equal,
+                         "max_abs_want": int(want.abs().max())})
+                    if not equal:
+                        raise AssertionError(f"{label}: kernel disagrees with its "
+                                             "plain version")
+                else:
+                    rec = compare(label, got.float(), want.float(), None, BF16_REL_NORM)
+                    worst = max(worst, rec["max_abs_err"])
+                    worst_rel = max(worst_rel, rec["rel_norm_err"])
+    size = 4096
+    modes = {}
+    for mode, peak, lib in (("bf16", PEAK_BF16_FLOPS, torch.matmul),
+                            ("int8", PEAK_INT8_OPS, torch._int_mm)):
+        x, y = make_inputs(f"kernel_{mode}", size, size, size, dev)
+        ms = time_ms(lambda: probe_matmul(x, y))
+        plain_ms = time_ms(lambda: reference_matmul(x, y), reps=5)
+        library_ms = time_ms(lambda: lib(x, y))
+        ops = 2 * size ** 3
+        out_bytes = 2 if mode == "bf16" else 4
+        nbytes = size * size * (2 * x.element_size() + out_bytes)
+        bound_ms, bound_by = bound(ops, nbytes, peak)
+        modes[mode] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "tera_ops_per_s": ops / ms / 1e9,
+                       "library_tera_ops_per_s": ops / library_ms / 1e9,
+                       "bound_share": bound_ms / ms}
+        log({"check": f"matmul_probe timing {mode} {size}^3 tile {TILES[0]}",
+             **modes[mode]})
+    return {"name": "matmul_probe", "route": "cuda",
+            "source": "h36x_torch/ops/csrc/matmul_probe.cu",
+            "replaces": "benchmarks/int8_pallas_probe.py:43",
+            "max_abs_err": worst, "max_rel_norm_err": worst_rel,
+            **{key: modes["int8"][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms")},
+            "modes": modes,
+            "shape": f"M=K=N={size}, tile {TILES[0]}; headline numbers: int8 -> int32 "
+                     "(bit for bit); max_abs_err: the bf16 mode's",
+            "tol": {"int8": "bit for bit", "bf16_rel_norm": BF16_REL_NORM}}
+
+
+def drive_probe_path():
+    """B6's main path: the probe's own entry point, once."""
+    from h36x_torch.benchmarks.int8_kernel_probe import MODES, main as probe_main
+
+    zero_counts()
+    results = probe_main([])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    bursts, iters = 7, 24  # a warm-up burst and 6 timed ones, per kernel mode
+    want = expect_counts(matmul_probe=2 * bursts * iters)
+    log({"phase": "probe", "launches": launches,
+         **{mode: {"ms": dt * 1e3, "tera_ops_per_s": rate}
+            for mode, (dt, rate) in results.items()}})
+    if launches != want or set(results) != set(MODES):
+        raise AssertionError(f"probe launches {launches} != {want}")
+    return launches
+
+
+def npz_against_plain(name, got, want, fields):
+    """A kernel run's NPZ payload against the plain engines' on the same
+    call: the same fields, the ground truth equal, predictions (future
+    frames included) finite and within E2E_TOL."""
+    if set(got) != set(want) or set(got) != {"joints3d", "meta", *fields}:
+        raise AssertionError(f"{name}: fields {sorted(got)} vs {sorted(want)}")
+    if not np.array_equal(got["joints3d"], want["joints3d"]):
+        raise AssertionError(f"{name}: joints3d differ")
+    out = {}
+    for field, shape in fields.items():
+        a, b = torch.from_numpy(got[field]), torch.from_numpy(want[field])
+        if tuple(a.shape) != shape:
+            raise AssertionError(f"{name}: {field} is {tuple(a.shape)}, not {shape}")
+        out[field] = compare(f"{name} {field} kernels vs plain engines", a, b,
+                             E2E_TOL)["max_abs_err"]
+    return out
+
+
+def drive_predict_path(dev, g, tmp):
+    """The prediction path end to end at full width: h36x_torch.cli.predict
+    in its three modes over a store and a seeded checkpoint, each with the
+    counts set to 0 just before it and read just after, and each NPZ held
+    against the same call with the plain engines. Then the per-rollout and
+    per-push times, and the results stage (evaluate_test, dump_debug_batch)."""
+    from h36x_torch.cli.predict import main as predict_main
+    from h36x_torch.config import SEQ_LEN, ModelConfig
+    from h36x_torch.data.features import FeatureClipDataset
+    from h36x_torch.models.phd import PHDFor3DJoints, param_tree
+    from h36x_torch.serve import StreamingPredictor, make_rollout_fn
+    from h36x_torch.train.checkpoint import save_params
+    from h36x_torch.train.results import dump_debug_batch, evaluate_test
+
+    mc = ModelConfig()
+    store = os.path.join(tmp, "store")
+    write_store(store, g)
+    model = PHDFor3DJoints(generator=torch.Generator().manual_seed(3), device="cpu")
+    ckpt = save_params(tmp, "best", model.state_dict(),
+                       config={"model": dataclasses.asdict(mc),
+                               "data": {"seq_len": SEQ_LEN}})
+    clips, steps, t, window = 8, 25, SEQ_LEN, SEQ_LEN // 2
+    n_ar, n_mv = 2 * mc.ar_num_blocks, 2 * mc.num_blocks
+    rollout_b1 = n_mv + steps * n_ar  # 4 + 150 at the flagship config
+    joints = (clips, t, 17, 3)
+    future = (clips, steps, 17, 3)
+    runs = {
+        "batch_rollout": (["--clips", str(clips), "--forecast", str(steps)],
+                          {"predicted3djoints": joints, "future3djoints": future},
+                          expect_counts(gn_relu_cconv=rollout_b1, joint_regressor=2)),
+        # per clip: `window` exact pushes (4 B1 + 1 B3), then the freeze, then
+        # t - window frozen pushes (1 B3), then the forecast (4 + 150 B1, 1 B3)
+        "streaming_freeze": (["--streaming", "--freeze", "--forecast", str(steps)],
+                             {"predicted3djoints": joints, "future3djoints": future},
+                             expect_counts(
+                                 gn_relu_cconv=clips * (window * n_mv + rollout_b1),
+                                 joint_regressor=clips * (t + 1))),
+        "forward": (["--forecast", "0"], {"predicted3djoints": joints},
+                    expect_counts(gn_relu_cconv=n_mv, joint_regressor=1)),
+    }
+    total = dict.fromkeys(counted(), 0)
+    for name, (flags, fields, want) in runs.items():
+        argv = ["--features-root", store, "--model-path", str(ckpt), "--subjects", "5",
+                *flags]
+        zero_counts()
+        t0 = time.perf_counter()
+        got = predict_main([*argv, "--out", os.path.join(tmp, f"{name}.npz")])
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        plain = predict_main([*argv, "--out", os.path.join(tmp, f"{name}_plain.npz")],
+                             use_kernels=False)
+        if read_counts() != launches:
+            raise AssertionError(f"predict {name}: the plain engines launched a kernel")
+        errs = npz_against_plain(f"predict {name}", got, plain, fields)
+        saved = np.load(os.path.join(tmp, f"{name}.npz"), allow_pickle=True)
+        if set(saved.files) != set(got) or len(saved["meta"]) != clips:
+            raise AssertionError(f"predict {name}: saved NPZ holds {saved.files}")
+        log({"phase": f"predict {name}", "seconds": seconds, "launches": launches,
+             "max_abs_err_vs_plain": errs})
+        if launches != want:
+            raise AssertionError(f"predict {name}: launches {launches} != {want}")
+        for k, v in launches.items():
+            total[k] += v
+
+    # one predictor by hand: exact launch counts per call, ms per push
+    params = param_tree(model.to(dev))
+    ds = FeatureClipDataset(store, subjects=[5], test_set=True)
+    feats = np.asarray(ds.get_batch(list(range(clips)))[0], np.float32)
+
+    def counted_call(fn, want_b1, want_b3, what):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3  # push and forecast end on the host
+        want = expect_counts(gn_relu_cconv=want_b1, joint_regressor=want_b3)
+        if read_counts() != want:
+            raise AssertionError(f"{what}: launches {read_counts()} != {want}")
+        return out, ms
+
+    sp = StreamingPredictor(params, window=t, feature_dim=mc.feature_dim, device=dev)
+    exact_ms, frozen_ms = [], []
+    for i in range(t):
+        exact_ms.append(counted_call(lambda: sp.push(feats[0, i]), n_mv, 1,
+                                     "exact push")[1])
+    _, forecast_ms = counted_call(lambda: sp.forecast(steps), rollout_b1, 1, "forecast")
+    counted_call(sp.freeze, 0, 0, "freeze")
+    for i in range(t):
+        frozen_ms.append(counted_call(lambda: sp.push(feats[1, i]), 0, 1,
+                                      "frozen push")[1])
+    rollout = make_rollout_fn(steps, device=dev)
+    plain_rollout = make_rollout_fn(steps, use_kernels=False, device=dev)
+
+    def timed_rollout(fn):
+        ms = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(params, feats)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms[1:]))
+
+    log({"phase": "predict timing", "clips": clips, "steps": steps, "window": t,
+         "rollout_ms": timed_rollout(rollout),
+         "rollout_plain_ms": timed_rollout(plain_rollout),
+         "push_exact_ms_median": float(np.median(exact_ms[1:])),
+         "push_frozen_ms_median": float(np.median(frozen_ms[1:])),
+         "forecast_ms": forecast_ms, "pushes": len(exact_ms) + len(frozen_ms)})
+
+    # the results stage on the card
+    zero_counts()
+    got = evaluate_test(model, ds, batch_size=16)
+    launches = read_counts()
+    want_metrics = evaluate_test(model, ds, batch_size=16, use_kernels=False)
+    batches = -(-len(ds) // 16)
+    want = expect_counts(gn_relu_cconv=n_mv * batches, joint_regressor=batches)
+    log({"phase": "evaluate_test", "clips": len(ds), "metrics": got,
+         "plain_metrics": want_metrics, "launches": launches})
+    if launches != want or read_counts() != launches:
+        raise AssertionError(f"evaluate_test launches {launches} != {want}")
+    if not (np.all(np.isfinite(got)) and np.allclose(got, want_metrics, rtol=1e-4)
+            and got[2] == got[0] and got[3] == 0.0):
+        raise AssertionError(f"evaluate_test {got} vs plain {want_metrics}")
+    for k, v in launches.items():
+        total[k] += v
+    payload = dump_debug_batch(ds, os.path.join(tmp, "debug_batch.npz"), batch_size=8)
+    saved = np.load(os.path.join(tmp, "debug_batch.npz"), allow_pickle=True)
+    if (set(saved.files) != {"video", "joints3d", "joints2d", "cam_K", "meta"}
+            or saved["video"].shape != (8, t, mc.feature_dim)
+            or not np.array_equal(saved["video"], payload["video"])):
+        raise AssertionError(f"dump_debug_batch wrote {saved.files}")
+    log({"check": "dump_debug_batch", "fields": sorted(saved.files), "ok": True})
+    return total
 
 
 def bottleneck_work(n, side, c_in, c_mid, c_out, itemsize):
@@ -985,8 +1288,7 @@ def drive_extract_path(dev, dataset, out, engine):
     seconds = time.perf_counter() - t0
     launches = read_counts()
     dispatches = math.ceil(summary["backbone_frames"] / frames_per_dispatch())
-    want = dict.fromkeys(launches, 0)
-    want["fused_bottleneck"] = 13 * dispatches if engine == "opt" else 0
+    want = expect_counts(fused_bottleneck=13 * dispatches if engine == "opt" else 0)
     # the run's own rate (summary["seconds"]: from the backbone's load to
     # the index) and the call's wall time, the load included
     log({"phase": f"extract {engine}", "call_seconds": seconds,
@@ -1085,7 +1387,7 @@ def main() -> int:
     g = torch.Generator().manual_seed(0)
     kernels = [check_temporal(dev, g), check_temporal_bwd(dev, g),
                check_regressor(dev, g), check_regressor_bwd(dev, g),
-               check_bottleneck(dev, frames_per_dispatch())]
+               check_bottleneck(dev, frames_per_dispatch()), check_matmul_probe(dev)]
     check_train_step(dev, g)
     check_backbone(dev, frames_per_dispatch())
 
@@ -1105,13 +1407,19 @@ def main() -> int:
             paths[f"extract_{engine}"], _ = drive_extract_path(
                 dev, videos, os.path.join(tmp, engine), engine)
         compare_stores(os.path.join(tmp, "opt"), os.path.join(tmp, "flax"), dev)
+    del videos
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["predict"] = drive_predict_path(dev, g, tmp)
+    paths["probe"] = drive_probe_path()
     for k in kernels:
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         log(dict(k))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log({"kernels": [{key: k[key] for key in keys} for k in kernels]})
+    log({"kernels": [{**{key: k[key] for key in keys},
+                      **({"modes": k["modes"]} if "modes" in k else {})}
+                     for k in kernels]})
     log(smi.splitlines()[0])
     log({"ok": True, "device": {"platform": "gpu", "kind": name,
                                 "count": torch.cuda.device_count()}})

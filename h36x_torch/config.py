@@ -31,6 +31,7 @@ EPOCHS = 50
 
 TRAIN_SUBJECTS = (1, 6, 7, 8)
 VAL_SUBJECTS = (5,)
+TEST_SUBJECTS = (9,)
 ALL_SUBJECTS = (1, 5, 6, 7, 8, 9, 11)
 
 

@@ -34,8 +34,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "temporal": {
         # x, scale, bias, w, cb, res|NULL, mean, rstd, out,
-        # B, T, D, O, K, G, eps, stream
-        "h36x_gn_relu_cconv": [_P] * 9 + [_I] * 6 + [_F, _P],
+        # B, T, D, O, K, G, eps, rows between samples of x and of res, stream
+        "h36x_gn_relu_cconv": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
     },
     "temporal_bwd": {
         # x, scale, bias, w, g, mean, rstd, da, part, dx, dw, dscale, dbias,
@@ -57,6 +57,10 @@ SIGNATURES = {
         # x, w1, b1, w2, b2, w3p, b3p, a_ws, b_ws, out,
         # B, H, W, C_in, C_mid, C_out, has_proj, dtype, stream
         "h36x_fused_bottleneck": [_P] * 10 + [_I] * 8 + [_P],
+    },
+    "matmul_probe": {
+        # x, y, out, M, K, N, mode, tile, stream
+        "h36x_matmul_probe": [_P] * 3 + [_I] * 5 + [_P],
     },
 }
 RESTYPES = {"h36x_joint_regressor_bwd_workspace": ctypes.c_size_t}
@@ -141,8 +145,11 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-def require_cuda_f32(what: str, **tensors) -> None:
-    """The kernels take contiguous float32 CUDA tensors on one device."""
+def require_cuda_f32(what: str, batch_strided=(), **tensors) -> None:
+    """The kernels take contiguous float32 CUDA tensors on one device. A
+    tensor named in `batch_strided` may instead be the leading rows of each
+    sample of a longer buffer: dense within a sample, the samples a whole
+    number of rows apart."""
     device = None
     for name, t in tensors.items():
         if t is None:
@@ -151,8 +158,12 @@ def require_cuda_f32(what: str, **tensors) -> None:
             raise ValueError(f"{what}: {name} is on {t.device}, expected cuda")
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: {name} is {t.dtype}, expected float32")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
+        dense = t.is_contiguous() or (
+            name in batch_strided and t.dim() > 1 and t.shape[0] > 0
+            and t[0].is_contiguous() and t.stride(0) % t.shape[-1] == 0)
+        if not dense:
+            raise ValueError(f"{what}: {name} must be contiguous"
+                             + (" within each sample" if name in batch_strided else ""))
         if device is None:
             device = t.device
         elif t.device != device:

@@ -10,7 +10,10 @@
 // with GroupNorm statistics per (sample, group) over (T, D/G), two-pass
 // variance, eps inside the square root, and the left edge replicated: a row
 // whose tap reaches before t = 0 reads row 0 of its own sample (every tap
-// clamps to row 0 when T <= K-1-k).
+// clamps to row 0 when T <= K-1-k). x and res may be the first T rows of
+// each sample of a longer buffer: their samples lie x_rows and res_rows rows
+// apart (T when dense), rows D and O elements apart. The autoregressive
+// rollout reads its growing prefix that way, without a copy.
 //
 // What bounds it on the H100: operations. At the serving shape (B=16, T=40,
 // D=O=1024, K=3) the contraction is 2*640*1024*3072 = 4.03 GFLOP over about
@@ -62,12 +65,13 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 
 // grid (G, B), block kStatsThreads
 __global__ void gn_stats(const float* __restrict__ x, float* __restrict__ mean,
-                         float* __restrict__ rstd, int T, int D, int G, float eps) {
+                         float* __restrict__ rstd, int T, int D, int G, float eps,
+                         int x_rows) {
   __shared__ float red[kStatsThreads / 32];
   const int g = blockIdx.x, b = blockIdx.y;
   const int gs = D / G;
   const int n = T * gs;
-  const float* xb = x + (size_t)b * T * D + (size_t)g * gs;
+  const float* xb = x + (size_t)b * x_rows * D + (size_t)g * gs;
   float s = 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int t = i / gs, c = i - t * gs;
@@ -93,7 +97,8 @@ cconv_gemm(const float* __restrict__ x, const float* __restrict__ scale,
            const float* __restrict__ bias, const float* __restrict__ w,
            const float* __restrict__ cb, const float* __restrict__ res,
            const float* __restrict__ mean, const float* __restrict__ rstd,
-           float* __restrict__ out, int B, int T, int D, int O, int K, int G) {
+           float* __restrict__ out, int B, int T, int D, int O, int K, int G,
+           int x_rows, int res_rows) {
   __shared__ __align__(16) Tile s;
 
   const int M = B * T, KD = K * D, gs = D / G;
@@ -111,7 +116,7 @@ cconv_gemm(const float* __restrict__ x, const float* __restrict__ scale,
     const int b = m < M ? m / T : -1;
     a_b[e] = b;
     a_t[e] = m < M ? m - b * T : 0;
-    a_bt[e] = b * T;
+    a_bt[e] = b * x_rows;  // the sample's first row in x
   }
   // the column's (tap, channel), advanced by BK per tile without division
   int a_tap = a_kl / D, a_c = a_kl - (a_kl / D) * D;
@@ -171,12 +176,14 @@ cconv_gemm(const float* __restrict__ x, const float* __restrict__ scale,
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty * TM + i;
     if (m >= M) continue;
+    const float* res_row = res == nullptr ? nullptr
+        : res + (size_t)(m + (m / T) * (res_rows - T)) * O;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx * TN + j;
       if (n >= O) continue;
       float v = acc[i][j] + cb[n];
-      if (res != nullptr) v += res[(size_t)m * O + n];
+      if (res_row != nullptr) v += res_row[n];
       out[(size_t)m * O + n] = v;
     }
   }
@@ -189,13 +196,14 @@ extern "C" int h36x_gn_relu_cconv(const float* x, const float* scale,
                                   const float* cb, const float* res,
                                   float* mean, float* rstd, float* out,
                                   int B, int T, int D, int O, int K, int G,
-                                  float eps, void* stream) {
+                                  float eps, int x_rows, int res_rows,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gn_stats<<<dim3(G, B), kStatsThreads, 0, s>>>(x, mean, rstd, T, D, G, eps);
+  gn_stats<<<dim3(G, B), kStatsThreads, 0, s>>>(x, mean, rstd, T, D, G, eps, x_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((O + BN - 1) / BN, (B * T + BM - 1) / BM);
   cconv_gemm<<<grid, kThreads, 0, s>>>(x, scale, bias, w, cb, res, mean,
-                                           rstd, out, B, T, D, O, K, G);
+                                           rstd, out, B, T, D, O, K, G, x_rows, res_rows);
   return (int)cudaGetLastError();
 }

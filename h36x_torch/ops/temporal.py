@@ -52,14 +52,22 @@ def reference_gn_relu_cconv(x, scale, bias, kernel, conv_bias, residual=None,
     return out
 
 
+def _sample_rows(t: torch.Tensor) -> int:
+    """Rows between two samples of a (B, T, D) tensor that is dense within
+    each sample: T when contiguous, more for `buf[:, :T]`."""
+    return t.shape[1] if t.is_contiguous() else t.stride(0) // t.shape[2]
+
+
 def _launch_forward(x, scale, bias, kernel, conv_bias, residual, groups, eps):
     """B1 on CUDA tensors: (out, mean, rstd), mean/rstd (B, G) the GroupNorm
-    statistics the backward reuses."""
+    statistics the backward reuses. x and residual may be the leading rows
+    of each sample of a longer buffer (`buf[:, :t]`): the kernel takes the
+    rows between their samples."""
     b, t_len, d = x.shape
     k_taps, _, d_out = kernel.shape
-    _build.require_cuda_f32("fused_gn_relu_cconv", x=x, scale=scale, bias=bias,
-                            kernel=kernel, conv_bias=conv_bias,
-                            residual=residual)
+    _build.require_cuda_f32("fused_gn_relu_cconv", ("x", "residual"), x=x,
+                            scale=scale, bias=bias, kernel=kernel,
+                            conv_bias=conv_bias, residual=residual)
     out = torch.empty((b, t_len, d_out), device=x.device, dtype=torch.float32)
     mean = torch.empty((b, groups), device=x.device, dtype=torch.float32)
     rstd = torch.empty_like(mean)
@@ -71,7 +79,8 @@ def _launch_forward(x, scale, bias, kernel, conv_bias, residual, groups, eps):
             conv_bias.data_ptr(),
             None if residual is None else residual.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), out.data_ptr(),
-            b, t_len, d, d_out, k_taps, groups, eps, stream)
+            b, t_len, d, d_out, k_taps, groups, eps, _sample_rows(x),
+            t_len if residual is None else _sample_rows(residual), stream)
     _build.check(rc, "fused_gn_relu_cconv")
     fused_gn_relu_cconv.launches += 1
     return out, mean, rstd
@@ -142,7 +151,9 @@ def fused_gn_relu_cconv(x: torch.Tensor, scale: torch.Tensor,
                         residual: Optional[torch.Tensor] = None, *,
                         groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
     """x (B, T, D), scale/bias (D,), kernel (K, D, O), conv_bias (O,),
-    residual optional (B, T, O). Returns (B, T, O) float32.
+    residual optional (B, T, O). Returns (B, T, O) float32. On CUDA, x and
+    residual may be strided along the batch (the first T rows of each sample
+    of a longer buffer); the backward kernel needs them dense.
 
     Differentiable: on CUDA tensors the backward is the kernel of
     :func:`gn_relu_cconv_bwd`; on CPU tensors autograd runs through the

@@ -12,6 +12,12 @@ import pytest
 import torch
 
 from h36x_torch.ops.bottleneck import fused_bottleneck, reference_bottleneck
+from h36x_torch.ops.matmul_probe import (
+    TILES,
+    make_probe_matmul,
+    probe_matmul,
+    reference_matmul,
+)
 from h36x_torch.ops.regressor import (
     _reference_forward,
     fused_joint_regressor,
@@ -66,11 +72,44 @@ def test_temporal_kernel_matches_plain(dev, b, t, d, o, k, groups, residual):
     torch.testing.assert_close(got, want, **TOL)
 
 
+@pytest.mark.parametrize("b, t_buf, d, o, groups, residual", [
+    (3, 12, 96, 80, 8, True),
+    (3, 12, 96, 80, 8, False),
+    (8, 65, 128, 128, 32, True),   # the rollout's buffer: T 40 + 25 steps
+    (1, 9, 64, 64, 8, True),       # one sample: any batch stride is dense
+])
+def test_temporal_kernel_takes_a_prefix_of_a_longer_buffer(dev, b, t_buf, d, o, groups,
+                                                           residual):
+    """x and residual as `buf[:, :t]` (batch stride t_buf * D, what the
+    rollout hands over) for every t from 1 to t_buf: bit for bit what the
+    kernel gives on a dense copy, and the plain version within TOL."""
+    x_buf, scale, bias, w, cb, r_buf = _temporal(dev, b, t_buf, d, o, 3, groups, residual)
+    for t in range(1, t_buf + 1):
+        x, res = x_buf[:, :t], None if r_buf is None else r_buf[:, :t]
+        assert b == 1 or t == t_buf or not x.is_contiguous()
+        got = fused_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups)
+        dense = fused_gn_relu_cconv(x.contiguous(), scale, bias, w, cb,
+                                    None if res is None else res.contiguous(),
+                                    groups=groups)
+        assert got.is_contiguous() and torch.equal(got, dense), t
+        want = reference_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups)
+        torch.testing.assert_close(got, want, **TOL, msg=f"t={t}")
+
+
+def test_temporal_backward_needs_dense_inputs(dev):
+    x_buf, scale, bias, w, cb, _ = _temporal(dev, 2, 6, 64, 64, 3, 8, False)
+    out = fused_gn_relu_cconv(x_buf[:, :4], scale.requires_grad_(), bias, w, cb, groups=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        out.sum().backward()
+
+
 @pytest.mark.parametrize("n, d, h, p, iters", [
     (37, 96, 200, 51, 3),
     (5, 1000, 64, 30, 2),
     (16, 64, 2300, 51, 1),
     (100, 128, 256, 64, 4),
+    (1, 1024, 1024, 51, 3),   # one streamed frame at the flagship width
+    (1, 64, 96, 51, 3),
 ])
 def test_regressor_kernel_matches_plain(dev, n, d, h, p, iters):
     g = torch.Generator().manual_seed(1)
@@ -332,3 +371,73 @@ def test_bottleneck_wrapper_refuses_what_the_kernel_does_not_take(dev):
         fused_bottleneck(x.transpose(0, 1).contiguous().transpose(0, 1), folded, 4, 4)
     with pytest.raises(ValueError, match="do not fit"):
         fused_bottleneck(torch.randn(2, 16, 32, device=dev), folded, 4, 4)
+
+
+# -- B6, the tiled matmul probe -------------------------------------------------
+
+
+def _probe_inputs(dev, mode, m, k, n, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    if mode == "int8":
+        x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        y = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    else:
+        x = torch.randn(m, k, generator=g).bfloat16()
+        y = torch.randn(k, n, generator=g).bfloat16()
+    return x.to(dev), y.to(dev)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("block", TILES)
+@pytest.mark.parametrize("m, k, n", [
+    (128, 128, 128),    # one tile of every compiled shape, 2 to 4 K steps
+    (256, 1024, 512),   # unequal sizes, many K steps
+    (384, 192, 640),    # tile counts that are no power of two
+])
+def test_matmul_probe_kernel_matches_plain(dev, mode, block, m, k, n):
+    """int8 bit for bit; bf16 by relative norm within one bf16 ulp (the two
+    sides sum the same products in float32 in another order, so an output
+    rounds to a neighbouring bfloat16 now and then) and element-wise within
+    two ulps of the largest output."""
+    x, y = _probe_inputs(dev, mode, m, k, n)
+    before = probe_matmul.launches
+    got = make_probe_matmul(m, k, n, mode, block)(x, y)
+    torch.cuda.synchronize()
+    assert probe_matmul.launches == before + 1
+    want = reference_matmul(x, y)
+    assert got.dtype == want.dtype and got.shape == (m, n)
+    if mode == "int8":
+        assert torch.equal(got, want)
+    else:
+        g, w = got.float(), want.float()
+        assert float((g - w).norm() / w.norm()) <= BF16_REL_NORM
+        assert float((g - w).abs().max()) <= 2 * BF16_REL_NORM * float(w.abs().max())
+
+
+def test_matmul_probe_int8_extremes_are_exact(dev):
+    """Every product at its largest magnitude, both signs: the int32
+    accumulator must hold K * 127**2 without saturating or wrapping."""
+    m = k = n = 256
+    x = torch.full((m, k), 127, dtype=torch.int8, device=dev)
+    y = torch.full((k, n), -127, dtype=torch.int8, device=dev)
+    y[:, ::2] = 127
+    got = probe_matmul(x, y)
+    assert torch.equal(got, reference_matmul(x, y))
+    assert int(got.max()) == k * 127 * 127 and int(got.min()) == -k * 127 * 127
+
+
+def test_matmul_probe_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, y = _probe_inputs(dev, "bf16", 128, 128, 128)
+    with pytest.raises(ValueError, match="multiples of the tile"):
+        probe_matmul(x[:100], y)
+    with pytest.raises(ValueError, match="was not compiled"):
+        probe_matmul(x, y, (512, 512, 512))
+    with pytest.raises(TypeError, match="bfloat16 or int8"):
+        probe_matmul(x.float(), y.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        probe_matmul(x.t().contiguous().t(), y)
+    with pytest.raises(ValueError, match="expected"):
+        probe_matmul(x, y.cpu())
+    before = probe_matmul.launches
+    assert probe_matmul(x, y).shape == (128, 128)
+    assert probe_matmul.launches == before + 1

@@ -38,7 +38,10 @@ def test_importing_the_port_loads_no_jax_flax_msgpack_or_h36x():
     for m in ("h36x_torch.serve_daemon", "h36x_torch.cli.extract",
               "h36x_torch.extract.pipeline", "h36x_torch.extract.dedup",
               "h36x_torch.models.resnet", "h36x_torch.ops.bottleneck",
-              "h36x_torch.native"):
+              "h36x_torch.native", "h36x_torch.serve", "h36x_torch.cli.predict",
+              "h36x_torch.cli.results", "h36x_torch.cli.debug_batch",
+              "h36x_torch.train.results", "h36x_torch.ops.matmul_probe",
+              "h36x_torch.benchmarks.int8_kernel_probe"):
         assert m in loaded, m
 
 
