@@ -5,7 +5,9 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
     python3 chip_smoke.py
 
 1. Setup: prints the card and its power limit, builds the six CUDA kernels
-   from h36x_torch/ops/csrc/ (one nvcc per source, all started together).
+   from h36x_torch/ops/csrc/ (one nvcc per source, all started together)
+   and logs ptxas's lines naming each kernel function, its registers and
+   its spills.
 2. Each kernel against its plain PyTorch version on the card (TF32 off), at
    the shapes of both paths and the edge cases, within the stated
    tolerance: the forward kernels B1 (temporal) and B3 (regressor) against
@@ -18,21 +20,25 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
    the fused ResNet bottleneck, at the shapes of the 13 stride-1 blocks at
    224 px (the projection block layer1_0 included), at N 1 and at the
    extraction dispatch size (480 frames), in float32 (element-wise) and
-   bfloat16 (relative norm), and at odd sizes (9x9, 5x3); timed per shape
-   in bfloat16 at the dispatch size. B1 also at the rollout's and the
-   stream's shapes (B 8, every T from 40 to 64 as the prefix of a longer
+   bfloat16 (relative norm), and at odd sizes (9x9, 5x3), each on the route
+   bottleneck_route picks (bfloat16 stage shapes: the hopper route, TMA +
+   wgmma; float32 and odd widths: the general route), the per-route counts
+   checked; timed per shape in bfloat16 at the dispatch size, beside the
+   general route's time on the same inputs (the earlier, mma.sync design).
+   B1 also at the rollout's and the stream's shapes (B 8, every T from 40 to 64 as the prefix of a longer
    buffer, strided and dense; B 1 at T 20 and 40), B3 also at N 1 and N 200.
    B6, the tiled matmul probe, at 4096^3 and at 256 x 1024 x 512 with every
    compiled tile, int8 bit for bit and bfloat16 by relative norm; its time
-   per mode beside torch.matmul's and torch._int_mm's and its bound.
+   per mode and tile beside torch.matmul's and torch._int_mm's, its bound
+   and, for int8, the transposition's share.
 3. One full-width phase-1 step (batch 32), fused against plain: loss and
    every gradient leaf (by relative norm at the seeded init; element-wise
    and by relative norm on tie-free parameters), at dropout 0 (all four
    kernels launch) and 0.5 (the same masks both sides); the step's time
    both ways. The full ResNet-50 at 224 px on 480 u8 frames, the folded
-   `opt` engine (13 B5 launches) against the plain module (cuDNN), both
-   bfloat16, and each against the float32 module, by relative norm; each
-   engine's frames/s.
+   `opt` engine (13 B5 launches, all on the hopper route) against the
+   plain module (cuDNN), both bfloat16, and each against the float32
+   module, by relative norm; each engine's frames/s.
 4. The serving path at full model width: a seeded PHDFor3DJoints is saved
    as a checkpoint, served by the port's BatchingServer on a local socket,
    and answers 16 concurrent and 3 sequential (40, 2048) requests and a
@@ -150,6 +156,30 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launch_ms(fn, launches: int, reps: int = 5):
+    """Device ms of each kernel launch of one call of fn, in launch order,
+    averaged over `reps` calls: the CUDA kernel events of a torch.profiler
+    trace (CUPTI). A trace that lost an event is taken again (at most 3
+    times); raises if none held launches * reps kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        if len(kernels) == launches * reps:
+            return [sum(e.time_range.elapsed_us() for e in kernels[i::launches]) / reps / 1e3
+                    for i in range(launches)]
+        log({"check": "launch_ms", "kernel_events": len(kernels), "want": launches * reps})
+    raise AssertionError(f"the profiler gave no trace of {launches} x {reps} kernels")
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
@@ -634,6 +664,8 @@ def counted() -> dict:
 def zero_counts():
     for fn in counted().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def read_counts() -> dict:
@@ -828,22 +860,24 @@ def drive_train_path(g, tmp):
 
 
 def check_matmul_probe(dev):
-    """B6 against its plain version: at 4096^3 (the probe's size) with the
-    default tile and at 256 x 1024 x 512 (unequal sizes, 16 to 32 K steps)
-    with every compiled tile, int8 bit for bit and bfloat16 by relative norm
-    within BF16_REL_NORM (element-wise error logged). Then, per mode at
-    4096^3: the kernel's time, the plain version's, the library call's
-    (torch.matmul, torch._int_mm) and the bound. The kernels line carries
-    the int8 mode (the probe's question) and both modes under `modes`."""
+    """B6 against its plain version: at 4096^3 (the probe's size) and at
+    256 x 1024 x 512 (unequal sizes, 4 to 16 K steps), with every compiled
+    tile, int8 bit for bit and bfloat16 by relative norm within
+    BF16_REL_NORM (element-wise error logged). Then, per mode at 4096^3:
+    the kernel's time with each tile, the plain version's, the library
+    call's (torch.matmul, torch._int_mm) and the bound; for int8 also the device time of each of the call's two launches
+    (the transposition of y, the GEMM; profiler). The kernels line carries
+    the int8 mode (the probe's question) at the default tile and both modes
+    under `modes`."""
     from h36x_torch.benchmarks.int8_kernel_probe import make_inputs
     from h36x_torch.ops.matmul_probe import TILES, probe_matmul, reference_matmul
 
     worst = worst_rel = 0.0
-    for m, k, n, tiles in ((4096, 4096, 4096, TILES[:1]), (256, 1024, 512, TILES)):
+    for m, k, n in ((4096, 4096, 4096), (256, 1024, 512)):
         for mode in ("bf16", "int8"):
             x, y = make_inputs(f"kernel_{mode}", m, k, n, dev)
             want = reference_matmul(x, y)
-            for tile in tiles:
+            for tile in TILES:
                 got = probe_matmul(x, y, tile)
                 label = f"matmul_probe {mode} {m}x{k}x{n} tile {tile}"
                 if mode == "int8":
@@ -863,7 +897,8 @@ def check_matmul_probe(dev):
     for mode, peak, lib in (("bf16", PEAK_BF16_FLOPS, torch.matmul),
                             ("int8", PEAK_INT8_OPS, torch._int_mm)):
         x, y = make_inputs(f"kernel_{mode}", size, size, size, dev)
-        ms = time_ms(lambda: probe_matmul(x, y))
+        tile_ms = {str(tile): time_ms(lambda: probe_matmul(x, y, tile)) for tile in TILES}
+        ms = tile_ms[str(TILES[0])]
         plain_ms = time_ms(lambda: reference_matmul(x, y), reps=5)
         library_ms = time_ms(lambda: lib(x, y))
         ops = 2 * size ** 3
@@ -871,10 +906,14 @@ def check_matmul_probe(dev):
         nbytes = size * size * (2 * x.element_size() + out_bytes)
         bound_ms, bound_by = bound(ops, nbytes, peak)
         modes[mode] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "ms_by_tile": tile_ms,
                        "tera_ops_per_s": ops / ms / 1e9,
                        "library_tera_ops_per_s": ops / library_ms / 1e9,
-                       "bound_share": bound_ms / ms}
+                       "vs_library": library_ms / ms, "bound_share": bound_ms / ms}
+        if mode == "int8":  # the transposition of y, then the GEMM
+            per_launch = launch_ms(lambda: probe_matmul(x, y), 2)
+            modes[mode]["launch_ms"] = per_launch
+            modes[mode]["transpose_share"] = per_launch[0] / sum(per_launch)
         log({"check": f"matmul_probe timing {mode} {size}^3 tile {TILES[0]}",
              **modes[mode]})
     return {"name": "matmul_probe", "route": "cuda",
@@ -1095,11 +1134,17 @@ def check_bottleneck(dev, n_dispatch):
     """B5 against its plain version at the 13 stride-1 blocks' shapes (the
     projection block layer1_0 included) at N 1 and at the dispatch size, in
     float32 (element-wise, KERNEL_TOL) and bfloat16 (relative norm,
-    BF16_REL_NORM), and at two odd sizes; then, in bfloat16 at the dispatch
-    size, each shape's time, its plain version's time and its bound. The
-    kernels line takes the sums over one forward's 13 blocks."""
+    BF16_REL_NORM), and at two odd sizes, each launch counted on the route
+    bottleneck_route names; then, in bfloat16 at the dispatch size, each
+    shape's route, time, plain version's time, bound, the general route's
+    time on the same inputs (the earlier, mma.sync design, which stays the
+    route of float32 and odd widths; uncounted) and each of its three
+    launches' device time (profiler). The kernels line takes the sums over
+    one forward's 13 blocks."""
     from h36x_torch.ops.bottleneck import (
+        bottleneck_route,
         fused_bottleneck,
+        launch_on_route,
         prepare_bottleneck,
         reference_bottleneck,
     )
@@ -1115,9 +1160,16 @@ def check_bottleneck(dev, n_dispatch):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.relu(torch.randn(n, h * w, c_in, generator=gd, device=dev)).to(dtype)
             p = prepare_bottleneck(folded, dtype, dev)
+            route = bottleneck_route(dtype, c_in, c_mid, c_out)
+            before = dict(fused_bottleneck.launches_by_route)
             got = fused_bottleneck(x, p, h, w)
+            grown = {r: v - before[r] for r, v in fused_bottleneck.launches_by_route.items()}
+            if grown != {r: int(r == route) for r in grown}:
+                raise AssertionError(f"bottleneck {name} {dtype}: launches {grown}, "
+                                     f"want one on the {route} route")
             want = reference_bottleneck(x, p, h, w)
-            label = f"bottleneck {name} N={n} {h}x{w} {c_in}/{c_mid}/{c_out} {dtype}"
+            label = (f"bottleneck {name} N={n} {h}x{w} {c_in}/{c_mid}/{c_out} {dtype} "
+                     f"({route})")
             if dtype == torch.float32:
                 rec = compare(label, got, want, KERNEL_TOL)
                 worst_f32 = max(worst_f32, rec["max_abs_err"])
@@ -1126,7 +1178,7 @@ def check_bottleneck(dev, n_dispatch):
             worst = max(worst, rec["max_abs_err"])
             worst_rel = max(worst_rel, rec["rel_norm_err"])
     per_shape = []
-    totals = {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0, "general_ms": 0.0}
     for name, count, side, c_in, c_mid, c_out in B5_SHAPES:
         p = prepare_bottleneck(bottleneck_weights(c_in, c_mid, c_out, gd, dev),
                                torch.bfloat16, dev)
@@ -1134,17 +1186,23 @@ def check_bottleneck(dev, n_dispatch):
                                    device=dev)).bfloat16()
         ms = time_ms(lambda: fused_bottleneck(x, p, side, side))
         plain_ms = time_ms(lambda: reference_bottleneck(x, p, side, side))
+        general_ms = time_ms(lambda: launch_on_route(x, p, side, side, "general"))
         flops, nbytes = bottleneck_work(n_dispatch, side, c_in, c_mid, c_out, 2)
         bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        # the route's three GEMMs: x @ W1, the 3x3, the last 1x1 with the residual
+        per_launch = launch_ms(lambda: fused_bottleneck(x, p, side, side), 3)
         rec = {"blocks": name, "per_forward": count, "N": n_dispatch,
-               "shape": f"{side}x{side} {c_in}/{c_mid}/{c_out}", "ms": ms,
+               "shape": f"{side}x{side} {c_in}/{c_mid}/{c_out}",
+               "route": bottleneck_route(torch.bfloat16, c_in, c_mid, c_out), "ms": ms,
+               "general_ms": general_ms, "speedup": general_ms / ms,
+               "launch_ms": per_launch,
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
         log({"check": "bottleneck timing", **rec})
         per_shape.append(rec)
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("flops", flops),
-                       ("bytes", nbytes)):
+                       ("bytes", nbytes), ("general_ms", general_ms)):
             totals[key] += count * v
     bound_ms, bound_by = bound(totals["flops"], totals["bytes"], PEAK_BF16_FLOPS)
     return {"name": "fused_bottleneck", "route": "cuda",
@@ -1152,6 +1210,7 @@ def check_bottleneck(dev, n_dispatch):
             "replaces": "h36x/ops/pallas_bottleneck.py:87",
             "max_abs_err": worst, "max_abs_err_f32": worst_f32,
             "max_rel_norm_err": worst_rel, "ms": totals["ms"],
+            "general_ms": totals["general_ms"],
             "plain_ms": totals["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "per_shape": per_shape,
             "shape": f"the 13 stride-1 blocks of one ResNet-50 forward, N={n_dispatch} "
@@ -1161,7 +1220,8 @@ def check_bottleneck(dev, n_dispatch):
 
 def check_backbone(dev, n):
     """The full ResNet-50 at 224 px on the same u8 frames: the folded engine
-    (13 B5 launches) and the plain module (cuDNN), both bfloat16, against
+    (13 B5 launches, all on the hopper route) and the plain module (cuDNN),
+    both bfloat16, against
     each other and against the float32 module (TF32 off) by relative norm;
     then each engine's frames/s."""
     from h36x_torch.extract.pipeline import make_feature_fn
@@ -1175,17 +1235,21 @@ def check_backbone(dev, n):
     model = ResNet50(dtype=torch.bfloat16, device=dev)
     engines = {"opt": make_feature_fn(model, "opt"), "flax": make_feature_fn(model, "flax")}
     before = fused_bottleneck.launches
+    before_hopper = fused_bottleneck.launches_by_route["hopper"]
     got = {name: fn(frames) for name, fn in engines.items()}
     torch.cuda.synchronize()
-    if fused_bottleneck.launches - before != 13:
+    hopper = fused_bottleneck.launches_by_route["hopper"] - before_hopper
+    if fused_bottleneck.launches - before != 13 or hopper != 13:
         raise AssertionError(f"one opt forward launched B5 "
-                             f"{fused_bottleneck.launches - before} times, not 13")
+                             f"{fused_bottleneck.launches - before} times ({hopper} on the "
+                             "hopper route), not 13, all hopper")
     compare("backbone bf16: opt (B5) vs flax (cuDNN)", got["opt"], got["flax"], None,
             BACKBONE_REL_NORM)
     for name in engines:
         compare(f"backbone bf16 {name} vs float32 module", got[name], ref, None,
                 BACKBONE_REL_NORM)
-    rec = {"phase": "backbone", "frames": n, "tol_rel_norm": BACKBONE_REL_NORM}
+    rec = {"phase": "backbone", "frames": n, "tol_rel_norm": BACKBONE_REL_NORM,
+           "b5_launches": 13, "b5_hopper_launches": hopper}
     for name, fn in engines.items():
         ms = time_ms(lambda: fn(frames), reps=5)
         rec[f"{name}_ms"] = ms
@@ -1274,6 +1338,7 @@ def drive_extract_path(dev, dataset, out, engine):
 
     from h36x_torch.config import ExtractConfig
     from h36x_torch.extract.pipeline import run_extract, store_provenance
+    from h36x_torch.ops.bottleneck import fused_bottleneck
 
     e = EXTRACT
     if store_provenance()["crop_backend"] != "native":
@@ -1289,11 +1354,15 @@ def drive_extract_path(dev, dataset, out, engine):
     launches = read_counts()
     dispatches = math.ceil(summary["backbone_frames"] / frames_per_dispatch())
     want = expect_counts(fused_bottleneck=13 * dispatches if engine == "opt" else 0)
+    by_route = dict(fused_bottleneck.launches_by_route)
+    if by_route["hopper"] != want["fused_bottleneck"]:
+        raise AssertionError(f"extract {engine}: B5 launches by route {by_route}")
     # the run's own rate (summary["seconds"]: from the backbone's load to
     # the index) and the call's wall time, the load included
     log({"phase": f"extract {engine}", "call_seconds": seconds,
          "run_seconds": summary["seconds"], "launches": launches,
-         "dispatches": dispatches, "clips_per_s": summary["clips_per_sec"],
+         "b5_launches_by_route": by_route, "dispatches": dispatches,
+         "clips_per_s": summary["clips_per_sec"],
          "backbone_frames_per_s": summary["backbone_frames"] / summary["seconds"],
          **{k: summary[k] for k in ("n_clips", "n_shards", "backbone_frames",
                                     "dedup_ratio", "crop_scope", "jitter_key")}})
@@ -1379,7 +1448,7 @@ def main() -> int:
          "nvcc_seconds": _build.build_seconds})
     for src, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"ptxas {src}: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False

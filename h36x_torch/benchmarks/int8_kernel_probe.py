@@ -7,9 +7,14 @@ Counterpart of benchmarks/int8_pallas_probe.py on an NVIDIA GPU:
 
 Four measurements on the same inputs (numpy, seed 0):
   - library bf16: torch.matmul        (cuBLAS, the yardstick for the kernel)
-  - kernel  bf16 x bf16 -> f32 -> bf16 (h36x_torch/ops/csrc/matmul_probe.cu)
-  - kernel  int8 x int8 -> int32       (the same kernel skeleton: the question)
+  - kernel  bf16 x bf16 -> f32 -> bf16 (h36x_torch/ops/csrc/matmul_probe.cu:
+                                        TMA + wgmma, persistent)
+  - kernel  int8 x int8 -> int32       (the same mainloop: the question; the
+                                        call includes y's transposition)
   - library int8: torch._int_mm       (cuBLASLt, the int8 yardstick)
+
+--block BM BN picks the kernel's compiled tile (default (128, 256)); the K
+step is one 128-byte swizzle row (64 bf16, 128 int8).
 
 Timing: CUDA events around `iters` back-to-back launches on one stream, the
 best of 6 such bursts after a warm-up burst. Any failure raises.
@@ -82,8 +87,8 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--size", type=int, default=4096)
     p.add_argument("--iters", type=int, default=24)
-    p.add_argument("--block", type=int, nargs=3, default=list(TILES[0]),
-                   metavar=("BM", "BK", "BN"),
+    p.add_argument("--block", type=int, nargs=2, default=list(TILES[0]),
+                   metavar=("BM", "BN"),
                    help=f"the kernel's tile, one of the compiled {TILES}")
     args = p.parse_args(argv)
     tile_index(args.block)  # refuse a tile that was not compiled, before any run

@@ -55,12 +55,12 @@ SIGNATURES = {
     },
     "bottleneck": {
         # x, w1, b1, w2, b2, w3p, b3p, a_ws, b_ws, out,
-        # B, H, W, C_in, C_mid, C_out, has_proj, dtype, stream
-        "h36x_fused_bottleneck": [_P] * 10 + [_I] * 8 + [_P],
+        # B, H, W, C_in, C_mid, C_out, has_proj, dtype, route, stream
+        "h36x_fused_bottleneck": [_P] * 10 + [_I] * 9 + [_P],
     },
     "matmul_probe": {
-        # x, y, out, M, K, N, mode, tile, stream
-        "h36x_matmul_probe": [_P] * 3 + [_I] * 5 + [_P],
+        # x, y, y_ws, out, M, K, N, mode, tile, stream
+        "h36x_matmul_probe": [_P] * 4 + [_I] * 5 + [_P],
     },
 }
 RESTYPES = {"h36x_joint_regressor_bwd_workspace": ctypes.c_size_t}

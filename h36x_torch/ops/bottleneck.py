@@ -11,8 +11,16 @@ order of an NHWC tensor (and of a channels_last NCHW one).
 - :func:`reference_bottleneck` is the plain PyTorch version.
 - :func:`fused_bottleneck` is the wrapper of the CUDA kernel
   `csrc/bottleneck.cu` (kernel B5): on a CUDA tensor it launches the
-  kernel and counts the launch in `fused_bottleneck.launches`; on a CPU
-  tensor it runs the plain version; on any other device it raises.
+  kernel on the route :func:`bottleneck_route` picks from the dtype and
+  the widths and counts the launch in `fused_bottleneck.launches` (and in
+  `fused_bottleneck.launches_by_route`); on a CPU tensor it runs the plain
+  version; on any other device it raises.
+- :func:`launch_on_route` launches one named route, uncounted, to time
+  the two routes on the same inputs.
+
+The routes: "hopper" (TMA + wgmma, bfloat16 with C_in, C_mid and C_out
+multiples of 64: all 13 stride-1 blocks of ResNet-50) and "general" (the
+first design: float32, the fp32-accuracy mode, and any other widths).
 
 Both round where the TPU kernel rounds: weights folded in f32 then cast to
 x's dtype, biases kept in f32, products accumulated in f32, `a` and `b`
@@ -34,6 +42,8 @@ from h36x_torch.ops import _build
 
 STAGE_SIZES = (3, 4, 6, 3)  # ResNet-50
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("general", "hopper")  # index = the entry point's route code
+HOPPER_WIDTH = 64  # the Hopper route's K step and narrowest tile
 
 
 def _np32(v) -> np.ndarray:
@@ -103,7 +113,8 @@ def prepare_bottleneck(folded: dict, dtype: torch.dtype, device) -> dict:
     """The folded weights as the kernel and the plain version take them:
     weights cast to `dtype` (rounded once from the f32 fold), biases f32,
     the 3x3 as a (9*C_mid, C_mid) matrix in (dy, dx, c_in) row order, and
-    for projection blocks [W3; Wp] stacked with b3 + bp, on `device`.
+    for projection blocks [W3; Wp] stacked with b3 + bp, on `device`. Both
+    routes read w1, w2_mat and w3p as they lie, (K, N) row-major.
     A dict prepared for this dtype and device comes back as it is."""
     want = torch.device(device)
     have_dtype, have_dev = folded.get("_prepared_for", (None, None))
@@ -162,7 +173,28 @@ def reference_bottleneck(x: torch.Tensor, folded: dict, h: int, w: int) -> torch
     return torch.relu(c + res).to(dt)
 
 
+def bottleneck_route(dtype: torch.dtype, c_in: int, c_mid: int, c_out: int) -> str:
+    """The kernel route of a block: "hopper" for bfloat16 with every width a
+    multiple of 64, else "general". A function of these four alone, decided
+    before the launch."""
+    if dtype == torch.bfloat16 and all(c % HOPPER_WIDTH == 0 for c in (c_in, c_mid, c_out)):
+        return "hopper"
+    return "general"
+
+
 def _launch(x: torch.Tensor, p: dict, h: int, w: int) -> torch.Tensor:
+    route = bottleneck_route(x.dtype, x.shape[2], p["w1"].shape[1], p["w3"].shape[1])
+    out = launch_on_route(x, p, h, w, route)
+    fused_bottleneck.launches += 1
+    fused_bottleneck.launches_by_route[route] += 1
+    return out
+
+
+def launch_on_route(x: torch.Tensor, p: dict, h: int, w: int, route: str) -> torch.Tensor:
+    """The kernel on the named route, x on the card and `p` prepared for it,
+    uncounted: for timing one route against the other on the same inputs.
+    :func:`fused_bottleneck` is the entry point, and takes the route
+    :func:`bottleneck_route` names."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_bottleneck: x is {x.dtype}, expected float32 "
                         "or bfloat16")
@@ -176,6 +208,9 @@ def _launch(x: torch.Tensor, p: dict, h: int, w: int) -> torch.Tensor:
         raise ValueError(f"fused_bottleneck: folded weights (w1 {tuple(p['w1'].shape)}, "
                          f"w3 {tuple(p['w3'].shape)}, projection {has_proj}) do not "
                          f"fit C_in={c_in}")
+    if route == "hopper" and x.data_ptr() % 16:
+        raise ValueError("fused_bottleneck: x must be 16-byte aligned on the "
+                         "hopper route (its rows load by TMA)")
     dev = x.device
     a_ws = torch.empty((b * hw, c_mid), device=dev, dtype=x.dtype)
     b_ws = torch.empty((b * hw, c_mid), device=dev, dtype=x.dtype)
@@ -188,10 +223,9 @@ def _launch(x: torch.Tensor, p: dict, h: int, w: int) -> torch.Tensor:
             p["w2_mat"].data_ptr(), p["b2"].data_ptr(), p["w3p"].data_ptr(),
             p["b3p"].data_ptr(), a_ws.data_ptr(), b_ws.data_ptr(), out.data_ptr(),
             b, h, w, c_in, c_mid, c_out, int(has_proj), _DTYPE_CODES[x.dtype],
-            stream)
-    # an empty batch is a grid of 0 blocks, which the launch refuses
-    _build.check(rc, f"fused_bottleneck (B={b}, H={h}, W={w}, C_in={c_in})")
-    fused_bottleneck.launches += 1
+            ROUTES.index(route), stream)
+    # an empty batch is refused (on the general route: a grid of 0 blocks)
+    _build.check(rc, f"fused_bottleneck ({route}, B={b}, H={h}, W={w}, C_in={c_in})")
     return out
 
 
@@ -209,7 +243,8 @@ def fused_bottleneck(x: torch.Tensor, folded: dict, h: int, w: int) -> torch.Ten
     return _launch(x, prepare_bottleneck(folded, x.dtype, x.device), h, w)
 
 
-fused_bottleneck.launches = 0  # kernel launches on CUDA tensors
+fused_bottleneck.launches = 0  # kernel launches on CUDA tensors, every route
+fused_bottleneck.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def transition_block(y: torch.Tensor, f: dict) -> torch.Tensor:

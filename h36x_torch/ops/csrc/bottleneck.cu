@@ -20,28 +20,44 @@
 // 3.2 MB of input plus output per frame (3.35 TB/s), so the 56x56 blocks
 // are bound by bytes and the 7x7 ones by operations.
 //
-// Design (first version: right and simple, not yet fast). The block is
-// three launches of one templated GEMM with two workspaces between them,
-// as the regressor backward is: (1) a = x @ W1; (2) b = the 3x3 conv as an
-// implicit GEMM of depth 9*C_mid, whose A-tile loader reads the tap's
-// shifted pixel of `a` with a predicate that yields 0 outside the image
-// (this replaces the TPU kernel's halo blocks, strips and iota masks: every
-// image edge is a bounds test on the pixel, so any H, W >= 1 works); (3) the
-// last 1x1 with the residual in its epilogue, where a projection block
-// concatenates [b | x] along the reduction and stacks [W3; Wp] (the wrapper
-// adds bp into b3), so c + res comes out of one f32 accumulator. `a` and `b`
-// make one round trip through device memory each, about 0.5x the bytes of
-// x + out at 56x56: the price of not staging a row tile and its halo in
-// shared memory, which is later work, as are TMA and wgmma.
+// Two routes, chosen by the wrapper from the dtype and the widths alone
+// (h36x_torch/ops/bottleneck.py::bottleneck_route):
 //
-// The GEMM: 128 threads own a 64 x 64 output tile and walk the reduction 32
-// deep, double-buffered through shared memory (the next tile's global loads
-// are in flight while the current one multiplies). bfloat16 runs on the
+// The Hopper route (bfloat16, C_in, C_mid and C_out multiples of 64: all 13
+// stride-1 blocks of ResNet-50). Three launches of hopper.cuh's
+// warp-specialised persistent TMA + wgmma GEMM with two workspaces between
+// them: (1) a = x @ W1; (2) b = the 3x3 conv as an implicit GEMM of depth
+// 9*C_mid, whose A tile a producer warpgroup fills with 16-byte cp.async,
+// zero-filled outside the image (the pixel of each row and its 9 taps'
+// validity found once per tile; a 64-channel K stage lies within one tap);
+// (3) [b | x] @ [W3; Wp] (two A tensor maps, switching at k1 = C_mid along
+// K) or b @ W3 with the identity residual in the epilogue. A loads by TMA
+// K-major and the weights as they lie, (K, N) row-major, MN-major through
+// wgmma's transpose bit, both with 128-byte swizzle. BN is the widest of
+// 256, 128, 64 that divides the launch's N. The epilogue adds the bias and the residual in
+// f32 from the registers, applies the ReLU, rounds once and stores 16 bytes
+// a thread through shared memory.
+//
+// The general route (float32, the fp32-accuracy mode, and widths that are no
+// multiple of 64): the first design, right and simple, not fast. The same
+// three launches of one templated GEMM: 128 threads own a 64 x 64 output tile
+// and walk the reduction 32 deep, double-buffered through shared memory (the
+// next tile's global loads are in flight while the current one multiplies).
+// The 3x3's A-tile loader reads the tap's shifted pixel of `a` with a
+// predicate that yields 0 outside the image (this replaces the TPU kernel's
+// halo blocks, strips and iota masks: every image edge is a bounds test on
+// the pixel, so any H, W >= 1 works); a projection block concatenates
+// [b | x] along the reduction and stacks [W3; Wp] (the wrapper adds bp into
+// b3), so c + res comes out of one f32 accumulator. bfloat16 runs on the
 // tensor cores (mma.sync m16n8k16, f32 accumulators, four warps of 32 x 32);
 // float32 on the FMA pipes (8 x 4 outputs a thread). Global loads are 16
 // bytes a thread where every width and pointer allows it, else one element.
-// The FP32 tile of gemm_tile.cuh does not fit here: its A layout is k-major
-// and it has no tensor-core path.
+// (The FP32 tile of gemm_tile.cuh does not fit here: its A layout is k-major
+// and it has no tensor-core path.)
+//
+// On both routes `a` and `b` make one round trip through device memory each,
+// about 0.5x the bytes of x + out at 56x56; the forward as a whole is bound
+// by operations, so that is second-order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,6 +65,8 @@
 
 #include <climits>
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -344,18 +362,124 @@ int block_forward(const void* x, const void* w1, const float* b1, const void* w2
   return launch<T>(p, kPlain, stream);
 }
 
+// ---- the Hopper route ----------------------------------------------------------
+
+namespace hp = h36x_hopper;
+
+// relu(acc + bias [+ res]) rounded to bf16, stored 16 bytes a thread
+struct BiasResRelu {
+  struct Args {
+    const float* bias;           // (N,)
+    const __nv_bfloat16* res;    // (M, N) identity residual, or nullptr
+    __nv_bfloat16* out;          // (M, N)
+  };
+  template <int BN>
+  static constexpr int bytes() {
+    return hp::staging_bytes<BN>();
+  }
+  template <int BN>
+  __device__ static void store(float (&d)[BN / 2], const Args& a, long long M, int N,
+                               long long m0, int n0, uint8_t* stage, int wg, int tid) {
+    hp::store_tile_bf16<BN>(d, a.out, M, N, m0, n0, stage, wg, tid,
+                            [&](int r, int c, float v0, float v1) {
+                              const long long m = m0 + r;
+                              const int n = n0 + c;
+                              const float2 b = *reinterpret_cast<const float2*>(a.bias + n);
+                              v0 += b.x;
+                              v1 += b.y;
+                              if (a.res != nullptr && m < M) {
+                                const __nv_bfloat162 x = *reinterpret_cast<
+                                    const __nv_bfloat162*>(a.res + m * N + n);
+                                v0 += __low2float(x);
+                                v1 += __high2float(x);
+                              }
+                              return __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+                            });
+  }
+};
+
+template <int BN, bool IM2COL>
+using BlockGemm = hp::Gemm<__nv_bfloat16, BN, true, IM2COL, BiasResRelu>;
+using HopperParams = hp::Params<BiasResRelu>;
+
+int map_rows(CUtensorMap* map, const void* base, long long rows, int cols, int box_rows) {
+  return hp::make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cols, rows, 2ull * cols, 64,
+                      box_rows);
+}
+
+// one GEMM of the block: out = relu(A @ w + bias [+ res]); w (K, N)
+template <bool IM2COL>
+int hopper_gemm(HopperParams p, const void* w, cudaStream_t stream) {
+  const int bn = p.N % 256 == 0 ? 256 : p.N % 128 == 0 ? 128 : 64;
+  if (p.N % 64 || p.K % 64 || p.k1 % 64 || p.K < 64) return (int)cudaErrorInvalidValue;
+  const int err = map_rows(&p.b, w, p.K, p.N, 64);
+  if (err) return err;
+  switch (bn) {
+    case 256: return hp::launch_gemm<BlockGemm<256, IM2COL>>(p, stream);
+    case 128: return hp::launch_gemm<BlockGemm<128, IM2COL>>(p, stream);
+    default: return hp::launch_gemm<BlockGemm<64, IM2COL>>(p, stream);
+  }
+}
+
+int block_forward_hopper(const void* x, const void* w1, const float* b1, const void* w2,
+                         const float* b2, const void* w3p, const float* b3p, void* a_ws,
+                         void* b_ws, void* out, int B, int H, int W, int c_in, int c_mid,
+                         int c_out, int has_proj, cudaStream_t stream) {
+  const long long M = (long long)B * H * W;
+  // an empty batch is refused, as a grid of 0 blocks is on the general route
+  if (M <= 0) return (int)cudaErrorInvalidConfiguration;
+  if (M >= INT_MAX / 2 || c_in % 64 || c_mid % 64 || c_out % 64) return (int)cudaErrorInvalidValue;
+  HopperParams p{};
+  p.M = M;
+  // (1) a = relu(x @ W1 + b1)
+  int err = map_rows(&p.a, x, M, c_in, hp::BM);
+  if (err) return err;
+  p.a2 = p.a;
+  p.N = c_mid;
+  p.K = p.k1 = c_in;
+  p.epi = {b1, nullptr, static_cast<__nv_bfloat16*>(a_ws)};
+  if ((err = hopper_gemm<false>(p, w1, stream))) return err;
+  // (2) b = relu(conv3x3_SAME(a) + b2), an implicit GEMM of depth 9*C_mid
+  p.im = {static_cast<const __nv_bfloat16*>(a_ws), c_mid, H, W};
+  p.K = p.k1 = 9 * c_mid;
+  p.epi = {b2, nullptr, static_cast<__nv_bfloat16*>(b_ws)};
+  if ((err = hopper_gemm<true>(p, w2, stream))) return err;
+  // (3) out = relu(b @ W3 + b3 + x) or relu([b | x] @ [W3; Wp] + (b3 + bp))
+  if ((err = map_rows(&p.a, b_ws, M, c_mid, hp::BM))) return err;
+  p.N = c_out;
+  p.k1 = c_mid;
+  if (has_proj) {
+    if ((err = map_rows(&p.a2, x, M, c_in, hp::BM))) return err;
+    p.K = c_mid + c_in;
+    p.epi = {b3p, nullptr, static_cast<__nv_bfloat16*>(out)};
+  } else {
+    p.a2 = p.a;
+    p.K = c_mid;
+    p.epi = {b3p, static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out)};
+  }
+  return hopper_gemm<false>(p, w3p, stream);
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. w1 (C_in, C_mid), w2 (9*C_mid, C_mid) in
-// (dy, dx, c_in) row order, w3p (C_mid [+ C_in], C_out), all T; b1, b2, b3p
-// f32. a_ws and b_ws hold (B*H*W, C_mid) T each. Returns the first launch's
-// CUDA error, or 0.
+// route: 0 general (dtype 0 float32 or 1 bfloat16, any widths), 1 Hopper
+// (bfloat16, C_in, C_mid, C_out multiples of 64). w1 (C_in, C_mid), w2
+// (9*C_mid, C_mid) in (dy, dx, c_in) row order, w3p (C_mid [+ C_in], C_out),
+// all T, row-major; b1, b2, b3p f32. a_ws and b_ws hold (B*H*W, C_mid) T
+// each. Every pointer 16-byte aligned on the Hopper route. Returns the
+// first launch's CUDA error, or 0.
 extern "C" int h36x_fused_bottleneck(const void* x, const void* w1, const float* b1,
                                      const void* w2, const float* b2, const void* w3p,
                                      const float* b3p, void* a_ws, void* b_ws, void* out,
                                      int B, int H, int W, int c_in, int c_mid, int c_out,
-                                     int has_proj, int dtype, void* stream) {
+                                     int has_proj, int dtype, int route, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return block_forward_hopper(x, w1, b1, w2, b2, w3p, b3p, a_ws, b_ws, out, B, H, W, c_in,
+                                c_mid, c_out, has_proj, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return block_forward<__nv_bfloat16>(x, w1, b1, w2, b2, w3p, b3p, a_ws, b_ws, out, B,
                                         H, W, c_in, c_mid, c_out, has_proj, s);

@@ -1,93 +1,95 @@
-// Tiled tensor-core matmul probe, bf16 and int8, sm_90a.
+// Tiled tensor-core matmul probe, bf16 and int8, sm_90a: TMA + wgmma.
 //
 // Replaces the Pallas TPU kernel benchmarks/int8_pallas_probe.py::_matmul_kernel
 // (reached through make_pallas_matmul / bench / main): out = x (M, K) . y (K, N),
-// both row-major, in two modes on one skeleton:
+// both row-major, in two modes on one mainloop:
 //
 //   bf16 x bf16 -> f32 accumulator -> bf16 store (round to nearest even)
 //   int8 x int8 -> int32 accumulator -> int32 store
 //
 // The probe asks what the int8 tensor-core rate is against the bf16 rate on
-// the same kernel, so both modes share every line but the mma itself.
+// the same kernel, so both modes run the one GEMM of hopper.cuh and differ in
+// the wgmma instruction (m64nBNk16 bf16, m64nBNk32 s8) and the epilogue.
 //
 // What bounds it on the H100: operations. At M = K = N = 4096 the product is
 // 137.4 GFLOP over 101 MB of inputs and outputs in either mode (bf16 in and
 // out; int8 in, int32 out): 0.139 ms at the bf16 peak (989 TFLOP/s), 0.069 ms
 // at the int8 peak (1,979 TOP/s), 0.03 ms of bytes.
 //
-// Design (first version: right and simple). The TPU kernel's grid
-// (M/bm, N/bn, K/bk) with K innermost and the accumulator in scratch becomes
-// one block per (bm, bn) output tile with the K loop inside it and the
-// accumulator in registers; the cast happens once, in the epilogue, as on the
-// last K step there. 256 threads (8 warps, 2 along m x 4 along n) walk K one
-// (bm x bk) and (bk x bn) tile at a time, double-buffered through shared
-// memory with the next tile's global loads in flight in registers while the
-// current one multiplies. Both modes run on mma.sync (m16n8k16 bf16, m16n8k32
-// int8): their fragments have the same layout in units of 32-bit words (E = 2
-// or 4 elements a word), so shared memory is addressed in words and one
-// fragment gather serves both.
-//   A tile: copied as it is, 16 bytes a thread, into As[m][k-words].
-//   B tile: y is (K, N) row-major, but the mma wants consecutive k of one
-//   column in one register, and ldmatrix.trans cannot transpose bytes. Each
-//   thread loads an E x E block (E rows of k, one 32-bit word of E columns
-//   each), transposes it in registers with byte permutes, and stores E words
-//   into Bs[n][k-words]: the transposition is part of the timed call.
-//   Rows are padded by 4 words, so the fragment gathers (8 rows x 4 words a
-//   warp) touch 32 distinct banks; the transposed stores keep a 2-way (bf16)
-//   or 4-way (int8) conflict.
-// M, N and K must divide the tile (the wrapper refuses other sizes, as
-// make_pallas_matmul's m // bm does). wgmma, TMA and a deeper pipeline, the
-// only way to the card's full rate, are later work.
+// Design. hopper.cuh's warp-specialised persistent GEMM: one block of 384
+// threads per SM walks the 128 x BN output tiles; a producer thread keeps a
+// ring of (128 x 128-byte, BN x 128-byte) tiles in flight by TMA with
+// 128-byte swizzle; two consumer warpgroups run wgmma on 64 rows each; the
+// TPU kernel's cast on the last K step is the epilogue. bf16 tiles are
+// staged in shared memory and stored 16 bytes a thread; int32 pairs go out
+// from the registers (32 contiguous bytes per 4 threads).
+//   B in bf16: wgmma reads B MN-major (transpose bit), so y's (64 K x 64 N)
+//   boxes load as they lie; no transposition.
+//   B in int8: wgmma's s8 form takes K-major operands only, so a small kernel
+//   first writes yt = y^T (N, K) into a workspace, inside the same call (the
+//   probe's question needs the transposition in the timed call, as the
+//   earlier design kept it): K x N bytes read and written once, 128 x 128
+//   byte tiles turned in registers (4 x 4 byte permutes).
+// The tiles (BM, BN) = (128, 256) and (128, 128) are compiled; BK is one
+// 128-byte swizzle row (64 bf16, 128 int8). M, N and K must divide the tile
+// (the wrapper refuses other sizes, as make_pallas_matmul's m // bm does).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int NT = 256;     // 8 warps: 2 along m, 4 along n
-constexpr int WARPS_M = 2, WARPS_N = 4;
-constexpr int PAD_W = 4;    // words of padding after each shared-memory row
+using namespace h36x_hopper;
 
-template <typename T>
-struct Mode;
-template <>
-struct Mode<__nv_bfloat16> {
-  using Acc = float;
-  using Out = __nv_bfloat16;
+// bf16 out: staged, 16-byte stores
+struct StoreBf16 {
+  struct Args {
+    __nv_bfloat16* out;
+  };
+  template <int BN>
+  static constexpr int bytes() {
+    return staging_bytes<BN>();
+  }
+  template <int BN>
+  __device__ static void store(float (&d)[BN / 2], const Args& a, long long M, int N,
+                               long long m0, int n0, uint8_t* stage, int wg, int tid) {
+    store_tile_bf16<BN>(d, a.out, M, N, m0, n0, stage, wg, tid,
+                        [](int, int, float v0, float v1) { return __floats2bfloat162_rn(v0, v1); });
+  }
 };
-template <>
-struct Mode<int8_t> {
-  using Acc = int32_t;
-  using Out = int32_t;
+
+// int32 out: straight from the accumulators, 8 bytes a thread
+struct StoreS32 {
+  struct Args {
+    int32_t* out;
+  };
+  template <int BN>
+  static constexpr int bytes() {
+    return 0;
+  }
+  template <int BN>
+  __device__ static void store(int (&d)[BN / 2], const Args& a, long long M, int N,
+                               long long m0, int n0, uint8_t*, int, int tid) {
+    const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const long long m = m0 + 16 * warp + (lane >> 2) + 8 * i;
+        const int n = n0 + 8 * j + 2 * (lane & 3);
+        if (m < M)
+          *reinterpret_cast<int2*>(a.out + m * N + n) =
+              make_int2(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+      }
+  }
 };
 
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma(int32_t (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// r[i] holds E elements of row k + i (columns n .. n + E - 1); o[j] gets the
-// E elements of column n + j (rows k .. k + E - 1), lowest k in the low bits.
-__device__ __forceinline__ void transpose_words(const uint32_t (&r)[2], uint32_t (&o)[2]) {
-  o[0] = __byte_perm(r[0], r[1], 0x5410);
-  o[1] = __byte_perm(r[0], r[1], 0x7632);
-}
-
-__device__ __forceinline__ void transpose_words(const uint32_t (&r)[4], uint32_t (&o)[4]) {
+// r[i] holds 4 int8 of row k + i (columns n .. n + 3); o[j] gets the 4 of
+// column n + j (rows k .. k + 3), lowest k in the low byte
+__device__ __forceinline__ void transpose_4x4(const uint32_t (&r)[4], uint32_t (&o)[4]) {
   const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
   const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
   const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
@@ -98,199 +100,113 @@ __device__ __forceinline__ void transpose_words(const uint32_t (&r)[4], uint32_t
   o[3] = __byte_perm(t2, t3, 0x7632);
 }
 
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ void store_pair(int32_t* p, int32_t a, int32_t b) {
-  *reinterpret_cast<int2*>(p) = make_int2(a, b);
-}
-
-template <typename T, int BM, int BK, int BN>
-struct Tile {
-  static constexpr int E = 4 / (int)sizeof(T);       // elements a 32-bit word
-  static constexpr int BKW = BK / E;                 // words along k
-  static constexpr int PITCH = BKW + PAD_W;          // row pitch in words
-  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  static constexpr int MF = WM / 16, NF = WN / 8;    // mma fragments a warp
-  static constexpr int A_CHUNKS = BM * BKW / 4;      // 16-byte chunks of the A tile
-  static constexpr int A_PER = (A_CHUNKS + NT - 1) / NT;
-  static constexpr int B_UNITS = (BK / E) * (BN / E);  // E x E blocks of the B tile
-  static constexpr int B_PER = (B_UNITS + NT - 1) / NT;
-  static constexpr int SMEM_BYTES = 2 * (BM + BN) * PITCH * 4;
-  static_assert(BKW % 8 == 0, "a k step of the mma is 8 words");
-  static_assert(PITCH % 8 == 4, "fragment gathers are conflict-free at 4 * odd");
-  static_assert(WM % 16 == 0 && WN % 8 == 0, "warp tile");
-  static_assert((BN / E) % 8 == 0 && (BK / E) % 4 == 0, "B loader: 8 x 4 units a warp");
-};
-
-// grid (N / BN, M / BM), block NT, dynamic shared memory SMEM_BYTES
-template <typename T, int BM, int BK, int BN>
-__global__ void __launch_bounds__(NT)
-matmul_kernel(const T* __restrict__ x, const T* __restrict__ y,
-              typename Mode<T>::Out* __restrict__ out, int M, int K, int N) {
-  using Cfg = Tile<T, BM, BK, BN>;
-  using Acc = typename Mode<T>::Acc;
-  constexpr int E = Cfg::E, BKW = Cfg::BKW, PITCH = Cfg::PITCH;
-  constexpr int MF = Cfg::MF, NF = Cfg::NF;
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* As = smem;                       // [2][BM][PITCH]
-  uint32_t* Bs = smem + 2 * BM * PITCH;      // [2][BN][PITCH], B transposed
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;    // mma fragment coordinates
-  const int wm = (warp / WARPS_N) * Cfg::WM, wn = (warp % WARPS_N) * Cfg::WN;
-  const size_t m0 = (size_t)blockIdx.y * BM, n0 = (size_t)blockIdx.x * BN;
-  const int nk = K / BK;
-
-  uint4 ra[Cfg::A_PER];
-  uint32_t rb[Cfg::B_PER][E];
-
-  auto fetch = [&](int k0) {
+// yt (N, K) = y (K, N)^T, int8: one 128 x 128 tile per block of 256 threads.
+// y's rows come in as 16-byte chunks into shared memory, chunk c of row k
+// stored at chunk c ^ (k / 16 % 8) (so that the column reads below hit 32
+// distinct banks); each thread then reads a 16 (k) x 4 (n) block as 16
+// words, transposes it in registers and writes 4 16-byte chunks of yt, a
+// warp covering 4 rows of yt x 128 contiguous bytes.
+__global__ void __launch_bounds__(256) transpose_s8(const int8_t* __restrict__ y,
+                                                    int8_t* __restrict__ yt, int K, int N) {
+  __shared__ uint4 tile[128 * 8];
+  const int t = threadIdx.x;
+  const long long k0 = (long long)blockIdx.y * 128, n0 = (long long)blockIdx.x * 128;
 #pragma unroll
-    for (int i = 0; i < Cfg::A_PER; ++i) {
-      const int id = tid + i * NT;
-      if (id < Cfg::A_CHUNKS) {
-        const int row = id / (BKW / 4), kc = id % (BKW / 4);
-        ra[i] = *reinterpret_cast<const uint4*>(x + (m0 + row) * K + k0 + kc * 4 * E);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < Cfg::B_PER; ++i) {
-      const int id = tid + i * NT;  // a warp's 32 units: 8 along n x 4 along k
-      if (id < Cfg::B_UNITS) {
-        const int blk = id >> 5, l = id & 31;
-        const int ng = (blk % (BN / E / 8)) * 8 + (l & 7);
-        const int kg = (blk / (BN / E / 8)) * 4 + (l >> 3);
-        const T* src = y + (size_t)(k0 + kg * E) * N + n0 + ng * E;
-#pragma unroll
-        for (int r = 0; r < E; ++r)
-          rb[i][r] = *reinterpret_cast<const uint32_t*>(src + (size_t)r * N);
-      }
-    }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < Cfg::A_PER; ++i) {
-      const int id = tid + i * NT;
-      if (id < Cfg::A_CHUNKS) {
-        const int row = id / (BKW / 4), kc = id % (BKW / 4);
-        *reinterpret_cast<uint4*>(&As[(buf * BM + row) * PITCH + kc * 4]) = ra[i];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < Cfg::B_PER; ++i) {
-      const int id = tid + i * NT;
-      if (id < Cfg::B_UNITS) {
-        const int blk = id >> 5, l = id & 31;
-        const int ng = (blk % (BN / E / 8)) * 8 + (l & 7);
-        const int kg = (blk / (BN / E / 8)) * 4 + (l >> 3);
-        uint32_t o[E];
-        transpose_words(rb[i], o);
-#pragma unroll
-        for (int j = 0; j < E; ++j) Bs[(buf * BN + ng * E + j) * PITCH + kg] = o[j];
-      }
-    }
-  };
-
-  Acc acc[MF][NF][4];
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  fetch(0);
-  stash(0);
+  for (int i = 0; i < 4; ++i) {
+    const int r = (t >> 3) + 32 * i, c = t & 7;
+    tile[r * 8 + (c ^ ((r >> 4) & 7))] =
+        *reinterpret_cast<const uint4*>(y + (k0 + r) * N + n0 + 16 * c);
+  }
   __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) fetch((kt + 1) * BK);
-    const uint32_t* a_s = As + cur * BM * PITCH;
-    const uint32_t* b_s = Bs + cur * BN * PITCH;
+  const int kc = t & 7, g = t >> 3;  // rows 16 kc .. + 15 of y, columns 4 g .. + 3
+  uint32_t o[4][4];                  // o[e][q]: column 4 g + e, rows 16 kc + 4 q .. + 3
 #pragma unroll
-    for (int ks = 0; ks < BKW; ks += 8) {
-      uint32_t af[MF][4], bf[NF][2];
+  for (int q = 0; q < 4; ++q) {
+    uint32_t r[4], c[4];
 #pragma unroll
-      for (int i = 0; i < MF; ++i) {
-        const uint32_t* p = a_s + (wm + i * 16 + g) * PITCH + ks + t4;
-        af[i][0] = p[0];
-        af[i][1] = p[8 * PITCH];
-        af[i][2] = p[4];
-        af[i][3] = p[8 * PITCH + 4];
-      }
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        const uint32_t* p = b_s + (wn + j * 8 + g) * PITCH + ks + t4;
-        bf[j][0] = p[0];
-        bf[j][1] = p[4];
-      }
-#pragma unroll
-      for (int i = 0; i < MF; ++i)
-#pragma unroll
-        for (int j = 0; j < NF; ++j) mma(acc[i][j], af[i], bf[j]);
+    for (int b = 0; b < 4; ++b) {
+      const int row = 16 * kc + 4 * q + b;
+      r[b] = reinterpret_cast<const uint32_t*>(&tile[row * 8 + ((g >> 2) ^ kc)])[g & 3];
     }
-    if (kt + 1 < nk) stash(cur ^ 1);
-    __syncthreads();
+    transpose_4x4(r, c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e][q] = c[e];
   }
-
-  // the cast of the TPU kernel's last K step
 #pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      const size_t r = m0 + wm + i * 16 + g, c = n0 + wn + j * 8 + 2 * t4;
-      store_pair(out + r * N + c, acc[i][j][0], acc[i][j][1]);
-      store_pair(out + (r + 8) * N + c, acc[i][j][2], acc[i][j][3]);
-    }
+  for (int e = 0; e < 4; ++e)
+    *reinterpret_cast<uint4*>(yt + (n0 + 4 * g + e) * K + k0 + 16 * kc) =
+        make_uint4(o[e][0], o[e][1], o[e][2], o[e][3]);
 }
 
-template <typename T, int BM, int BK, int BN>
-int launch(const void* x, const void* y, void* out, int M, int K, int N,
-           cudaStream_t stream) {
-  using Cfg = Tile<T, BM, BK, BN>;
-  if (M <= 0 || K <= 0 || N <= 0 || M % BM || K % BK || N % BN)
-    return (int)cudaErrorInvalidValue;
-  auto kernel = matmul_kernel<T, BM, BK, BN>;
-  // above 48 KB a block's shared memory must be asked for; the attribute is
-  // per device function and cheap to set again
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM_BYTES);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
-  }
-  const dim3 grid(N / BN, M / BM);
-  kernel<<<grid, NT, Cfg::SMEM_BYTES, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y),
-      static_cast<typename Mode<T>::Out*>(out), M, K, N);
+int transpose(const void* y, void* yt, int K, int N, cudaStream_t stream) {
+  if (K <= 0 || N <= 0 || K % 128 || N % 128) return (int)cudaErrorInvalidValue;
+  transpose_s8<<<dim3(N / 128, K / 128), 256, 0, stream>>>(static_cast<const int8_t*>(y),
+                                                            static_cast<int8_t*>(yt), K, N);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_tile(int tile, const void* x, const void* y, void* out, int M, int K, int N,
-                cudaStream_t stream) {
-  // the compiled tiles (bm, bk, bn): keep in step with TILES in
-  // h36x_torch/ops/matmul_probe.py
-  switch (tile) {
-    case 0: return launch<T, 128, 64, 128>(x, y, out, M, K, N, stream);
-    case 1: return launch<T, 128, 32, 128>(x, y, out, M, K, N, stream);
-    case 2: return launch<T, 64, 32, 64>(x, y, out, M, K, N, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int BN>
+int run_bf16(const void* x, const void* y, void* out, int M, int K, int N,
+             cudaStream_t stream) {
+  using G = Gemm<__nv_bfloat16, BN, true, false, StoreBf16>;
+  typename G::P p{};
+  int err = make_map(&p.a, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, M, 2ull * K, 64, BM);
+  if (!err) err = make_map(&p.b, y, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N, K, 2ull * N, 64, 64);
+  if (err) return err;
+  p.a2 = p.a;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.k1 = K;
+  p.epi.out = static_cast<__nv_bfloat16*>(out);
+  return launch_gemm<G>(p, stream);
+}
+
+template <int BN>
+int run_s8(const void* x, const void* y, void* y_ws, void* out, int M, int K, int N,
+           cudaStream_t stream) {
+  using G = Gemm<int8_t, BN, false, false, StoreS32>;
+  int err = transpose(y, y_ws, K, N, stream);
+  if (err) return err;
+  typename G::P p{};
+  err = make_map(&p.a, x, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, M, (uint64_t)K, 128, BM);
+  if (!err) err = make_map(&p.b, y_ws, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, N, (uint64_t)K, 128, BN);
+  if (err) return err;
+  p.a2 = p.a;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.k1 = K;
+  p.epi.out = static_cast<int32_t*>(out);
+  return launch_gemm<G>(p, stream);
+}
+
+// the compiled tiles: keep in step with TILES in h36x_torch/ops/matmul_probe.py
+constexpr int TILE_BN[] = {256, 128};
+
+template <int BN>
+int run(const void* x, const void* y, void* y_ws, void* out, int M, int K, int N, int mode,
+        cudaStream_t stream) {
+  const int bk = mode == 0 ? 64 : 128;
+  if (M <= 0 || K <= 0 || N <= 0 || M % BM || N % BN || K % bk) return (int)cudaErrorInvalidValue;
+  if (mode == 0) return run_bf16<BN>(x, y, out, M, K, N, stream);
+  if (mode == 1) return run_s8<BN>(x, y, y_ws, out, M, K, N, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // mode: 0 bfloat16 (out bfloat16), 1 int8 (out int32). tile: index into the
 // compiled tiles. x (M, K), y (K, N), out (M, N), all row-major, contiguous
-// and 16-byte aligned. Returns the launch's CUDA error, or 0.
-extern "C" int h36x_matmul_probe(const void* x, const void* y, void* out, int M, int K,
-                                 int N, int mode, int tile, void* stream) {
+// and 16-byte aligned; y_ws: (N, K) int8 workspace for int8 (unused, may be
+// NULL, for bfloat16). Returns the first launch's CUDA error, or 0.
+extern "C" int h36x_matmul_probe(const void* x, const void* y, void* y_ws, void* out, int M,
+                                 int K, int N, int mode, int tile, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == 0) return launch_tile<__nv_bfloat16>(tile, x, y, out, M, K, N, s);
-  if (mode == 1) return launch_tile<int8_t>(tile, x, y, out, M, K, N, s);
-  return (int)cudaErrorInvalidValue;
+  if (mode == 1 && y_ws == nullptr) return (int)cudaErrorInvalidValue;
+  switch (tile) {
+    case 0: return run<TILE_BN[0]>(x, y, y_ws, out, M, K, N, mode, s);
+    case 1: return run<TILE_BN[1]>(x, y, y_ws, out, M, K, N, mode, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -6,10 +6,16 @@ tiled kernel whose int8 rate the probe holds against its bf16 rate).
 - :func:`reference_matmul` is the plain PyTorch version: bf16 as a float32
   product (TF32 off) rounded once to bfloat16; int8 exactly, in int32.
 - :func:`probe_matmul` is the wrapper of the CUDA kernel
-  `csrc/matmul_probe.cu`: on CUDA tensors it launches the kernel and counts
-  the launch in `probe_matmul.launches`; on CPU tensors it runs the plain
-  version; on any other device it raises. :func:`make_probe_matmul` fixes
-  the sizes, the mode and the tile first, as `make_pallas_matmul` does.
+  `csrc/matmul_probe.cu` (TMA + wgmma, warp-specialised, persistent): on
+  CUDA tensors it launches the kernel and counts the launch in
+  `probe_matmul.launches`; on CPU tensors it runs the plain version; on any
+  other device it raises. :func:`make_probe_matmul` fixes the sizes, the
+  mode and the tile first, as `make_pallas_matmul` does.
+
+A tile is (bm, bn); the K step is one 128-byte swizzle row, `BK[mode]`
+elements (64 bf16, 128 int8). M, N and K must be multiples of the tile.
+The int8 mode transposes y into a workspace inside the call (wgmma's s8
+form reads K-major operands only): two launches, counted as one call.
 """
 
 from __future__ import annotations
@@ -20,10 +26,11 @@ import torch
 
 from h36x_torch.ops import _build
 
-# the tiles (bm, bk, bn) compiled into csrc/matmul_probe.cu, by index; the
-# first is the default
-TILES = ((128, 64, 128), (128, 32, 128), (64, 32, 64))
+# the tiles (bm, bn) compiled into csrc/matmul_probe.cu, by index; the first
+# is the default
+TILES = ((128, 256), (128, 128))
 MODES = {"bf16": (torch.bfloat16, torch.bfloat16), "int8": (torch.int8, torch.int32)}
+BK = {"bf16": 64, "int8": 128}  # K elements of one 128-byte swizzle row
 
 
 def reference_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -47,7 +54,7 @@ def reference_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def tile_index(block: Optional[Sequence[int]]) -> int:
-    """Index of the compiled tile (bm, bk, bn) = `block` (None: the default);
+    """Index of the compiled tile (bm, bn) = `block` (None: the default);
     any other tile is refused."""
     if block is None:
         return 0
@@ -65,11 +72,11 @@ def _mode_of(x: torch.Tensor, y: torch.Tensor) -> str:
                     f"and {y.dtype}")
 
 
-def _check_sizes(m: int, k: int, n: int, tile: int) -> None:
-    bm, bk, bn = TILES[tile]
+def _check_sizes(m: int, k: int, n: int, tile: int, mode: str) -> None:
+    (bm, bn), bk = TILES[tile], BK[mode]
     if min(m, k, n) <= 0 or m % bm or k % bk or n % bn:
         raise ValueError(f"sizes ({m}, {k}, {n}) must be positive multiples of "
-                         f"the tile (bm, bk, bn) = {TILES[tile]}")
+                         f"the tile (bm, bk, bn) = ({bm}, {bk}, {bn}) in {mode}")
 
 
 def _launch(x, y, mode: str, tile: int) -> torch.Tensor:
@@ -82,11 +89,15 @@ def _launch(x, y, mode: str, tile: int) -> torch.Tensor:
             raise ValueError(f"probe_matmul: {name} must be contiguous and "
                              "16-byte aligned")
     out = torch.empty((m, n), device=x.device, dtype=MODES[mode][1])
+    # int8: y transposed to (N, K) here, inside the call
+    y_ws = torch.empty((n, k), device=x.device, dtype=torch.int8) if mode == "int8" else None
     (lib,) = _build.load("matmul_probe")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.h36x_matmul_probe(x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                                   m, k, n, list(MODES).index(mode), tile, stream)
+        rc = lib.h36x_matmul_probe(x.data_ptr(), y.data_ptr(),
+                                   None if y_ws is None else y_ws.data_ptr(),
+                                   out.data_ptr(), m, k, n, list(MODES).index(mode),
+                                   tile, stream)
     _build.check(rc, f"probe_matmul ({mode}, tile {TILES[tile]})")
     probe_matmul.launches += 1
     return out
@@ -95,14 +106,14 @@ def _launch(x, y, mode: str, tile: int) -> torch.Tensor:
 def probe_matmul(x: torch.Tensor, y: torch.Tensor,
                  block: Optional[Sequence[int]] = None) -> torch.Tensor:
     """x (M, K) . y (K, N), both row-major: bfloat16 pairs give bfloat16
-    (float32 accumulator), int8 pairs give int32. M, K and N must be
-    multiples of the tile `block` = (bm, bk, bn), one of TILES."""
+    (float32 accumulator), int8 pairs give int32. M and N must be multiples
+    of the tile `block` = (bm, bn), one of TILES, and K of BK[mode]."""
     mode = _mode_of(x, y)
     tile = tile_index(block)
     if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} are not "
                          "(M, K) and (K, N)")
-    _check_sizes(x.shape[0], x.shape[1], y.shape[1], tile)
+    _check_sizes(x.shape[0], x.shape[1], y.shape[1], tile, mode)
     if x.device.type == "cpu" and y.device.type == "cpu":
         return reference_matmul(x, y)
     return _launch(x, y, mode, tile)
@@ -118,7 +129,7 @@ def make_probe_matmul(m: int, k: int, n: int, mode: str,
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {tuple(MODES)}")
     tile = tile_index(block)
-    _check_sizes(m, k, n, tile)
+    _check_sizes(m, k, n, tile, mode)
 
     def mm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         if (tuple(x.shape), tuple(y.shape)) != ((m, k), (k, n)) or _mode_of(x, y) != mode:

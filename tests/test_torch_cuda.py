@@ -11,7 +11,14 @@ one, and without jax, run them with
 import pytest
 import torch
 
-from h36x_torch.ops.bottleneck import fused_bottleneck, reference_bottleneck
+from h36x_torch.ops.bottleneck import (
+    ROUTES,
+    bottleneck_route,
+    fused_bottleneck,
+    launch_on_route,
+    prepare_bottleneck,
+    reference_bottleneck,
+)
 from h36x_torch.ops.matmul_probe import (
     TILES,
     make_probe_matmul,
@@ -362,6 +369,93 @@ def test_bottleneck_refused_launch_raises_and_leaves_no_error(dev):
     torch.testing.assert_close(got, reference_bottleneck(x, folded, 4, 4), **TOL)
 
 
+# the 13 stride-1 blocks' shapes (side, C_in, C_mid, C_out), projection first
+STAGE_SHAPES = [(56, 64, 64, 256), (56, 256, 64, 256), (28, 512, 128, 512),
+                (14, 1024, 256, 1024), (7, 2048, 512, 2048)]
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("side, c_in, c_mid, c_out", STAGE_SHAPES)
+def test_bottleneck_hopper_route_matches_plain(dev, n, side, c_in, c_mid, c_out):
+    """The TMA + wgmma route at every stage shape, N 1 and 2: M = N*side^2
+    is no multiple of the 128-row tile at 7x7 and 14x14 (ragged M filled
+    with zeros by TMA and by the 3x3's copies), by relative norm in bf16."""
+    folded = _folded(c_in, c_mid, c_out)
+    g = torch.Generator().manual_seed(2)
+    x = torch.relu(torch.randn(n, side * side, c_in, generator=g)).to(dev, torch.bfloat16)
+    assert bottleneck_route(x.dtype, c_in, c_mid, c_out) == "hopper"
+    before = dict(fused_bottleneck.launches_by_route)
+    got = fused_bottleneck(x, folded, side, side)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launches_by_route["hopper"] == before["hopper"] + 1
+    assert fused_bottleneck.launches_by_route["general"] == before["general"]
+    want = reference_bottleneck(x, folded, side, side)
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    assert rel <= BF16_REL_NORM, rel
+
+
+@pytest.mark.parametrize("dtype, c_in, c_mid, c_out", [
+    (torch.float32, 64, 64, 256),   # float32: the fp32-accuracy mode
+    (torch.bfloat16, 20, 12, 36),   # widths no multiple of 64
+    (torch.bfloat16, 64, 16, 64),
+])
+def test_bottleneck_general_route_takes_the_rest(dev, dtype, c_in, c_mid, c_out):
+    folded = _folded(c_in, c_mid, c_out)
+    g = torch.Generator().manual_seed(3)
+    x = torch.relu(torch.randn(2, 25, c_in, generator=g)).to(dev, dtype)
+    assert bottleneck_route(dtype, c_in, c_mid, c_out) == "general"
+    before = dict(fused_bottleneck.launches_by_route)
+    got = fused_bottleneck(x, folded, 5, 5)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launches_by_route["general"] == before["general"] + 1
+    assert fused_bottleneck.launches_by_route["hopper"] == before["hopper"]
+    want = reference_bottleneck(x, folded, 5, 5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        rel = float((got.float() - want.float()).norm() / want.float().norm())
+        assert rel <= BF16_REL_NORM, rel
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_bottleneck_launch_on_route_is_uncounted(dev, route):
+    """Both routes take bfloat16 at widths that are multiples of 64, so the
+    script can time one against the other; neither launch is counted."""
+    folded = _folded(64, 64, 256)
+    p = prepare_bottleneck(folded, torch.bfloat16, dev)
+    x = torch.relu(torch.randn(2, 49, 64, device=dev)).bfloat16()
+    before = (fused_bottleneck.launches, dict(fused_bottleneck.launches_by_route))
+    got = launch_on_route(x, p, 7, 7, route)
+    torch.cuda.synchronize()
+    assert (fused_bottleneck.launches, fused_bottleneck.launches_by_route) == before
+    want = reference_bottleneck(x, p, 7, 7)
+    assert float((got.float() - want.float()).norm() / want.float().norm()) <= BF16_REL_NORM
+
+
+def test_bottleneck_hopper_refused_launch_raises_and_leaves_no_error(dev):
+    folded = _folded(64, 64, 64)
+    x = torch.randn(0, 16, 64, device=dev, dtype=torch.bfloat16)  # no rows
+    before = dict(fused_bottleneck.launches_by_route)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_bottleneck(x, folded, 4, 4)
+    assert fused_bottleneck.launches_by_route == before
+    x = torch.relu(torch.randn(2, 16, 64, device=dev)).bfloat16()
+    got = fused_bottleneck(x, folded, 4, 4)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launches_by_route["hopper"] == before["hopper"] + 1
+    want = reference_bottleneck(x, folded, 4, 4)
+    assert float((got.float() - want.float()).norm() / want.float().norm()) <= BF16_REL_NORM
+
+
+def test_bottleneck_prepared_weights_load_by_tma_on_the_card(dev):
+    """The Hopper route maps w1, w2_mat and w3p as they lie: contiguous,
+    16-byte aligned, rows a multiple of 16 bytes."""
+    p = prepare_bottleneck(_folded(64, 64, 256), torch.bfloat16, dev)
+    for name in ("w1", "w2_mat", "w3p"):
+        assert p[name].is_contiguous() and p[name].data_ptr() % 16 == 0
+        assert p[name].shape[1] * p[name].element_size() % 16 == 0
+
+
 def test_bottleneck_wrapper_refuses_what_the_kernel_does_not_take(dev):
     folded = _folded(64, 16, 64)
     x = torch.randn(2, 16, 64, device=dev)
@@ -390,9 +484,10 @@ def _probe_inputs(dev, mode, m, k, n, seed=0):
 @pytest.mark.parametrize("mode", ["bf16", "int8"])
 @pytest.mark.parametrize("block", TILES)
 @pytest.mark.parametrize("m, k, n", [
-    (128, 128, 128),    # one tile of every compiled shape, 2 to 4 K steps
+    (128, 128, 256),    # one or two tiles, 1 (int8) or 2 (bf16) K steps
     (256, 1024, 512),   # unequal sizes, many K steps
-    (384, 192, 640),    # tile counts that are no power of two
+    (384, 384, 768),    # tile counts that are no power of two
+    (1536, 256, 3072),  # more tiles than SMs: persistent blocks take a second tile
 ])
 def test_matmul_probe_kernel_matches_plain(dev, mode, block, m, k, n):
     """int8 bit for bit; bf16 by relative norm within one bf16 ulp (the two
@@ -427,7 +522,7 @@ def test_matmul_probe_int8_extremes_are_exact(dev):
 
 
 def test_matmul_probe_wrapper_refuses_what_the_kernel_does_not_take(dev):
-    x, y = _probe_inputs(dev, "bf16", 128, 128, 128)
+    x, y = _probe_inputs(dev, "bf16", 128, 128, 256)
     with pytest.raises(ValueError, match="multiples of the tile"):
         probe_matmul(x[:100], y)
     with pytest.raises(ValueError, match="was not compiled"):
@@ -439,5 +534,5 @@ def test_matmul_probe_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="expected"):
         probe_matmul(x, y.cpu())
     before = probe_matmul.launches
-    assert probe_matmul(x, y).shape == (128, 128)
+    assert probe_matmul(x, y).shape == (128, 256)
     assert probe_matmul.launches == before + 1

@@ -22,6 +22,8 @@ from jax.experimental.pallas import tpu as pltpu
 from benchmarks.int8_pallas_probe import _matmul_kernel
 from h36x_torch.benchmarks import int8_kernel_probe
 from h36x_torch.ops.matmul_probe import (
+    BK,
+    MODES,
     TILES,
     make_probe_matmul,
     probe_matmul,
@@ -78,25 +80,27 @@ def test_reference_matmul_bf16_within_one_ulp_of_the_pallas_kernel():
 
 @pytest.mark.parametrize("mode", ["bf16", "int8"])
 def test_wrapper_runs_the_plain_version_on_cpu_tensors(mode):
-    x, y = int8_kernel_probe.make_inputs(f"kernel_{mode}", 128, 64, 256, "cpu")
+    x, y = int8_kernel_probe.make_inputs(f"kernel_{mode}", 128, 128, 256, "cpu")
     before = probe_matmul.launches
-    got = make_probe_matmul(128, 64, 256, mode)(x, y)
+    got = make_probe_matmul(128, 128, 256, mode)(x, y)
     assert probe_matmul.launches == before  # no kernel was launched
     assert torch.equal(got, reference_matmul(x, y))
     assert got.dtype == (torch.bfloat16 if mode == "bf16" else torch.int32)
 
 
 def test_wrapper_refuses_sizes_tiles_and_types():
-    x = torch.zeros(128, 64, dtype=torch.int8)
-    y = torch.zeros(64, 128, dtype=torch.int8)
+    x = torch.zeros(128, 128, dtype=torch.int8)
+    y = torch.zeros(128, 256, dtype=torch.int8)
     with pytest.raises(ValueError, match="multiples of the tile"):
         probe_matmul(x[:100], y)
     with pytest.raises(ValueError, match="multiples of the tile"):
         make_probe_matmul(4096, 4096, 4000, "int8")
     with pytest.raises(ValueError, match="was not compiled"):
         tile_index((512, 512, 512))
+    with pytest.raises(ValueError, match="was not compiled"):
+        tile_index((128, 64, 128))  # the earlier design's (bm, bk, bn)
     with pytest.raises(ValueError, match="not .M, K. and .K, N."):
-        probe_matmul(x, x)
+        probe_matmul(x, y.t())
     with pytest.raises(TypeError, match="bfloat16 or int8"):
         probe_matmul(x.float(), y.float())
     with pytest.raises(TypeError, match="bfloat16 or int8"):
@@ -104,7 +108,7 @@ def test_wrapper_refuses_sizes_tiles_and_types():
     with pytest.raises(ValueError, match="one of"):
         make_probe_matmul(128, 128, 128, "fp8")
     with pytest.raises(ValueError, match="made for int8"):
-        make_probe_matmul(128, 64, 128, "int8")(x.bfloat16(), y.bfloat16())
+        make_probe_matmul(128, 128, 256, "int8")(x.bfloat16(), y.bfloat16())
     assert [tile_index(t) for t in TILES] == list(range(len(TILES)))
     assert tile_index(None) == 0
 
@@ -113,7 +117,7 @@ def test_probe_entry_point_raises_without_a_gpu():
     """The probe times GPU kernels: no CPU fallback, and a tile that was not
     compiled is refused before anything runs."""
     with pytest.raises(ValueError, match="was not compiled"):
-        int8_kernel_probe.main(["--block", "512", "512", "512"])
+        int8_kernel_probe.main(["--block", "512", "512"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         int8_kernel_probe.main(["--size", "256", "--iters", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -131,3 +135,27 @@ def test_probe_inputs_follow_the_tpu_probe():
     x, y = int8_kernel_probe.make_inputs("library_bf16", 8, 16, 8, "cpu")
     want = np.asarray(jnp.asarray(rng.normal(size=(8, 16)), jnp.bfloat16).astype(jnp.float32))
     np.testing.assert_array_equal(x.float().numpy(), want)
+
+
+def test_tiles_are_the_wgmma_designs():
+    """(bm, bn) with two 64-row consumer warpgroups and BN one wgmma wide;
+    the K step one 128-byte swizzle row of the mode's element."""
+    assert TILES == ((128, 256), (128, 128))
+    assert {mode: BK[mode] * MODES[mode][0].itemsize for mode in MODES} == \
+        {"bf16": 128, "int8": 128}
+    assert tile_index(None) == 0 and tile_index([128, 128]) == 1
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("tile", TILES)
+def test_sizes_that_divide_the_tile_pass_and_others_raise(mode, tile):
+    bm, bn = tile
+    bk = BK[mode]
+    make_probe_matmul(bm, bk, bn, mode, tile)
+    make_probe_matmul(3 * bm, 5 * bk, 2 * bn, mode, tile)
+    for m, k, n in ((bm + 64, bk, bn), (bm, bk + bk // 2, bn), (bm, bk, bn + 64),
+                    (0, bk, bn)):
+        with pytest.raises(ValueError, match="multiples of the tile"):
+            make_probe_matmul(m, k, n, mode, tile)
+    x, y = int8_kernel_probe.make_inputs(f"kernel_{mode}", bm, bk, bn, "cpu")
+    assert torch.equal(probe_matmul(x, y, tile), reference_matmul(x, y))
