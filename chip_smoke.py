@@ -10,13 +10,21 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
    its spills.
 2. Each kernel against its plain PyTorch version on the card (TF32 off), at
    the shapes of both paths and the edge cases, within the stated
-   tolerance: the forward kernels B1 (temporal) and B3 (regressor) against
-   the plain forward, the backward kernels B2 and B4 against autograd of
+   tolerance: the forward kernels B1 (temporal) and B3 (regressor) on both
+   routes of the `precise` switch -- the precise route (FP32) against the
+   float32 plain forward element-wise; the fast route (bf16 weights,
+   activations as bf16 pairs, f32 sums, hopper.cuh's TMA + wgmma GEMM)
+   against its own plain version (which rounds the same operands)
+   element-wise and by relative norm,
+   against the float32 plain forward by relative norm, and two runs bit for
+   bit -- the backward kernels B2 and B4 against autograd of
    the plain forward (B2 at B 32, T 40, D = O 1024 with and without the
    residual and at T 1-4 and B 1; B4 at N 1280 and N 13, with tie-free
    weights and with init-scale weights, whose ReLU masks vary by row and
    round, on rows drawn clear of ReLU ties), element-wise and by relative
-   norm; then each one's time, its plain version's time and its bound. B5,
+   norm; then each one's time, its plain version's time and its bound (B1
+   at B 16 / T 40, B 8 / T 52 strided and B 1 / T 40, B3 at N 640, 1 and
+   200, on both routes, each beside the bound at its route's peak). B5,
    the fused ResNet bottleneck, at the shapes of the 13 stride-1 blocks at
    224 px (the projection block layer1_0 included), at N 1 and at the
    extraction dispatch size (480 frames), in float32 (element-wise) and
@@ -25,8 +33,9 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
    wgmma; float32 and odd widths: the general route), the per-route counts
    checked; timed per shape in bfloat16 at the dispatch size, beside the
    general route's time on the same inputs (the earlier, mma.sync design).
-   B1 also at the rollout's and the stream's shapes (B 8, every T from 40 to 64 as the prefix of a longer
-   buffer, strided and dense; B 1 at T 20 and 40), B3 also at N 1 and N 200.
+   B1 also at the rollout's and the stream's shapes (B 8, every T from 40
+   to 64 as the prefix of a longer buffer, strided and dense, bit for bit
+   on both routes; B 1 at T 20 and 40), B3 also at N 1, 13, 200 and 1280.
    B6, the tiled matmul probe, at 4096^3 and at 256 x 1024 x 512 with every
    compiled tile, int8 bit for bit and bfloat16 by relative norm; its time
    per mode and tile beside torch.matmul's and torch._int_mm's, its bound
@@ -41,11 +50,14 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
    module, by relative norm; each engine's frames/s.
 4. The serving path at full model width: a seeded PHDFor3DJoints is saved
    as a checkpoint, served by the port's BatchingServer on a local socket,
-   and answers 16 concurrent and 3 sequential (40, 2048) requests and a
-   stats query; every reply is held against the plain forward of its row;
-   the counts must show 4 temporal and 1 regressor launches per device
-   batch. phd_forward_fused(predict_future=True) with kernels is held
-   against its plain version too (f_AR and the second regressor pass).
+   precise and then at its default (fast), and answers 16 concurrent and 3
+   sequential (40, 2048) requests and a stats query each time; the precise
+   replies are held against the float32 plain forward of their rows
+   (E2E_TOL), the fast ones by relative norm against the fast plain
+   forward and the float32 one; the counts must show 4 temporal and 1
+   regressor launches per device batch. phd_forward_fused(predict_future=
+   True) with kernels is held against its plain version too (f_AR and the
+   second regressor pass), in both modes.
 5. The training path: a full-width 128-clip store (T 40, feature 2048)
    written with the port's ShardWriter, trained for 2 epochs by
    h36x_torch.cli.train.main with --optim.fused true --model.dropout 0 at
@@ -65,12 +77,20 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
 7. The prediction path at full width, on a store that write_store makes
    and a seeded checkpoint: h36x_torch.cli.predict.main in its three modes
    (batch rollout of 8 clips x 25 steps; --streaming --freeze with a
-   25-step forecast; --forecast 0), each NPZ held against the same call with
-   the plain engines (future frames included), with exact launch counts: a
-   rollout 4 + 150 B1 and 2 B3, an exact push 4 B1 + 1 B3, a frozen push
-   1 B3, a forecast 4 + 150 B1 and 1 B3. Then ms per rollout and per push
-   (exact and frozen, medians), evaluate_test over the store (against the
-   plain eval) and dump_debug_batch. h36x_torch.cli.results as a whole
+   25-step forecast; --forecast 0), precise (each NPZ held against the same
+   call with the plain engines at E2E_TOL, future frames included) and at
+   its default, fast (by relative norm against the plain engines in fast
+   mode and in float32), with exact launch counts: a rollout 4 + 150 B1
+   and 2 B3, an exact push 4 B1 + 1 B3, the first frozen push 1 B3 (eager,
+   before the capture), every later one none through the wrappers (one
+   replay of the captured step: the predictor's `replays` counts it, and a
+   profiler trace of replays shows exactly B3's kernels once a push and no
+   B1 kernel), a forecast 4 + 150 B1 and 1 B3. Then one predictor
+   by hand per mode (exact pushes, a forecast, the freeze, frozen pushes, a
+   forecast) against the plain engines, and ms per rollout and per push
+   (exact and frozen, medians; the frozen push must be the faster) and per
+   forecast on both routes, evaluate_test over the store (precise, against
+   the plain eval) and dump_debug_batch. h36x_torch.cli.results as a whole
    re-decodes mp4 clips, for which that machine has no OpenCV: its whole run
    is the CPU test's (tests/test_torch_results.py).
 8. The matmul probe's own entry point, h36x_torch.benchmarks.
@@ -102,6 +122,19 @@ PEAK_INT8_OPS = 1979e12  # H100 SXM int8 dense tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth (data sheet)
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)  # FP32 both sides; sums reordered
 E2E_TOL = dict(rtol=1e-3, atol=1e-4)  # full forward (tests/test_pallas.py)
+# The fast routes (precise=False: bf16 weights, activations as bf16 pairs,
+# f32 sums). A fast kernel against its fast plain version, which rounds the
+# same operands: element-wise FAST_TOL and by relative norm FAST_REL_NORM;
+# against the float32 plain version by relative norm F32_REL_NORM (bf16
+# weights: about 2^-9 relative each)
+FAST_TOL = dict(rtol=1e-3, atol=1e-4)
+FAST_REL_NORM = 1e-4
+F32_REL_NORM = 2.0 ** -8
+# a path in fast mode against the same call with the plain engines in the
+# same mode, and against the float32 plain path (the error of bf16 weights
+# compounded over the blocks, the regressor's rounds and a rollout's steps)
+PATH_REL_NORM = 1e-3
+PATH_F32_REL_NORM = 2.0 ** -6
 GRAD_TOL = dict(rtol=1e-3, atol=1e-4)  # gradients (tests/test_pallas.py)
 # |got - want| / |want| per gradient leaf: two FP32 summation orders of the
 # same function agree to about 1e-6; a gradient that is dropped, misrouted
@@ -161,24 +194,33 @@ def time_ms(fn, reps: int = 20) -> float:
 def launch_ms(fn, launches: int, reps: int = 5):
     """Device ms of each kernel launch of one call of fn, in launch order,
     averaged over `reps` calls: the CUDA kernel events of a torch.profiler
-    trace (CUPTI). A trace that lost an event is taken again (at most 3
-    times); raises if none held launches * reps kernels."""
+    trace (CUPTI). One more call runs first inside the trace, where a first
+    kernel the trace misses is lost; the last launches * reps events are
+    read, and must repeat the call's kernels in order. A trace that fails
+    this is taken again (at most 3 times), then it raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    want = launches * reps
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                          key=lambda e: e.time_range.start)
-        if len(kernels) == launches * reps:
-            return [sum(e.time_range.elapsed_us() for e in kernels[i::launches]) / reps / 1e3
+        timed = kernels[-want:]
+        names = [e.name for e in timed]
+        if (len(kernels) >= want + launches - 1
+                and all(n == names[i % launches] for i, n in enumerate(names))):
+            return [sum(e.time_range.elapsed_us() for e in timed[i::launches]) / reps / 1e3
                     for i in range(launches)]
-        log({"check": "launch_ms", "kernel_events": len(kernels), "want": launches * reps})
+        log({"check": "launch_ms", "kernel_events": len(kernels),
+             "want": want + launches})
     raise AssertionError(f"the profiler gave no trace of {launches} x {reps} kernels")
 
 
@@ -220,137 +262,267 @@ def uniform(shape, fan_in, g, device):
     return (torch.rand(shape, generator=g) * 2 * b - b).to(device)
 
 
+def check_fast(name, got, again, want_fast, want_f32, quiet=False) -> float:
+    """A fast route (precise=False) at one shape: two runs equal bit for bit
+    (no atomics, no order that depends on the blocks' timing), within
+    FAST_TOL and FAST_REL_NORM of
+    its fast plain version, and within F32_REL_NORM of the float32 plain
+    version by relative norm. Logs unless `quiet` (then only on failure);
+    returns the max abs error against the fast plain version."""
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two runs of the fast route differ")
+    err = float((got - want_fast).abs().max())
+    rn, rn32 = rel_norm(got, want_fast), rel_norm(got, want_f32)
+    ok = (bool(torch.isfinite(got).all()) and torch.allclose(got, want_fast, **FAST_TOL)
+          and rn <= FAST_REL_NORM and rn32 <= F32_REL_NORM)
+    if not quiet or not ok:
+        log({"check": f"{name} fast", "shape": list(got.shape), "max_abs_err": err,
+             "rel_norm_err": rn, "rel_norm_err_vs_f32": rn32, "tol": FAST_TOL,
+             "rel_norm_tol": FAST_REL_NORM, "f32_rel_norm_tol": F32_REL_NORM,
+             "run_to_run": "equal"})
+    if not ok:
+        raise AssertionError(f"{name}: the fast route disagrees with its plain version")
+    return err
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Host ms to issue one call of fn (no synchronisation inside the timed
+    calls): what a call costs the CPU, against its device time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def time_routes(kernel, plain, work, cuda_launches) -> dict:
+    """Each route's kernel and plain times (kernel(precise), plain(precise)),
+    its bound at its own peak (bf16 for the fast route, FP32 for the
+    precise one) from work = (FLOPs, bytes per route, the fast route's
+    issued FLOPs), the fast route's bound at the FLOPs it issues
+    (`pair_bound_ms`: both halves of each bf16 pair), the kernel's CUDA
+    launches per second of device time, the host ms to issue one call and
+    each CUDA launch's device ms (profiler)."""
+    flops, nbytes, issued = work
+    out = {}
+    for route, precise, peak in (("fast", False, PEAK_BF16_FLOPS),
+                                 ("precise", True, PEAK_F32_FLOPS)):
+        ms = time_ms(lambda: kernel(precise))
+        bound_ms, bound_by = bound(flops, nbytes[route], peak)
+        per_launch = launch_ms(lambda: kernel(precise), cuda_launches[route])
+        out[route] = {"ms": ms, "plain_ms": time_ms(lambda: plain(precise)),
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "cuda_launches_per_call": cuda_launches[route],
+                      "launches_per_s": cuda_launches[route] / ms * 1e3,
+                      "host_ms": host_ms(lambda: kernel(precise)),
+                      "launch_ms": per_launch, "device_ms": sum(per_launch)}
+    out["fast"]["pair_bound_ms"] = bound(issued, nbytes["fast"], PEAK_BF16_FLOPS)[0]
+    return out
+
+
+def temporal_work(b, t, d, o, k, residual):
+    """(FLOPs, bytes per route, the fast route's issued FLOPs) of one B1
+    call: the products once and the normalisation; x, the weights (bf16 on
+    the fast route), the affine and bias read once, the output (and
+    residual) written or read once. The fast route issues the products
+    twice (both halves of the activation's bf16 pair): a cost of its
+    design, not work of the function, so only `pair_bound_ms` counts it."""
+    gemm = 2 * b * t * o * k * d
+    rest = 10 * b * t * d + b * t * o
+    acts = 4 * (b * t * d + 2 * d + o + b * t * o * (2 if residual else 1))
+    return (gemm + rest,
+            {"fast": acts + 2 * k * d * o, "precise": acts + 4 * k * d * o},
+            2 * gemm + rest)
+
+
 def check_temporal(dev, g):
-    from h36x_torch.ops.temporal import fused_gn_relu_cconv, reference_gn_relu_cconv
+    from h36x_torch.ops.temporal import (
+        bf16_kernel,
+        fused_gn_relu_cconv,
+        reference_gn_relu_cconv,
+    )
 
     d = o = 1024
     k, groups = 3, 32
     w = uniform((k, d, o), k * d, g, dev)
+    wb = bf16_kernel(w)
     cb = uniform((o,), k * d, g, dev)
     scale = (1 + 0.1 * torch.randn(d, generator=g)).to(dev)
     bias = (0.1 * torch.randn(d, generator=g)).to(dev)
-    worst = worst_rel = 0.0
+
+    def run(x, res, precise):
+        return fused_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups,
+                                   precise=precise, kernel_bf16=None if precise else wb)
+
+    def plain(x, res, precise):
+        return reference_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups,
+                                       precise=precise)
+
+    worst = worst_rel = fast_worst = 0.0
     for b, t, with_res in ((16, 40, False), (16, 40, True), (32, 40, True),
                            (16, 1, False), (16, 2, True), (16, 3, False),
                            (1, 40, True)):
         x = (2 * torch.randn(b, t, d, generator=g) + 0.5).to(dev)
         res = torch.randn(b, t, o, generator=g).to(dev) if with_res else None
-        got = fused_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups)
-        want = reference_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups)
+        got = run(x, res, True)
+        want = plain(x, res, True)
         rec = compare(f"temporal B={b} T={t} residual={with_res}", got, want,
                       KERNEL_TOL)
         worst = max(worst, rec["max_abs_err"])
         worst_rel = max(worst_rel, rec["max_rel_err"])
-        if (b, t, with_res) == (16, 40, False):
-            flagship = x
+        fast_worst = max(fast_worst, check_fast(
+            f"temporal B={b} T={t} residual={with_res}", run(x, res, False),
+            run(x, res, False), plain(x, res, False), want))
     # the rollout's shapes: the first T rows of each sample of a (8, 65, D)
     # buffer for every T from 40 to 64, x and the residual strided along the
-    # batch, bit for bit the dense call; the stream's: B 1 at T 20 and 40
+    # batch, bit for bit the dense call (both routes); the stream's: B 1 at
+    # T 20 and 40
     x_buf = (2 * torch.randn(8, 65, d, generator=g) + 0.5).to(dev)
     r_buf = torch.randn(8, 65, o, generator=g).to(dev)
-    prefix_worst = 0.0
+    prefix_worst = prefix_fast = 0.0
     for t in range(40, 65):
         x, res = x_buf[:, :t], r_buf[:, :t]
-        got = fused_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups)
-        dense = fused_gn_relu_cconv(x.contiguous(), scale, bias, w, cb,
-                                    res.contiguous(), groups=groups)
-        want = reference_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups)
-        torch.cuda.synchronize()
-        if x.is_contiguous() or not torch.equal(got, dense):
-            raise AssertionError(f"temporal prefix T={t}: strided call differs "
-                                 "from the dense one")
-        if not torch.allclose(got, want, **KERNEL_TOL):
-            compare(f"temporal prefix B=8 T={t} of 65", got, want, KERNEL_TOL)
-        prefix_worst = max(prefix_worst, float((got - want).abs().max()))
+        for precise in (True, False):
+            got = run(x, res, precise)
+            dense = run(x.contiguous(), res.contiguous(), precise)
+            torch.cuda.synchronize()
+            if x.is_contiguous() or not torch.equal(got, dense):
+                raise AssertionError(f"temporal prefix T={t} precise={precise}: "
+                                     "strided call differs from the dense one")
+            if precise:
+                want = plain(x, res, True)
+                if not torch.allclose(got, want, **KERNEL_TOL):
+                    compare(f"temporal prefix B=8 T={t} of 65", got, want, KERNEL_TOL)
+                prefix_worst = max(prefix_worst, float((got - want).abs().max()))
+            else:
+                prefix_fast = max(prefix_fast, check_fast(
+                    f"temporal prefix B=8 T={t} of 65", got, run(x, res, False),
+                    plain(x, res, False), want, quiet=True))
     log({"check": "temporal prefix B=8 T=40..64 of 65, strided = dense, vs plain",
-         "max_abs_err": prefix_worst, "tol": KERNEL_TOL, "ok": True})
+         "max_abs_err": prefix_worst, "tol": KERNEL_TOL,
+         "fast_max_abs_err": prefix_fast, "fast_tol": FAST_TOL,
+         "fast_rel_norm_tol": FAST_REL_NORM, "f32_rel_norm_tol": F32_REL_NORM,
+         "ok": True})
     worst = max(worst, prefix_worst)
+    fast_worst = max(fast_worst, prefix_fast)
     for t in (20, 40):
         x = (2 * torch.randn(1, t, d, generator=g) + 0.5).to(dev)
-        got = fused_gn_relu_cconv(x, scale, bias, w, cb, x, groups=groups)
-        want = reference_gn_relu_cconv(x, scale, bias, w, cb, x, groups=groups)
-        worst = max(worst, compare(f"temporal B=1 T={t} residual=True", got, want,
-                                   KERNEL_TOL)["max_abs_err"])
+        want = plain(x, x, True)
+        worst = max(worst, compare(f"temporal B=1 T={t} residual=True", run(x, x, True),
+                                   want, KERNEL_TOL)["max_abs_err"])
+        fast_worst = max(fast_worst, check_fast(
+            f"temporal B=1 T={t} residual=True", run(x, x, False), run(x, x, False),
+            plain(x, x, False), want))
+    # times on both routes: the serving shape, the rollout's strided B 8 at T
+    # 52, one exact push's B 1 at T 40
+    x16 = (2 * torch.randn(16, 40, d, generator=g) + 0.5).to(dev)
     x52 = x_buf[:, :52]
-    rollout_ms = time_ms(lambda: fused_gn_relu_cconv(x52, scale, bias, w, cb,
-                                                     groups=groups))
-    rollout_plain_ms = time_ms(lambda: reference_gn_relu_cconv(x52, scale, bias, w, cb,
-                                                               groups=groups))
-    stream_ms = time_ms(lambda: fused_gn_relu_cconv(x, scale, bias, w, cb, groups=groups))
-    stream_plain_ms = time_ms(lambda: reference_gn_relu_cconv(x, scale, bias, w, cb,
-                                                              groups=groups))
-    x = flagship
-    b, t, _ = x.shape
-    ms = time_ms(lambda: fused_gn_relu_cconv(x, scale, bias, w, cb, groups=groups))
-    plain_ms = time_ms(lambda: reference_gn_relu_cconv(x, scale, bias, w, cb,
-                                                       groups=groups))
-    flops = 2 * b * t * o * k * d + 10 * b * t * d + b * t * o
-    nbytes = 4 * (b * t * d + 2 * d + k * d * o + o + b * t * o)
-    bound_ms, bound_by = bound(flops, nbytes)
-    # the training shape (batch 32) too
-    x = (2 * torch.randn(32, t, d, generator=g) + 0.5).to(dev)
-    train_ms = time_ms(lambda: fused_gn_relu_cconv(x, scale, bias, w, cb, groups=groups))
-    train_plain_ms = time_ms(lambda: reference_gn_relu_cconv(x, scale, bias, w, cb,
-                                                             groups=groups))
+    x1 = (2 * torch.randn(1, 40, d, generator=g) + 0.5).to(dev)
+    timed = {}
+    for key, x in (("B16_T40", x16), ("B8_T52_strided", x52), ("B1_T40", x1)):
+        b, t, _ = x.shape
+        timed[key] = time_routes(lambda precise: run(x, None, precise),
+                                 lambda precise: plain(x, None, precise),
+                                 temporal_work(b, t, d, o, k, False),
+                                 {"fast": 2, "precise": 2})
+    log({"check": "temporal timing", "card": torch.cuda.get_device_name(0), **timed})
+    # the training shape (batch 32) too, on the route that trains
+    x = (2 * torch.randn(32, 40, d, generator=g) + 0.5).to(dev)
+    train_ms = time_ms(lambda: run(x, None, True))
+    train_plain_ms = time_ms(lambda: plain(x, None, True))
+    head = timed["B16_T40"]["fast"]
     return {"name": "gn_relu_cconv", "route": "cuda",
-            "ms_train_shape": train_ms, "plain_ms_train_shape": train_plain_ms,
-            "ms_rollout_shape_B8_T52_strided": rollout_ms,
-            "plain_ms_rollout_shape_B8_T52_strided": rollout_plain_ms,
-            "ms_stream_shape_B1_T40": stream_ms,
-            "plain_ms_stream_shape_B1_T40": stream_plain_ms,
+            "ms_train_shape_precise": train_ms,
+            "plain_ms_train_shape_precise": train_plain_ms,
+            "routes": timed,
             "source": "h36x_torch/ops/csrc/temporal.cu",
             "replaces": "h36x/ops/pallas_temporal.py:42",
-            "max_abs_err": worst,
-            "max_rel_err": worst_rel, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": f"B={b} T={t} D={d} O={o} K={k} G={groups}",
-            "tol": KERNEL_TOL}
+            "max_abs_err": max(worst, fast_worst), "max_abs_err_precise": worst,
+            "max_abs_err_fast": fast_worst,
+            "max_rel_err": worst_rel, "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None,
+            "shape": f"B=16 T=40 D={d} O={o} K={k} G={groups}, fast route",
+            "tol": KERNEL_TOL, "fast_tol": FAST_TOL}
+
+
+def regressor_work(n, d, h, p, iters):
+    """(FLOPs, bytes per route, the fast route's issued FLOPs) of one B3
+    call: the products once and the elementwise work; phi, the weights
+    (bf16 on the fast route) and biases read once, y written once. The fast
+    route issues the products twice (both halves of each activation's bf16
+    pair), which only `pair_bound_ms` counts."""
+    gemm = 2 * n * d * h + iters * (2 * n * p * h + 2 * n * h * h + 2 * n * h * p)
+    rest = iters * (4 * n * h + 2 * n * p)
+    acts = 4 * (n * d + h + h + p + n * p)
+    weights = (d + p) * h + h * h + h * p
+    return (gemm + rest,
+            {"fast": acts + 2 * weights, "precise": acts + 4 * weights},
+            2 * gemm + rest)
 
 
 def check_regressor(dev, g):
-    from h36x_torch.ops.regressor import _reference_forward, fused_joint_regressor
+    from h36x_torch.ops.regressor import (
+        _reference_forward,
+        bf16_weights,
+        fused_joint_regressor,
+    )
 
     d = h = 1024
     p, iters = 51, 3
     ws = (uniform((d + p, h), d + p, g, dev), uniform((h,), d + p, g, dev),
           uniform((h, h), h, g, dev), uniform((h,), h, g, dev),
           uniform((h, p), h, g, dev), uniform((p,), h, g, dev))
-    worst = worst_rel = 0.0
+    wb = bf16_weights(ws[0], ws[2], ws[4])
+
+    def run(phi, precise):
+        return fused_joint_regressor(phi, *ws, iters, p, precise=precise,
+                                     weights_bf16=None if precise else wb)
+
+    def plain(phi, precise):
+        return _reference_forward(phi, *ws, iters, p, precise)
+
+    worst = worst_rel = fast_worst = 0.0
     # 640 and 1280: serving and training; 13: a ragged tile; 1: one streamed
     # frame; 200: the 8 x 25 future strips of a rollout
+    phis = {}
     for n in (640, 1280, 13, 1, 200):
-        phi = torch.randn(n, d, generator=g).to(dev)
-        got = fused_joint_regressor(phi, *ws, iters, p)
-        want = _reference_forward(phi, *ws, iters, p)
-        rec = compare(f"regressor N={n}", got, want, KERNEL_TOL)
+        phi = phis[n] = torch.randn(n, d, generator=g).to(dev)
+        want = plain(phi, True)
+        rec = compare(f"regressor N={n}", run(phi, True), want, KERNEL_TOL)
         worst = max(worst, rec["max_abs_err"])
         worst_rel = max(worst_rel, rec["max_rel_err"])
-        if n == 640:
-            flagship = phi
-    n = flagship.shape[0]
-    ms = time_ms(lambda: fused_joint_regressor(flagship, *ws, iters, p))
-    plain_ms = time_ms(lambda: _reference_forward(flagship, *ws, iters, p))
-    flops = 2 * n * d * h + iters * (2 * n * p * h + 2 * n * h * h
-                                     + 2 * n * h * p + 4 * n * h + 2 * n * p)
-    nbytes = 4 * (n * d + (d + p) * h + h + h * h + h + h * p + p + n * p)
-    bound_ms, bound_by = bound(flops, nbytes)
-    # the training shape (N = 32 * 40) too
-    phi = torch.randn(1280, d, generator=g).to(dev)
-    train_ms = time_ms(lambda: fused_joint_regressor(phi, *ws, iters, p))
-    train_plain_ms = time_ms(lambda: _reference_forward(phi, *ws, iters, p))
-    phi1 = torch.randn(1, d, generator=g).to(dev)
-    stream_ms = time_ms(lambda: fused_joint_regressor(phi1, *ws, iters, p))
-    stream_plain_ms = time_ms(lambda: _reference_forward(phi1, *ws, iters, p))
+        fast_worst = max(fast_worst, check_fast(
+            f"regressor N={n}", run(phi, False), run(phi, False), plain(phi, False),
+            want))
+    timed = {}
+    for n in (640, 1, 200):
+        timed[f"N{n}"] = time_routes(lambda precise: run(phis[n], precise),
+                                     lambda precise: plain(phis[n], precise),
+                                     regressor_work(n, d, h, p, iters),
+                                     {"fast": 2, "precise": 1})
+    log({"check": "regressor timing", "card": torch.cuda.get_device_name(0), **timed})
+    # the training shape (N = 32 * 40) too, on the route that trains
+    train_ms = time_ms(lambda: run(phis[1280], True))
+    train_plain_ms = time_ms(lambda: plain(phis[1280], True))
+    head = timed["N640"]["fast"]
     return {"name": "joint_regressor", "route": "cuda",
-            "ms_train_shape": train_ms, "plain_ms_train_shape": train_plain_ms,
-            "ms_stream_shape_N1": stream_ms, "plain_ms_stream_shape_N1": stream_plain_ms,
+            "ms_train_shape_precise": train_ms,
+            "plain_ms_train_shape_precise": train_plain_ms,
+            "routes": timed,
             "source": "h36x_torch/ops/csrc/regressor.cu",
             "replaces": "h36x/ops/pallas_regressor.py:39",
-            "max_abs_err": worst,
-            "max_rel_err": worst_rel, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": f"N={n} D={d} H={h} P={p} iters={iters}",
-            "tol": KERNEL_TOL}
+            "max_abs_err": max(worst, fast_worst), "max_abs_err_precise": worst,
+            "max_abs_err_fast": fast_worst,
+            "max_rel_err": worst_rel, "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None,
+            "shape": f"N=640 D={d} H={h} P={p} iters={iters}, fast route",
+            "tol": KERNEL_TOL, "fast_tol": FAST_TOL}
 
 
 def grads(fn, leaves, gout, **kw):
@@ -392,7 +564,7 @@ def check_temporal_bwd(dev, g):
         gout = torch.randn(b, t, o, generator=g).to(dev)
         leaves = [None if v is None else v.clone().requires_grad_()
                   for v in (x, scale, bias, w, cb, res)]
-        got = grads(fused_gn_relu_cconv, leaves, gout, groups=groups)
+        got = grads(fused_gn_relu_cconv, leaves, gout, groups=groups, precise=True)
         want = grads(reference_gn_relu_cconv, leaves, gout, groups=groups)
         for name, a, ref in zip(names, got, want):
             rec = compare(f"temporal bwd B={b} T={t} residual={with_res} {name}",
@@ -402,7 +574,7 @@ def check_temporal_bwd(dev, g):
     b, t = 32, 40
     x = (2 * torch.randn(b, t, d, generator=g) + 0.5).to(dev)
     gout = torch.randn(b, t, o, generator=g).to(dev)
-    _, mean, rstd = _launch_forward(x, scale, bias, w, cb, None, groups, 1e-5)
+    _, mean, rstd = _launch_forward(x, scale, bias, w, cb, None, groups, 1e-5, True, None)
     ms = time_ms(lambda: gn_relu_cconv_bwd(x, scale, bias, w, gout, mean, rstd,
                                            groups))
     leaves = [v.clone().requires_grad_() for v in (x, scale, bias, w, cb)]
@@ -526,7 +698,8 @@ def check_regressor_bwd(dev, g):
                  **mask_variety(phi, ws, iters, p)})
             gout = torch.randn(n, p, generator=g).to(dev)
             leaves = [v.clone().requires_grad_() for v in (phi, *ws)]
-            got = grads(fused_joint_regressor, leaves, gout, iters=iters, out_dim=p)
+            got = grads(fused_joint_regressor, leaves, gout, iters=iters, out_dim=p,
+                        precise=True)
             want = grads(_reference_forward, leaves, gout, iters=iters, out_dim=p)
             for name, a, ref in zip(names, got, want):
                 rec = compare(f"regressor bwd {label} N={n} {name}", a, ref, KERNEL_TOL,
@@ -577,9 +750,30 @@ async def drive_daemon(server, feats_conc, feats_seq, sock_dir):
     return conc + seq, stats
 
 
+def path_rel_norms(name, got, plain_same_mode, plain_f32) -> dict:
+    """A path in fast mode: within PATH_REL_NORM of the same call with the
+    plain engines in the same mode and within PATH_F32_REL_NORM of the
+    float32 plain path, by relative norm; both readings logged."""
+    rec = {"check": f"{name} fast vs plain", "rel_norm_err": rel_norm(got, plain_same_mode),
+           "rel_norm_tol": PATH_REL_NORM, "rel_norm_err_vs_f32": rel_norm(got, plain_f32),
+           "f32_rel_norm_tol": PATH_F32_REL_NORM,
+           "finite": bool(torch.isfinite(got).all())}
+    log(rec)
+    if not (rec["finite"] and rec["rel_norm_err"] <= PATH_REL_NORM
+            and rec["rel_norm_err_vs_f32"] <= PATH_F32_REL_NORM):
+        raise AssertionError(f"{name}: the fast path disagrees with the plain engines")
+    return rec
+
+
 def drive_main_path(dev, g, sock_dir):
+    """The daemon, served twice from one checkpoint: precise (its replies
+    held to the float32 plain forward at E2E_TOL, the check of the FP32
+    port) and at its default, fast (by relative norm against the fast plain
+    forward and the float32 one); each run with the counts set to 0 just
+    before it and read just after. Then phd_forward_fused with f_AR and the
+    second regressor pass, both modes."""
     from h36x_torch.config import SEQ_LEN, ModelConfig
-    from h36x_torch.infer import make_fused_forward, phd_forward_fused
+    from h36x_torch.infer import make_fused_forward, phd_forward_fused, serving_params
     from h36x_torch.models.phd import PHDFor3DJoints, param_tree
     from h36x_torch.ops.regressor import fused_joint_regressor
     from h36x_torch.ops.temporal import fused_gn_relu_cconv
@@ -587,66 +781,90 @@ def drive_main_path(dev, g, sock_dir):
     from h36x_torch.train.checkpoint import save_params
 
     mc = ModelConfig()
-    t0 = time.perf_counter()
     model = PHDFor3DJoints(generator=torch.Generator().manual_seed(0), device="cpu")
     path = save_params(sock_dir, "best", model.state_dict(),
                        config={"model": dataclasses.asdict(mc),
                                "data": {"seq_len": SEQ_LEN}})
-    predict_fn = build_predict_fn(model_path=str(path), max_batch=16, warm=True)
-    log({"phase": "daemon_ready", "seconds": time.perf_counter() - t0,
-         "checkpoint_bytes": os.path.getsize(path)})
-    server = BatchingServer(predict_fn, seq_len=SEQ_LEN,
-                            feature_dim=mc.feature_dim, max_batch=16,
-                            max_wait_ms=5.0)
     feats = torch.randn(19, SEQ_LEN, mc.feature_dim, generator=g).numpy()
+    params = param_tree(PHDFor3DJoints(generator=torch.Generator().manual_seed(0),
+                                       device=dev))
+    total = dict.fromkeys(counted(), 0)
+    for precise in (True, False):
+        mode = "precise" if precise else "fast"
+        t0 = time.perf_counter()
+        predict_fn = build_predict_fn(model_path=str(path), max_batch=16, warm=True,
+                                      precise=precise)
+        log({"phase": f"daemon_ready {mode}", "seconds": time.perf_counter() - t0,
+             "checkpoint_bytes": os.path.getsize(path)})
+        server = BatchingServer(predict_fn, seq_len=SEQ_LEN,
+                                feature_dim=mc.feature_dim, max_batch=16,
+                                max_wait_ms=5.0)
+        zero_counts()
+        replies, stats = asyncio.run(drive_daemon(server, list(feats[:16]),
+                                                  list(feats[16:]), sock_dir))
+        launches = read_counts()
 
-    zero_counts()
-    replies, stats = asyncio.run(drive_daemon(server, list(feats[:16]),
-                                              list(feats[16:]), sock_dir))
-    launches = read_counts()
+        batches = stats["batches"]
+        log({"phase": f"daemon {mode}", "requests": stats["requests"], "batches": batches,
+             "rows": stats["rows"], "launches": launches,
+             "request_ms_p50": stats["request_ms"]["p50"],
+             "request_ms_p99": stats["request_ms"]["p99"],
+             "device_ms_p50": stats["batch_device_ms"]["p50"],
+             "device_ms_p99": stats["batch_device_ms"]["p99"]})
+        if stats["requests"] != 19 or stats["rows"] != 19:
+            raise AssertionError(f"daemon served {stats['requests']} requests, "
+                                 f"{stats['rows']} rows; sent 19")
+        want_launches = expect_counts(gn_relu_cconv=2 * mc.num_blocks * batches,
+                                      joint_regressor=batches)
+        if launches != want_launches:
+            raise AssertionError(f"launch counts {launches} != {want_launches} "
+                                 f"for {batches} device batches")
+        for k, v in launches.items():
+            total[k] += v
 
-    batches = stats["batches"]
-    log({"phase": "daemon", "requests": stats["requests"], "batches": batches,
-         "rows": stats["rows"], "launches": launches,
-         "request_ms_p50": stats["request_ms"]["p50"],
-         "request_ms_p99": stats["request_ms"]["p99"],
-         "device_ms_p50": stats["batch_device_ms"]["p50"],
-         "device_ms_p99": stats["batch_device_ms"]["p99"]})
-    if stats["requests"] != 19 or stats["rows"] != 19:
-        raise AssertionError(f"daemon served {stats['requests']} requests, "
-                             f"{stats['rows']} rows; sent 19")
-    want_launches = expect_counts(gn_relu_cconv=2 * mc.num_blocks * batches,
-                                  joint_regressor=batches)
-    if launches != want_launches:
-        raise AssertionError(f"launch counts {launches} != {want_launches} "
-                             f"for {batches} device batches")
-
-    model.to(dev)
-    params = param_tree(model)
-    plain = make_fused_forward(use_kernels=False)
-    for i, reply in enumerate(replies):
-        want = plain(params, torch.from_numpy(feats[i:i + 1]).to(dev))[0]
-        got = torch.from_numpy(np.array(reply)).to(dev)
+        f32 = make_fused_forward(params, use_kernels=False, precise=True)
+        same = make_fused_forward(params, use_kernels=False, precise=precise)
+        got = torch.from_numpy(np.stack([np.array(r) for r in replies])).to(dev)
+        want = torch.cat([f32(torch.from_numpy(feats[i:i + 1]).to(dev))
+                          for i in range(len(replies))])
         if got.shape != want.shape:
-            raise AssertionError(f"reply {i}: shape {tuple(got.shape)}")
-        if not (torch.isfinite(got).all() and torch.allclose(got, want, **E2E_TOL)):
-            compare(f"daemon reply {i}", got, want, E2E_TOL)
-    log({"check": "daemon replies vs plain forward", "replies": len(replies),
-         "tol": E2E_TOL, "ok": True})
+            raise AssertionError(f"daemon replies: shape {tuple(got.shape)}")
+        if precise:
+            for i in range(len(replies)):
+                if not (torch.isfinite(got[i]).all()
+                        and torch.allclose(got[i], want[i], **E2E_TOL)):
+                    compare(f"daemon reply {i}", got[i], want[i], E2E_TOL)
+            log({"check": "daemon replies vs plain forward", "replies": len(replies),
+                 "tol": E2E_TOL, "ok": True})
+        else:
+            plain = torch.cat([same(torch.from_numpy(feats[i:i + 1]).to(dev))
+                               for i in range(len(replies))])
+            path_rel_norms("daemon replies", got, plain, want)
 
-    # phd_forward_fused with f_AR and the second regressor pass
+    # phd_forward_fused with f_AR and the second regressor pass, over the
+    # tree an engine serves from (the fast mode's weight copies made once)
     x = torch.from_numpy(feats[:16]).to(dev)
-    before = (fused_gn_relu_cconv.launches, fused_joint_regressor.launches)
+    names = ("phi", "phi_hat", "joints_phi", "joints_hat")
     with torch.inference_mode():
-        got = phd_forward_fused(params, x, predict_future=True)
-        want = phd_forward_fused(params, x, predict_future=True, use_kernels=False)
-    for name, a, b in zip(("phi", "phi_hat", "joints_phi", "joints_hat"), got, want):
-        compare(f"phd_forward_fused {name}", a, b, E2E_TOL)
-    grown = (fused_gn_relu_cconv.launches - before[0],
-             fused_joint_regressor.launches - before[1])
-    if grown != (2 * (mc.num_blocks + mc.ar_num_blocks), 2):
-        raise AssertionError(f"phd_forward_fused launched {grown}")
-    return launches
+        f32 = phd_forward_fused(params, x, predict_future=True, use_kernels=False,
+                                precise=True)
+    for precise in (True, False):
+        before = (fused_gn_relu_cconv.launches, fused_joint_regressor.launches)
+        with torch.inference_mode():
+            got = phd_forward_fused(serving_params(params, precise=precise), x,
+                                    predict_future=True, precise=precise)
+            plain = phd_forward_fused(params, x, predict_future=True, use_kernels=False,
+                                      precise=precise)
+        for name, a, b, c in zip(names, got, plain, f32):
+            if precise:
+                compare(f"phd_forward_fused {name}", a, b, E2E_TOL)
+            else:
+                path_rel_norms(f"phd_forward_fused {name}", a, b, c)
+        grown = (fused_gn_relu_cconv.launches - before[0],
+                 fused_joint_regressor.launches - before[1])
+        if grown != (2 * (mc.num_blocks + mc.ar_num_blocks), 2):
+            raise AssertionError(f"phd_forward_fused launched {grown}")
+    return total
 
 
 def counted() -> dict:
@@ -946,19 +1164,26 @@ def drive_probe_path():
     return launches
 
 
-def npz_against_plain(name, got, want, fields):
-    """A kernel run's NPZ payload against the plain engines' on the same
-    call: the same fields, the ground truth equal, predictions (future
-    frames included) finite and within E2E_TOL."""
+def npz_fields(name, got, want, fields):
+    """Two NPZ payloads of one call: the same fields, the ground truth
+    equal, predictions of the expected shapes."""
     if set(got) != set(want) or set(got) != {"joints3d", "meta", *fields}:
         raise AssertionError(f"{name}: fields {sorted(got)} vs {sorted(want)}")
     if not np.array_equal(got["joints3d"], want["joints3d"]):
         raise AssertionError(f"{name}: joints3d differ")
-    out = {}
     for field, shape in fields.items():
+        if tuple(got[field].shape) != shape:
+            raise AssertionError(f"{name}: {field} is {got[field].shape}, not {shape}")
+
+
+def npz_against_plain(name, got, want, fields):
+    """A kernel run's NPZ payload against the plain engines' on the same
+    call: the same fields, the ground truth equal, predictions (future
+    frames included) finite and within E2E_TOL."""
+    npz_fields(name, got, want, fields)
+    out = {}
+    for field in fields:
         a, b = torch.from_numpy(got[field]), torch.from_numpy(want[field])
-        if tuple(a.shape) != shape:
-            raise AssertionError(f"{name}: {field} is {tuple(a.shape)}, not {shape}")
         out[field] = compare(f"{name} {field} kernels vs plain engines", a, b,
                              E2E_TOL)["max_abs_err"]
     return out
@@ -966,10 +1191,15 @@ def npz_against_plain(name, got, want, fields):
 
 def drive_predict_path(dev, g, tmp):
     """The prediction path end to end at full width: h36x_torch.cli.predict
-    in its three modes over a store and a seeded checkpoint, each with the
-    counts set to 0 just before it and read just after, and each NPZ held
-    against the same call with the plain engines. Then the per-rollout and
-    per-push times, and the results stage (evaluate_test, dump_debug_batch)."""
+    in its three modes over a store and a seeded checkpoint, each precise
+    (held to the plain engines at E2E_TOL) and at its default, fast (by
+    relative norm against the plain engines in fast mode and in float32),
+    each run with the counts set to 0 just before it and read just after.
+    Then one predictor by hand (exact pushes, a forecast, the freeze, frozen
+    pushes through the captured graph, a forecast after it) in fast mode
+    against the plain engines in both modes, the per-push, per-rollout and
+    per-forecast times on both routes, and the results stage
+    (evaluate_test, dump_debug_batch)."""
     from h36x_torch.cli.predict import main as predict_main
     from h36x_torch.config import SEQ_LEN, ModelConfig
     from h36x_torch.data.features import FeatureClipDataset
@@ -995,12 +1225,14 @@ def drive_predict_path(dev, g, tmp):
                           {"predicted3djoints": joints, "future3djoints": future},
                           expect_counts(gn_relu_cconv=rollout_b1, joint_regressor=2)),
         # per clip: `window` exact pushes (4 B1 + 1 B3), then the freeze, then
-        # t - window frozen pushes (1 B3), then the forecast (4 + 150 B1, 1 B3)
+        # t - window frozen pushes (the first eager, 1 B3; the rest graph
+        # replays, which no wrapper counts), then the forecast (4 + 150 B1,
+        # 1 B3)
         "streaming_freeze": (["--streaming", "--freeze", "--forecast", str(steps)],
                              {"predicted3djoints": joints, "future3djoints": future},
                              expect_counts(
                                  gn_relu_cconv=clips * (window * n_mv + rollout_b1),
-                                 joint_regressor=clips * (t + 1))),
+                                 joint_regressor=clips * (window + 2))),
         "forward": (["--forecast", "0"], {"predicted3djoints": joints},
                     expect_counts(gn_relu_cconv=n_mv, joint_regressor=1)),
     }
@@ -1008,25 +1240,37 @@ def drive_predict_path(dev, g, tmp):
     for name, (flags, fields, want) in runs.items():
         argv = ["--features-root", store, "--model-path", str(ckpt), "--subjects", "5",
                 *flags]
-        zero_counts()
-        t0 = time.perf_counter()
-        got = predict_main([*argv, "--out", os.path.join(tmp, f"{name}.npz")])
-        seconds = time.perf_counter() - t0
-        launches = read_counts()
-        plain = predict_main([*argv, "--out", os.path.join(tmp, f"{name}_plain.npz")],
-                             use_kernels=False)
-        if read_counts() != launches:
-            raise AssertionError(f"predict {name}: the plain engines launched a kernel")
-        errs = npz_against_plain(f"predict {name}", got, plain, fields)
-        saved = np.load(os.path.join(tmp, f"{name}.npz"), allow_pickle=True)
-        if set(saved.files) != set(got) or len(saved["meta"]) != clips:
-            raise AssertionError(f"predict {name}: saved NPZ holds {saved.files}")
-        log({"phase": f"predict {name}", "seconds": seconds, "launches": launches,
-             "max_abs_err_vs_plain": errs})
-        if launches != want:
-            raise AssertionError(f"predict {name}: launches {launches} != {want}")
-        for k, v in launches.items():
-            total[k] += v
+        plain = {}
+        for precise in (True, False):
+            mode = "precise" if precise else "fast"
+            out = os.path.join(tmp, f"{name}_{mode}")
+            zero_counts()
+            t0 = time.perf_counter()
+            got = predict_main([*argv, "--out", f"{out}.npz"], precise=precise)
+            seconds = time.perf_counter() - t0
+            launches = read_counts()
+            plain[mode] = predict_main([*argv, "--out", f"{out}_plain.npz"],
+                                       use_kernels=False, precise=precise)
+            if read_counts() != launches:
+                raise AssertionError(f"predict {name}: the plain engines launched a kernel")
+            if precise:
+                errs = npz_against_plain(f"predict {name}", got, plain[mode], fields)
+            else:
+                npz_fields(f"predict {name} fast", got, plain[mode], fields)
+                errs = {f: path_rel_norms(f"predict {name} {f}",
+                                          torch.from_numpy(got[f]),
+                                          torch.from_numpy(plain["fast"][f]),
+                                          torch.from_numpy(plain["precise"][f]))
+                        ["rel_norm_err"] for f in fields}
+            saved = np.load(f"{out}.npz", allow_pickle=True)
+            if set(saved.files) != set(got) or len(saved["meta"]) != clips:
+                raise AssertionError(f"predict {name}: saved NPZ holds {saved.files}")
+            log({"phase": f"predict {name} {mode}", "seconds": seconds,
+                 "launches": launches, "err_vs_plain": errs})
+            if launches != want:
+                raise AssertionError(f"predict {name}: launches {launches} != {want}")
+            for k, v in launches.items():
+                total[k] += v
 
     # one predictor by hand: exact launch counts per call, ms per push
     params = param_tree(model.to(dev))
@@ -1043,35 +1287,116 @@ def drive_predict_path(dev, g, tmp):
             raise AssertionError(f"{what}: launches {read_counts()} != {want}")
         return out, ms
 
-    sp = StreamingPredictor(params, window=t, feature_dim=mc.feature_dim, device=dev)
-    exact_ms, frozen_ms = [], []
-    for i in range(t):
-        exact_ms.append(counted_call(lambda: sp.push(feats[0, i]), n_mv, 1,
-                                     "exact push")[1])
-    _, forecast_ms = counted_call(lambda: sp.forecast(steps), rollout_b1, 1, "forecast")
-    counted_call(sp.freeze, 0, 0, "freeze")
-    for i in range(t):
-        frozen_ms.append(counted_call(lambda: sp.push(feats[1, i]), 0, 1,
-                                      "frozen push")[1])
-    rollout = make_rollout_fn(steps, device=dev)
-    plain_rollout = make_rollout_fn(steps, use_kernels=False, device=dev)
+    def drive(sp, counts):
+        """window exact pushes, a forecast, the freeze, window frozen pushes
+        (the first runs eagerly and captures the graph, the rest replay
+        it), a forecast: (joints of every push, the two forecasts, ms of
+        each push and forecast)."""
+        pushes, ms = [], {"exact": [], "frozen": [], "forecast": []}
+        for i in range(t):
+            out, dt = counted_call(lambda: sp.push(feats[0, i]), n_mv if counts else 0,
+                                   1 if counts else 0, "exact push")
+            pushes.append(out)
+            ms["exact"].append(dt)
+        fc0, dt = counted_call(lambda: sp.forecast(steps), rollout_b1 if counts else 0,
+                               1 if counts else 0, "forecast")
+        ms["forecast"].append(dt)
+        counted_call(sp.freeze, 0, 0, "freeze")
+        for i in range(t):
+            replays = sp.replays
+            out, dt = counted_call(lambda: sp.push(feats[1, i]), 0,
+                                   1 if counts and i == 0 else 0, "frozen push")
+            if sp.replays != replays + (i > 0):
+                raise AssertionError(f"frozen push {i}: replays {replays} -> {sp.replays}")
+            pushes.append(out)
+            ms["frozen"].append(dt)
+        fc1, dt = counted_call(lambda: sp.forecast(steps), rollout_b1 if counts else 0,
+                               1 if counts else 0, "forecast after the freeze")
+        ms["forecast"].append(dt)
+        return (torch.from_numpy(np.stack(pushes)), torch.from_numpy(np.stack([fc0, fc1])),
+                ms)
+
+    def replay_kernels(sp, reps=5):
+        """Kernel names of `reps` frozen pushes, each a replay of sp's
+        graph, from a torch.profiler trace (CUPTI's kernel records; the
+        wrappers do not see a replay): B3's kernels once a push, no B1
+        kernel. Returns the counts of B3's kernels."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        b3 = (("cast_phi", "chain_kernel") if not sp.precise else ("regressor_kernel",))
+        b1 = ("gn_stats", "cconv_gemm", "gn_act_taps", "h36x_hopper::gemm_kernel")
+        zero_counts()
+        replays = sp.replays
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                sp.push(feats[2, i])
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        got = {k: sum(k in n for n in names) for k in (*b3, *b1)}
+        log({"check": f"frozen push replays ({'precise' if sp.precise else 'fast'})",
+             "pushes": reps, "replays": sp.replays - replays, "kernel_events": len(names),
+             "kernels": got, "wrapper_counts": read_counts()})
+        if (sp.replays - replays != reps or read_counts() != expect_counts()
+                or any(got[k] != reps for k in b3) or any(got[k] for k in b1)):
+            raise AssertionError(f"frozen push replays: {got}, {len(names)} kernel events")
+        return got
+
+    kw = dict(window=t, feature_dim=mc.feature_dim, device=dev)
+    streams, replayed = {}, {}
+    for mode, extra, counts in (("fast", {}, True), ("precise", {"precise": True}, True),
+                                ("fast_plain", {"use_kernels": False}, False),
+                                ("f32_plain", {"use_kernels": False, "precise": True},
+                                 False)):
+        sp = StreamingPredictor(params, **extra, **kw)
+        streams[mode] = drive(sp, counts)
+        if counts:
+            replayed[mode] = replay_kernels(sp)
+    for i, what in ((0, "pushes (exact and frozen)"), (1, "forecasts")):
+        path_rel_norms(f"stream {what}", streams["fast"][i], streams["fast_plain"][i],
+                       streams["f32_plain"][i])
+        compare(f"stream {what} precise kernels vs plain", streams["precise"][i],
+                streams["f32_plain"][i], E2E_TOL)
+
+    def push_ms(mode):
+        ms = streams[mode][2]
+        return {"push_exact_ms_median": float(np.median(ms["exact"][1:])),
+                "push_frozen_ms_median": float(np.median(ms["frozen"][1:])),
+                "first_frozen_push_ms": ms["frozen"][0],
+                "forecast_ms": ms["forecast"]}
+
+    rollouts = {"fast": make_rollout_fn(params, steps, device=dev),
+                "precise": make_rollout_fn(params, steps, device=dev, precise=True),
+                "fast_plain": make_rollout_fn(params, steps, use_kernels=False,
+                                              device=dev),
+                "f32_plain": make_rollout_fn(params, steps, use_kernels=False,
+                                             device=dev, precise=True)}
 
     def timed_rollout(fn):
         ms = []
         for _ in range(6):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fn(params, feats)
+            out = fn(feats)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(ms[1:]))
+        return float(np.median(ms[1:])), torch.cat([o.reshape(clips, -1) for o in out], 1)
 
-    log({"phase": "predict timing", "clips": clips, "steps": steps, "window": t,
-         "rollout_ms": timed_rollout(rollout),
-         "rollout_plain_ms": timed_rollout(plain_rollout),
-         "push_exact_ms_median": float(np.median(exact_ms[1:])),
-         "push_frozen_ms_median": float(np.median(frozen_ms[1:])),
-         "forecast_ms": forecast_ms, "pushes": len(exact_ms) + len(frozen_ms)})
+    rolled = {mode: timed_rollout(fn) for mode, fn in rollouts.items()}
+    path_rel_norms("rollout (context and future joints)", rolled["fast"][1],
+                   rolled["fast_plain"][1], rolled["f32_plain"][1])
+    compare("rollout precise kernels vs plain", rolled["precise"][1],
+            rolled["f32_plain"][1], E2E_TOL)
+    timing = {"phase": "predict timing", "card": torch.cuda.get_device_name(0),
+              "clips": clips, "steps": steps, "window": t,
+              **{f"rollout_ms_{mode}": r[0] for mode, r in rolled.items()},
+              "fast": push_ms("fast"), "precise": push_ms("precise"),
+              "fast_plain": push_ms("fast_plain"), "pushes": 2 * t,
+              "replay_kernels": replayed}
+    log(timing)
+    if not timing["fast"]["push_frozen_ms_median"] < timing["fast"]["push_exact_ms_median"]:
+        raise AssertionError(f"the frozen push is not faster than the exact push: {timing}")
 
     # the results stage on the card
     zero_counts()
@@ -1418,7 +1743,7 @@ def compare_stores(opt_root, flax_root, dev):
     ds = FeatureClipDataset(opt_root, augment=True)
     feats = ds.get_batch(list(range(8)))[0]
     model = PHDFor3DJoints(generator=torch.Generator().manual_seed(2), device=dev)
-    joints = make_fused_forward()(param_tree(model), torch.from_numpy(feats).to(dev))
+    joints = make_fused_forward(param_tree(model))(torch.from_numpy(feats).to(dev))
     if joints.shape != (8, feats.shape[1], 17, 3) or not torch.isfinite(joints).all():
         raise AssertionError(f"PHD forward on the store: {tuple(joints.shape)}")
     log({"check": "store -> PHD forward", "rows": len(ds), "joints": list(joints.shape),
@@ -1487,7 +1812,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log({"kernels": [{**{key: k[key] for key in keys},
-                      **({"modes": k["modes"]} if "modes" in k else {})}
+                      **{extra: k[extra] for extra in ("modes", "routes") if extra in k}}
                      for k in kernels]})
     log(smi.splitlines()[0])
     log({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -31,10 +31,13 @@ import numpy as np
 import torch
 
 
-def main(argv=None, *, use_kernels=None):
+def main(argv=None, *, use_kernels=None, precise: bool = False):
     """Returns the saved payload. `use_kernels` (callers in code only):
     None runs the kernels exactly when the device is a GPU; False runs the
-    plain engines there too, the reference a kernel run is held against."""
+    plain engines there too, the reference a kernel run is held against.
+    `precise` (callers in code only; h36x's CLI has no flag for it): False,
+    the serving default, bfloat16 weights and bfloat16-pair activations
+    with float32 sums (:mod:`h36x_torch.infer`); True, float32."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--features-root", required=True)
@@ -118,7 +121,7 @@ def main(argv=None, *, use_kernels=None):
                                     groups=mc["groups"],
                                     use_kernels=use_kernels,
                                     regressor_iters=mc["regressor_iters"],
-                                    device=device)
+                                    device=device, precise=precise)
             for t in range(seq_len):
                 preds[b, t] = sp.push(feats[b, t])
                 if args.freeze and sp.warm and not sp.frozen:
@@ -133,11 +136,11 @@ def main(argv=None, *, use_kernels=None):
                 + (f" +{args.forecast} forecast frames" if args.forecast > 0
                    else ""))
     elif args.forecast > 0:
-        rollout = make_rollout_fn(args.forecast, mc["joints_num"],
+        rollout = make_rollout_fn(params, args.forecast, mc["joints_num"],
                                   mc["groups"], use_kernels=use_kernels,
                                   regressor_iters=mc["regressor_iters"],
-                                  device=device)
-        ctx, fut = rollout(params, feats)
+                                  device=device, precise=precise)
+        ctx, fut = rollout(feats)
         out["predicted3djoints"] = ctx.cpu().numpy().astype(np.float32)
         out["future3djoints"] = fut.cpu().numpy().astype(np.float32)
         mode = f"batch rollout (+{args.forecast} future frames)"
@@ -146,11 +149,12 @@ def main(argv=None, *, use_kernels=None):
         # rollout for a future output we would discard
         from h36x_torch.infer import make_fused_forward
 
-        forward = make_fused_forward(mc["joints_num"], mc["groups"],
+        forward = make_fused_forward(params, mc["joints_num"], mc["groups"],
                                      use_kernels=use_kernels,
-                                     regressor_iters=mc["regressor_iters"])
+                                     regressor_iters=mc["regressor_iters"],
+                                     precise=precise)
         out["predicted3djoints"] = forward(
-            params, torch.from_numpy(feats).to(device)).cpu().numpy()
+            torch.from_numpy(feats).to(device)).cpu().numpy()
         mode = "batch forward"
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

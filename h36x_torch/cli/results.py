@@ -86,10 +86,14 @@ def main(argv=None):
     forward_fn = None
     if args.fused:
         from h36x_torch.infer import make_fused_forward
+        from h36x_torch.models.phd import param_tree
 
-        forward_fn = make_fused_forward(joints_num=model.joints_num,
+        # the results stage keeps float32 (precise), as evaluate_test does
+        forward_fn = make_fused_forward(param_tree(model),
+                                        joints_num=model.joints_num,
                                         groups=model.groups,
-                                        regressor_iters=model.regressor_iters)
+                                        regressor_iters=model.regressor_iters,
+                                        precise=True)
     payload = dump_result_batch(
         model, test_set, args.preprocessed_root, args.out,
         seq_len=seq_len, batch_size=args.batch_size, save_n=args.save_n,

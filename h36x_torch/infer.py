@@ -16,7 +16,20 @@ CUDA tensors).
 With `use_kernels=True` (the default) those calls go to the CUDA kernels
 for CUDA tensors and to the plain versions for CPU tensors;
 `use_kernels=False` runs the plain versions on any device. The model's own
-forward (:class:`h36x_torch.models.phd.PHDFor3DJoints`) is this engine.
+forward (:class:`h36x_torch.models.phd.PHDFor3DJoints`) is this engine, at
+precise=True.
+
+Precision: the serving entry points default to precise=False, where the
+kernels' products take bfloat16 weights and activations carried as
+bfloat16 pairs (hi + lo) with float32 sums, about 1e-3 relative to the
+float32 model. h36x's precise=False (h36x/infer.py) is a single bfloat16
+pass, activations rounded once; the pair is this port's own (twice the
+products). precise=True (training, the trainer's eval, the results stage,
+the model's own forward) runs in float32. The fast mode reads bfloat16
+copies of the weights, which the engines (:func:`make_fused_forward`,
+:func:`h36x_torch.serve.make_rollout_fn`, the streaming predictor, the
+daemon) make once, where they take the params, by
+:func:`serving_params`; a tree without them costs a cast per call.
 """
 
 from __future__ import annotations
@@ -25,6 +38,8 @@ from typing import Optional
 
 import torch
 
+from h36x_torch.ops import regressor as _reg
+from h36x_torch.ops import temporal as _tmp
 from h36x_torch.ops.regressor import _reference_forward, fused_joint_regressor
 from h36x_torch.ops.temporal import fused_residual_block, reference_gn_relu_cconv
 
@@ -35,41 +50,67 @@ def sorted_blocks(net_params: dict):
     return sorted(net_params.keys(), key=lambda n: int(n.removeprefix("block")))
 
 
-def _plain_block(x, p, groups, valid_len=None, dropout_mask=None):
+def serving_params(params: dict, use_kernels: bool = True,
+                   precise: bool = False) -> dict:
+    """The param tree an engine serves from. With the kernels on at
+    precise=False: a new tree over the same tensors in which every conv of
+    f_movie and f_AR also holds its bfloat16 kernel ("kernel_bf16",
+    :func:`h36x_torch.ops.temporal.bf16_kernel`) and f_3D the regressor's
+    copies ("bf16", :func:`h36x_torch.ops.regressor.bf16_weights`), on the
+    params' device. Otherwise params itself."""
+    if precise or not use_kernels:
+        return params
+    out = dict(params)
+    for net in ("f_movie", "f_AR"):
+        if net in params:
+            out[net] = {name: {**p, **{c: {**p[c], "kernel_bf16":
+                                           _tmp.bf16_kernel(p[c]["kernel"])}
+                                       for c in ("conv1", "conv2")}}
+                        for name, p in params[net].items()}
+    reg = params["f_3D"]
+    out["f_3D"] = {**reg, "bf16": _reg.bf16_weights(
+        reg["fc1"]["kernel"], reg["fc2"]["kernel"], reg["fc3"]["kernel"])}
+    return out
+
+
+def _plain_block(x, p, groups, valid_len=None, dropout_mask=None,
+                 precise: bool = True):
     h = reference_gn_relu_cconv(
         x, p["gn1"]["scale"], p["gn1"]["bias"],
         p["conv1"]["kernel"], p["conv1"]["bias"], groups=groups,
-        valid_len=valid_len,
+        valid_len=valid_len, precise=precise,
     )
     if dropout_mask is not None:
         h = h * dropout_mask
     return reference_gn_relu_cconv(
         h, p["gn2"]["scale"], p["gn2"]["bias"],
         p["conv2"]["kernel"], p["conv2"]["bias"],
-        residual=x, groups=groups, valid_len=valid_len,
+        residual=x, groups=groups, valid_len=valid_len, precise=precise,
     )
 
 
-def _temporal_net(x, net_params, groups, use_kernels):
+def _temporal_net(x, net_params, groups, use_kernels, precise: bool = True):
     for name in sorted_blocks(net_params):
         p = net_params[name]
         if use_kernels:
-            x = fused_residual_block(x, p, groups=groups)
+            x = fused_residual_block(x, p, groups=groups, precise=precise)
         else:
-            x = _plain_block(x, p, groups)
+            x = _plain_block(x, p, groups, precise=precise)
     return x
 
 
-def _temporal_net_masked(x, net_params, groups, valid_len):
+def _temporal_net_masked(x, net_params, groups, valid_len, precise: bool = True):
     """Plain temporal net with GroupNorm statistics masked to
     [0, valid_len) — what fixed-shape autoregressive rollout needs (GN is
     the block's one non-causal op). Outputs at t >= valid_len are invalid."""
     for name in sorted_blocks(net_params):
-        x = _plain_block(x, net_params[name], groups, valid_len=valid_len)
+        x = _plain_block(x, net_params[name], groups, valid_len=valid_len,
+                         precise=precise)
     return x
 
 
-def _regressor(phi, reg_params, joints_num, use_kernels, iters=3):
+def _regressor(phi, reg_params, joints_num, use_kernels, iters=3,
+               precise: bool = True):
     b, t, d = phi.shape
     out_dim = joints_num * 3
     args = (phi.reshape(b * t, d),
@@ -77,16 +118,17 @@ def _regressor(phi, reg_params, joints_num, use_kernels, iters=3):
             reg_params["fc2"]["kernel"], reg_params["fc2"]["bias"],
             reg_params["fc3"]["kernel"], reg_params["fc3"]["bias"])
     if use_kernels:
-        y = fused_joint_regressor(*args, iters, out_dim)
+        y = fused_joint_regressor(*args, iters, out_dim, precise=precise,
+                                  weights_bf16=reg_params.get("bf16"))
     else:
-        y = _reference_forward(*args, iters, out_dim)
+        y = _reference_forward(*args, iters, out_dim, precise)
     return y.reshape(b, t, joints_num, 3)
 
 
-def _movie(params, feats, groups, use_kernels):
+def _movie(params, feats, groups, use_kernels, precise: bool = True):
     """input_proj -> f_movie: the movie strips phi (B, T, latent)."""
     x = feats @ params["input_proj"]["kernel"] + params["input_proj"]["bias"]
-    return _temporal_net(x, params["f_movie"], groups, use_kernels)
+    return _temporal_net(x, params["f_movie"], groups, use_kernels, precise)
 
 
 def phd_forward_fused(
@@ -98,39 +140,46 @@ def phd_forward_fused(
     groups: int = 32,
     use_kernels: bool = True,
     regressor_iters: int = 3,
+    precise: bool = False,
 ):
     """Eval-mode PHD forward over precomputed features (B, T, F).
 
-    params: the flax-layout param tree of tensors. Returns
+    params: the flax-layout param tree of tensors (its
+    :func:`serving_params`, to read the fast mode's copies). Returns
     (phi, phi_hat, joints_phi, joints_hat|None) like the model; phi_hat is
     the f_AR output shifted right one step, zeros at t=0.
     regressor_iters must match the checkpoint's training config — a
-    mismatch runs silently with systematically wrong joints.
+    mismatch runs silently with systematically wrong joints. `precise` as
+    in the module docstring.
     """
-    phi = _movie(params, feats, groups, use_kernels)
-    ar_out = _temporal_net(phi, params["f_AR"], groups, use_kernels)
+    phi = _movie(params, feats, groups, use_kernels, precise)
+    ar_out = _temporal_net(phi, params["f_AR"], groups, use_kernels, precise)
     phi_hat = torch.cat([torch.zeros_like(ar_out[:, :1]), ar_out[:, :-1]], dim=1)
     joints_phi = _regressor(phi, params["f_3D"], joints_num, use_kernels,
-                            iters=regressor_iters)
+                            regressor_iters, precise)
     joints_hat: Optional[torch.Tensor] = None
     if predict_future:
-        joints_hat = _regressor(phi_hat, params["f_3D"], joints_num,
-                                use_kernels, iters=regressor_iters)
+        joints_hat = _regressor(phi_hat, params["f_3D"], joints_num, use_kernels,
+                                regressor_iters, precise)
     return phi, phi_hat, joints_phi, joints_hat
 
 
-def make_fused_forward(joints_num: int = 17, groups: int = 32,
-                       use_kernels: bool = True, regressor_iters: int = 3):
-    """(params, feats) -> joints (B, T, J, 3): input_proj -> f_movie -> f_3D.
+def make_fused_forward(params: dict, joints_num: int = 17, groups: int = 32,
+                       use_kernels: bool = True, regressor_iters: int = 3,
+                       precise: bool = False):
+    """feats -> joints (B, T, J, 3): input_proj -> f_movie -> f_3D over
+    `params` (the flax-layout tree, on the feats' device), whose fast-mode
+    copies (:func:`serving_params`) are made here, once.
 
     f_AR is not run: joints do not depend on it (the JAX engine's jit drops
     it as dead code from the same computation)."""
+    params = serving_params(params, use_kernels, precise)
 
     @torch.inference_mode()
-    def forward(params, feats):
-        phi = _movie(params, feats, groups, use_kernels)
+    def forward(feats):
+        phi = _movie(params, feats, groups, use_kernels, precise)
         return _regressor(phi, params["f_3D"], joints_num, use_kernels,
-                          iters=regressor_iters)
+                          regressor_iters, precise)
 
     return forward
 
@@ -143,14 +192,15 @@ def dropout_mask(shape, keep: float, generator: torch.Generator, like: torch.Ten
 
 
 def _regressor_train(phi, reg_params, generator, dropout, iters, joints_num,
-                     use_kernels):
+                     use_kernels, precise: bool = True):
     """Training-mode regressor. At dropout 0 it is the eval regressor (with
     `use_kernels`, the fused one: B3 forward, B4 backward on CUDA tensors);
     with dropout the per-round masks of the flax JointRegressor sit inside
     the loop, which the kernel cannot take, so it runs as plain torch with
     autograd."""
     if dropout == 0.0:
-        return _regressor(phi, reg_params, joints_num, use_kernels, iters=iters)
+        return _regressor(phi, reg_params, joints_num, use_kernels, iters=iters,
+                          precise=precise)
     b, t, d = phi.shape
     out_dim = joints_num * 3
     w1, b1 = reg_params["fc1"]["kernel"], reg_params["fc1"]["bias"]
@@ -177,6 +227,7 @@ def phd_forward_train_fused(
     groups: int = 32,
     regressor_iters: int = 3,
     use_kernels: bool = True,
+    precise: bool = True,
 ):
     """Training forward of the phase-1 loss path (feats -> input_proj ->
     f_movie -> f_3D), with gradients. With `use_kernels` every residual block
@@ -186,7 +237,8 @@ def phd_forward_train_fused(
     plain autograd path of the same function (the model's train forward).
     Masks are drawn from `generator` (needed when dropout > 0): one per
     block, then one per regressor round, in that order on both paths. f_AR is
-    not run: the phase-1 loss never reads it.
+    not run: the phase-1 loss never reads it. `precise` defaults to True, as
+    h36x trains fused (h36x/infer.py::phd_forward_train_fused).
 
     Returns (phi, joints)."""
     if dropout > 0.0 and generator is None:
@@ -200,9 +252,10 @@ def phd_forward_train_fused(
             shape = x.shape[:2] + (p["conv1"]["kernel"].shape[-1],)
             mask = dropout_mask(shape, keep, generator, x)
         if use_kernels:
-            x = fused_residual_block(x, p, groups=groups, dropout_mask=mask)
+            x = fused_residual_block(x, p, groups=groups, dropout_mask=mask,
+                                     precise=precise)
         else:
-            x = _plain_block(x, p, groups, dropout_mask=mask)
+            x = _plain_block(x, p, groups, dropout_mask=mask, precise=precise)
     joints = _regressor_train(x, params["f_3D"], generator, dropout,
-                              regressor_iters, joints_num, use_kernels)
+                              regressor_iters, joints_num, use_kernels, precise)
     return x, joints

@@ -106,7 +106,8 @@ class PHDFor3DJoints(nn.Module):
 
     Parameters are drawn from `generator` (a CPU torch.Generator; seed 0
     when None) and then moved to `device` (cuda unless the caller asks for
-    another).
+    another). The eval forward runs the engine at precise=True (float32):
+    the model is the reference the serving engines' fast mode is held to.
 
     `train=True` runs the training forward of the phase-1 loss path with
     gradients and dropout (masks from `dropout_generator`, on the model's
@@ -153,6 +154,7 @@ class PHDFor3DJoints(nn.Module):
                 param_tree(self), feats, predict_future,
                 joints_num=self.joints_num, groups=self.groups,
                 use_kernels=use_kernels, regressor_iters=self.regressor_iters,
+                precise=True,
             )
 
 

@@ -12,6 +12,7 @@ and a changed source never loads a stale one. Nothing is built at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,6 +37,11 @@ SIGNATURES = {
         # x, scale, bias, w, cb, res|NULL, mean, rstd, out,
         # B, T, D, O, K, G, eps, rows between samples of x and of res, stream
         "h36x_gn_relu_cconv": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
+        # B, T, D, O, K -> workspace bytes of the fast route (0: not taken)
+        "h36x_gn_relu_cconv_fast_workspace": [_I] * 5,
+        # x, scale, bias, w_bf16, cb, res|NULL, mean, rstd, ws, out,
+        # B, T, D, O, K, G, eps, rows between samples of x and of res, stream
+        "h36x_gn_relu_cconv_fast": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
     },
     "temporal_bwd": {
         # x, scale, bias, w, g, mean, rstd, da, part, dx, dw, dscale, dbias,
@@ -45,6 +51,11 @@ SIGNATURES = {
     "regressor": {
         # phi, w1, b1, w2, b2, w3, b3, out, N, D, H, out_dim, iters, stream
         "h36x_joint_regressor": [_P] * 8 + [_I] * 5 + [_P],
+        # N, D, H, out_dim -> workspace bytes of the fast route (0: not taken)
+        "h36x_joint_regressor_fast_workspace": [_I] * 4,
+        # phi, w1p, w1y, w2, w3p (bf16), b1, b2, b3, ws, out,
+        # N, D, H, out_dim, iters, stream
+        "h36x_joint_regressor_fast": [_P] * 10 + [_I] * 5 + [_P],
     },
     "regressor_bwd": {
         # N, H, P, iters -> workspace bytes
@@ -63,7 +74,9 @@ SIGNATURES = {
         "h36x_matmul_probe": [_P] * 4 + [_I] * 5 + [_P],
     },
 }
-RESTYPES = {"h36x_joint_regressor_bwd_workspace": ctypes.c_size_t}
+RESTYPES = {"h36x_joint_regressor_bwd_workspace": ctypes.c_size_t,
+            "h36x_gn_relu_cconv_fast_workspace": ctypes.c_size_t,
+            "h36x_joint_regressor_fast_workspace": ctypes.c_size_t}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -121,6 +134,10 @@ def load(*names: str) -> list:
     point's argtypes declared (pointers and the stream as c_void_p: an
     undeclared argument would be passed as a 32-bit int). Sources not built
     yet are compiled first, one nvcc process each, all started together."""
+    try:  # loaded already: no lock on the launch path
+        return [_libs[n] for n in names]
+    except KeyError:
+        pass
     with _lock:
         missing = [n for n in dict.fromkeys(names) if n not in _libs]
         jobs = {n: _start_build(n) for n in missing}
@@ -154,17 +171,60 @@ def require_cuda_f32(what: str, batch_strided=(), **tensors) -> None:
     for name, t in tensors.items():
         if t is None:
             continue
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{what}: {name} is on {t.device}, expected cuda")
-        if t.dtype != torch.float32:
+        if t.dtype is not torch.float32:
             raise TypeError(f"{what}: {name} is {t.dtype}, expected float32")
-        dense = t.is_contiguous() or (
-            name in batch_strided and t.dim() > 1 and t.shape[0] > 0
-            and t[0].is_contiguous() and t.stride(0) % t.shape[-1] == 0)
-        if not dense:
+        if not (t.is_contiguous() or (
+                name in batch_strided and t.dim() > 1 and t.shape[0] > 0
+                and t[0].is_contiguous() and t.stride(0) % t.shape[-1] == 0)):
             raise ValueError(f"{what}: {name} must be contiguous"
                              + (" within each sample" if name in batch_strided else ""))
+        index = t.get_device()
         if device is None:
-            device = t.device
-        elif t.device != device:
-            raise ValueError(f"{what}: {name} is on {t.device}, others on {device}")
+            device = index
+        elif index != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, others on cuda:{device}")
+
+
+def require_cuda_bf16(what: str, device, **tensors) -> None:
+    """The fast routes' weight copies: contiguous bfloat16 tensors on
+    `device`."""
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")
+        if t.dtype is not torch.bfloat16:
+            raise TypeError(f"{what}: {name} is {t.dtype}, expected bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether an op's call must record an autograd node: grad mode on and
+    some input requiring a gradient. The serving paths (inference mode)
+    skip the node and its cost."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
+def count_launch(fn) -> None:
+    """Add one to `fn.launches` for a call that launched its kernel. A call
+    that a CUDA graph capture records launches nothing and is not counted;
+    a replay of the graph runs the kernel without its wrapper."""
+    if not torch.cuda.is_current_stream_capturing():
+        fn.launches += 1
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw cudaStream_t of the current stream of t's device (what the
+    entry points launch on; inside a CUDA graph capture, the capture
+    stream), without building a torch.cuda.Stream object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def on_device(dev: torch.device):
+    """A context on `dev`'s CUDA device: a no-op when it is the current one
+    already (the serving paths' case), torch.cuda.device otherwise."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

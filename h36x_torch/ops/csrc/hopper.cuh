@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels of
-// matmul_probe.cu (B6) and bottleneck.cu (B5): TMA tensor maps, mbarriers,
-// bulk and 16-byte asynchronous copies, wgmma descriptors and instructions,
+// matmul_probe.cu (B6), bottleneck.cu (B5) and the fast routes of
+// temporal.cu (B1) and regressor.cu (B3): TMA tensor maps, mbarriers, bulk
+// and 16-byte asynchronous copies, wgmma descriptors and instructions,
 // setmaxnreg, and on top of them one warp-specialised persistent GEMM
-// mainloop that both kernels instantiate.
+// mainloop that all four instantiate.
 //
 // The mainloop (gemm_kernel below). A block of 384 threads stays on one SM
 // and walks the output tiles t = blockIdx.x, blockIdx.x + gridDim.x, ...
@@ -17,6 +18,10 @@
 // the producer refills it while they multiply; across tiles the ring keeps
 // loading, so one tile's epilogue overlaps the next tile's loads. The
 // epilogue is the caller's (a class with Args, bytes<BN>() and store<BN>()).
+// A may be two tensors side by side along K, split at k1: either two
+// different operands against the rows of one longer B ([b | x] @ [W3; Wp],
+// B5's projection block), or the hi and lo halves of one bf16 pair against
+// the same rows of B read again (b_wrap: the fast routes of B1 and B3).
 //
 // Shared-memory layouts are those of TMA's 128-byte swizzle: a K-major tile
 // of R rows is R x 128 bytes, 16-byte chunk c of row r at r * 128 +
@@ -83,14 +88,48 @@ inline int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-inline int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+// the current device's index, 0..63 (the slot of the per-device tables
+// below; cudaGetDevice is no stream work, so a graph capture allows it)
+inline int device_slot() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) {
     cudaGetLastError();
-    return 132;
+    return 0;
   }
-  return n;
+  return dev < 0 || dev >= 64 ? 0 : dev;
+}
+
+// the current device's SM count, asked of the runtime once per device
+inline int sm_count() {
+  static int counts[64] = {};
+  const int dev = device_slot();
+  if (counts[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      cudaGetLastError();
+      return 132;
+    }
+    counts[dev] = n;
+  }
+  return counts[dev];
+}
+
+// Raise `kernel`'s dynamic shared-memory limit on the current device to
+// `bytes`, once per device and size (`set` is the caller's per-device
+// table of the largest size set so far), so that a launch inside a CUDA
+// graph capture makes no other runtime call. Returns the CUDA error, or 0.
+template <class K>
+int raise_smem(size_t (&set)[64], K kernel, size_t bytes) {
+  const int dev = device_slot();
+  if (bytes <= set[dev]) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, or the next launch would report it too
+    return (int)err;
+  }
+  set[dev] = bytes;
+  return 0;
 }
 
 // ---- device: barriers and copies ----------------------------------------------
@@ -431,6 +470,7 @@ struct Params {
   CUtensorMap b;   // B K-major (N, K): box (BN rows, 128 bytes); MN-major (K, N): box (64, 64)
   long long M;
   int N, K, k1;
+  int b_wrap;      // 1: A's columns k >= k1 read B's rows k - k1 again
   Im2col im;       // IM2COL: A comes from here instead
   typename Epi::Args epi;
 };
@@ -479,9 +519,7 @@ __device__ __forceinline__ void load_b(uint8_t* dst, const typename G::P& p, uin
 template <class G>
 __device__ __forceinline__ void produce_tma(const typename G::P& p, uint8_t* ring,
                                             uint64_t* full, uint64_t* empty, long long tiles,
-                                            int tiles_n, int nk) {
-  int stage = 0;
-  uint32_t phase = 0;
+                                            int tiles_n, int nk, int& stage, uint32_t& phase) {
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int m0 = (int)(t / tiles_n) * BM, n0 = (int)(t % tiles_n) * G::BN;
     for (int kt = 0; kt < nk; ++kt) {
@@ -490,12 +528,14 @@ __device__ __forceinline__ void produce_tma(const typename G::P& p, uint8_t* rin
       uint8_t* b_dst = a_dst + G::A_BYTES;
       mbar_arrive_expect_tx(&full[stage], G::STAGE_BYTES);
       const int k0 = kt * G::BK;
+      int kb = k0;
       if (k0 < p.k1) {
         tma_load_2d(a_dst, &p.a, &full[stage], k0, m0);
       } else {
         tma_load_2d(a_dst, &p.a2, &full[stage], k0 - p.k1, m0);
+        if (p.b_wrap) kb = k0 - p.k1;
       }
-      load_b<G>(b_dst, p, &full[stage], k0, n0);
+      load_b<G>(b_dst, p, &full[stage], kb, n0);
       if (++stage == G::STAGES) {
         stage = 0;
         phase ^= 1;
@@ -573,11 +613,10 @@ __device__ __forceinline__ void produce_im2col(const typename G::P& p, uint8_t* 
 template <class G>
 __device__ __forceinline__ void consume(const typename G::P& p, uint8_t* ring, uint8_t* epi,
                                         uint64_t* full, uint64_t* empty, long long tiles,
-                                        int tiles_n, int nk, int wg, int tid) {
+                                        int tiles_n, int nk, int wg, int tid, int& stage,
+                                        uint32_t& phase) {
   const uint32_t ring_addr = smem_u32(ring);
   const int lane = tid & 31;
-  int stage = 0;
-  uint32_t phase = 0;
   typename G::Acc d[G::BN / 2];
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const long long m0 = (t / tiles_n) * BM + 64 * wg;
@@ -615,59 +654,181 @@ __device__ __forceinline__ void consume(const typename G::P& p, uint8_t* ring, u
   }
 }
 
+// The shared memory of a block: the ring, the consumers' staging, the full
+// and empty barriers
+struct Smem {
+  uint8_t *ring, *epi;
+  uint64_t *full, *empty;
+};
+
+// lays out G's shared memory and initialises its barriers; every thread of
+// the block calls it
 template <class G>
-__global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ typename G::P p) {
-  extern __shared__ uint8_t smem_raw[];
+__device__ __forceinline__ Smem setup_smem(uint8_t* smem_raw) {
+  Smem m;
   // 128-byte swizzle atoms want 1024-byte aligned tiles
-  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* epi = ring + G::STAGES * G::STAGE_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(epi + 2 * G::EPI_WG_BYTES);
-  uint64_t* empty = full + G::STAGES;
-  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  m.ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  m.epi = m.ring + G::STAGES * G::STAGE_BYTES;
+  m.full = reinterpret_cast<uint64_t*>(m.epi + 2 * G::EPI_WG_BYTES);
+  m.empty = m.full + G::STAGES;
   if (threadIdx.x == 0) {
     for (int s = 0; s < G::STAGES; ++s) {
-      mbar_init(&full[s], G::IM2COL ? 128 : 1);
-      mbar_init(&empty[s], 8);  // the 8 consumer warps
+      mbar_init(&m.full[s], G::IM2COL ? 128 : 1);
+      mbar_init(&m.empty[s], 8);  // the 8 consumer warps
     }
     fence_barrier_init();
   }
   __syncthreads();
+  return m;
+}
+
+template <class G>
+__global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ typename G::P p) {
+  extern __shared__ uint8_t smem_raw[];
+  const Smem m = setup_smem<G>(smem_raw);
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const int tiles_n = p.N / G::BN;
   const long long tiles = (p.M + BM - 1) / BM * tiles_n;
   const int nk = p.K / G::BK;
+  int stage = 0;
+  uint32_t phase = 0;
   // one if / else for the whole kernel: the roles never meet again, so
   // setmaxnreg holds
   if (wg == 0) {
     reg_dealloc<G::PRODUCER_REGS>();
     if constexpr (G::IM2COL) {
-      produce_im2col<G>(p, ring, full, empty, tiles, tiles_n, nk, tid);
+      produce_im2col<G>(p, m.ring, m.full, m.empty, tiles, tiles_n, nk, tid);
     } else if (tid == 0) {
-      produce_tma<G>(p, ring, full, empty, tiles, tiles_n, nk);
+      produce_tma<G>(p, m.ring, m.full, m.empty, tiles, tiles_n, nk, stage, phase);
     }
   } else {
     reg_alloc<G::CONSUMER_REGS>();
-    consume<G>(p, ring, epi, full, empty, tiles, tiles_n, nk, wg - 1, tid);
+    consume<G>(p, m.ring, m.epi, m.full, m.empty, tiles, tiles_n, nk, wg - 1, tid, stage, phase);
   }
 }
 
 // Launch on `stream` with one persistent block per SM (fewer if there are
 // fewer tiles). The shapes must fit G (N % BN, K % BK, k1 % BK all 0, K >=
-// BK); the caller checks them. Returns the launch's CUDA error, or 0; an
+// BK); the caller checks them. The shared-memory attribute is set once per
+// kernel, at its first launch, so that a launch inside a CUDA graph capture
+// makes no other runtime call (per device). Returns the launch's CUDA error, or 0; an
 // empty M is a grid of 0 blocks, which the launch refuses.
 template <class G>
 int launch_gemm(const typename G::P& p, cudaStream_t stream) {
+  static size_t smem_set[64] = {};
   const long long tiles = (p.M + BM - 1) / BM * (p.N / G::BN);
   const long long sms = sm_count();
   const unsigned blocks = (unsigned)(tiles < sms ? tiles : sms);
-  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         G::SMEM_BYTES);
+  if (int err = raise_smem(smem_set, gemm_kernel<G>, G::SMEM_BYTES)) return err;
+  gemm_kernel<G><<<blocks, THREADS, G::SMEM_BYTES, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ---- a chain of GEMMs in one persistent launch ----------------------------------
+//
+// Phase i + 1 reads what phase i wrote (B3's rounds), so phases are
+// separated by a grid-wide barrier, and one launch pays the kernel's start
+// (barrier set-up, descriptor fetches, the first loads) once for all of
+// them. The ring of stages and its barriers carry on from phase to phase.
+// Every block must be resident at once: the grid is at most one block per
+// SM, the shared memory admits one block per SM, and the launch is
+// cooperative, so the runtime starts the blocks together or refuses the
+// launch (a chain never waits on blocks that other kernels keep from
+// their SMs). TMA-fed A only.
+
+template <class Epi, int MAX>
+struct ChainParams {
+  Params<Epi> ph[MAX];  // each phase's tensor maps, shapes and epilogue
+  int phases;
+  unsigned* sync;       // the grid barrier's counter, zero before the launch
+};
+
+// orders this thread's generic-proxy global writes before later
+// async-proxy (TMA) reads of them, and those reads after the writes it has
+// observed
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// all threads of all blocks; `target` = (barriers so far) * gridDim.x. A
+// wait of some 2^34 cycles is a block that never came, and traps.
+__device__ __forceinline__ void grid_sync(unsigned* sync, unsigned target) {
+  named_bar_sync(0, THREADS);
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(sync, 1u);
+    const long long t0 = clock64();
+    while (*reinterpret_cast<volatile unsigned*>(sync) < target) {
+      if (clock64() - t0 > (1ll << 34)) __trap();
+    }
+    __threadfence();
+  }
+  named_bar_sync(0, THREADS);
+}
+
+template <class G, int MAX>
+__global__ void __launch_bounds__(THREADS, 1)
+    chain_kernel(const __grid_constant__ ChainParams<typename G::Epi, MAX> c) {
+  static_assert(!G::IM2COL, "the chain's A comes by TMA");
+  extern __shared__ uint8_t smem_raw[];
+  const Smem m = setup_smem<G>(smem_raw);
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  int stage = 0;
+  uint32_t phase = 0;
+  if (wg == 0) {
+    reg_dealloc<G::PRODUCER_REGS>();
+  } else {
+    reg_alloc<G::CONSUMER_REGS>();
+  }
+  for (int i = 0; i < c.phases; ++i) {
+    const typename G::P& p = c.ph[i];
+    const int tiles_n = p.N / G::BN;
+    const long long tiles = (p.M + BM - 1) / BM * tiles_n;
+    const int nk = p.K / G::BK;
+    if (i > 0) grid_sync(c.sync, (unsigned)i * gridDim.x);
+    if (wg == 0) {
+      if (tid == 0) {
+        fence_proxy_async_global();
+        produce_tma<G>(p, m.ring, m.full, m.empty, tiles, tiles_n, nk, stage, phase);
+      }
+    } else {
+      consume<G>(p, m.ring, m.epi, m.full, m.empty, tiles, tiles_n, nk, wg - 1, tid, stage,
+                 phase);
+      fence_proxy_async_global();
+    }
+  }
+}
+
+// Launch the chain on `stream`, cooperatively: one block per SM at most,
+// as many as the widest phase has tiles. Each phase must fit G, as for
+// launch_gemm. A CUDA graph capture records the cooperative launch as it is.
+template <class G, int MAX>
+int launch_chain(const ChainParams<typename G::Epi, MAX>& c, cudaStream_t stream) {
+  static size_t smem_set[64] = {};
+  long long tiles = 1;
+  for (int i = 0; i < c.phases; ++i) {
+    const long long t = (c.ph[i].M + BM - 1) / BM * (c.ph[i].N / G::BN);
+    tiles = t > tiles ? t : tiles;
+  }
+  const long long sms = sm_count();
+  const unsigned blocks = (unsigned)(tiles < sms ? tiles : sms);
+  if (int err = raise_smem(smem_set, chain_kernel<G, MAX>, G::SMEM_BYTES)) return err;
+  cudaLaunchAttribute attr[1] = {};
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = G::SMEM_BYTES;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, chain_kernel<G, MAX>, c);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
-  gemm_kernel<G><<<blocks, THREADS, G::SMEM_BYTES, stream>>>(p);
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 // ---- epilogue helpers ----------------------------------------------------------

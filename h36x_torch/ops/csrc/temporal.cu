@@ -1,4 +1,4 @@
-// Fused GroupNorm -> ReLU -> K-tap causal conv (+ residual), FP32, sm_90a.
+// Fused GroupNorm -> ReLU -> K-tap causal conv (+ residual), sm_90a.
 //
 // Replaces the Pallas TPU kernel h36x/ops/pallas_temporal.py::_kernel
 // (reached through _fused_gn_relu_cconv_p / fused_gn_relu_cconv /
@@ -15,11 +15,28 @@
 // apart (T when dense), rows D and O elements apart. The autoregressive
 // rollout reads its growing prefix that way, without a copy.
 //
-// What bounds it on the H100: operations. At the serving shape (B=16, T=40,
-// D=O=1024, K=3) the contraction is 2*640*1024*3072 = 4.03 GFLOP over about
-// 20 MB of inputs and outputs (W is 12.6 MB of it), some 200 FLOP per byte.
+// Two routes, as h36x's `precise` switch has two matmul modes
+// (pallas_temporal.py::_dot32): the precise route (FP32 throughout; the
+// training path and parity) and the fast route (the weights rounded to
+// bf16, the activation carried as a bf16 pair, products summed in f32 on
+// the tensor cores; the serving paths, under h36x's ~1e-3 serving
+// contract). The pair (hi = bf16(v), lo = bf16(v - hi), about 16
+// significant bits) keeps the result a continuous function of the
+// activation: with a single bf16 rounding, two summation orders of the
+// same upstream sums round now and then to neighbouring bf16 values, and
+// through a model's blocks and the regressor's rounds those jumps of one
+// bf16 step add up, so that a kernel path and its plain version (or two
+// batch sizes) would disagree far beyond their summation orders.
 //
-// Design: two launches.
+// What bounds it on the H100: at the serving shape (B=16, T=40, D=O=1024,
+// K=3) the contraction is 2*640*1024*3072 = 4.03 GFLOP over about 11.5 MB
+// of bf16 weights and f32 activations: operations, 0.0041 ms at the bf16
+// peak (0.060 ms at the FP32 peak); the fast route's pair doubles the
+// products it issues. At one streamed frame's B=1 it is the 6.3 MB of bf16
+// weights, 0.002 ms; at these sizes launch latency, not the bound, sets the
+// pace.
+//
+// The precise route: two launches.
 //   1. gn_stats: one block per (group, sample) reduces T*D/G elements twice
 //      (mean, then the centred second moment) and writes mean and rstd (B, G).
 //   2. cconv_gemm: a tiled FP32 GEMM over rows (b, t) x output channels,
@@ -39,12 +56,33 @@
 //      and its channel cursor are set up once and no integer division sits
 //      in the loop; the next tile's global loads are issued into registers
 //      before the current tile is multiplied; both operands are read from
-//      shared memory as float4. TF32/bf16 wgmma, TMA and a resident weight
-//      ring are later work.
+//      shared memory as float4.
+//
+// The fast route (D a multiple of 64, O of 64): two launches as well.
+//   1. gn_act_taps: one block per (group, sample) takes the same two-pass
+//      statistics, writes mean and rstd, and writes the activation
+//      relu(gn(x) * scale + bias) as a bf16 pair straight into the GEMM's A
+//      operand, (B*T, K*D) for each half: row (b, t), columns k*D .. hold
+//      the frame of tap k, max(t - (K-1-k), 0), so the shift and the
+//      replicated left edge are done here, once (7.9 MB at B 16, K 3).
+//   2. hopper.cuh's TMA + wgmma GEMM over K = 2*K*D: the pair's hi half,
+//      then its lo half, both read by TMA as they lie, against the same
+//      rows of the weights (K*D, O) in bf16, read MN-major as they lie
+//      (b_wrap). The f32 epilogue adds the conv bias and the strided
+//      residual from the registers. The result does not depend on the
+//      order in which blocks run, so it is the same bit for bit from run
+//      to run, and the strided call equals the dense one.
+//   A is written by the prologue rather than copied tap by tap inside the
+//   GEMM (the implicit 3x3's 16-byte cp.async copier), and K is not split
+//   across blocks at a few rows: on the H100 those copies fed a K stage
+//   several times slower than TMA, and a launch of many split blocks cost
+//   more than the blocks saved (PERF.md).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "gemm_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -189,6 +227,128 @@ cconv_gemm(const float* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// ---- the fast route ---------------------------------------------------------
+
+namespace hp = h36x_hopper;
+
+// grid (G, B), block kStatsThreads: gn_stats, then the activation v =
+// relu(gn(x) * scale + bias) as a bf16 pair (hi = bf16(v), lo = bf16(v -
+// hi)), written straight into the GEMM's A: row (b, t), columns k*D + c
+// hold v at (b, max(t - (K-1-k), 0), c) for each tap k, so that A is a
+// plain (B*T, K*D) matrix that TMA reads as it lies
+__global__ void gn_act_taps(const float* __restrict__ x, const float* __restrict__ scale,
+                            const float* __restrict__ bias, float* __restrict__ mean,
+                            float* __restrict__ rstd, __nv_bfloat16* __restrict__ a_hi,
+                            __nv_bfloat16* __restrict__ a_lo, int T, int D, int G, int K,
+                            float eps, int x_rows) {
+  __shared__ float red[kStatsThreads / 32];
+  const int g = blockIdx.x, b = blockIdx.y;
+  const int gs = D / G;
+  const int n = T * gs;
+  const float* xb = x + (size_t)b * x_rows * D + (size_t)g * gs;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int t = i / gs, c = i - t * gs;
+    s += xb[(size_t)t * D + c];
+  }
+  const float mu = block_sum(s, red) / (float)n;
+  float s2 = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int t = i / gs, c = i - t * gs;
+    const float dlt = xb[(size_t)t * D + c] - mu;
+    s2 += dlt * dlt;
+  }
+  const float var = block_sum(s2, red) / (float)n;
+  const float rs = 1.0f / sqrtf(var + eps);
+  if (threadIdx.x == 0) {
+    mean[b * G + g] = mu;
+    rstd[b * G + g] = rs;
+  }
+  const size_t KD = (size_t)K * D;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int t = i / gs, c = i - t * gs, ch = g * gs + c;
+    const float v = fmaxf((xb[(size_t)t * D + c] - mu) * rs * scale[ch] + bias[ch], 0.f);
+    const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+    const __nv_bfloat16 lo = __float2bfloat16_rn(v - __bfloat162float(hi));
+    // frame t feeds output row t + (K-1-k) through tap k; frame 0 also
+    // feeds the rows whose tap reaches before t = 0
+    for (int k = 0; k < K; ++k) {
+      const int shift = K - 1 - k;
+      const int first = t == 0 ? 0 : t + shift, last = t + shift;
+      for (int r = first; r <= last && r < T; ++r) {
+        const size_t at = ((size_t)b * T + r) * KD + (size_t)k * D + ch;
+        a_hi[at] = hi;
+        a_lo[at] = lo;
+      }
+    }
+  }
+}
+
+// out = acc + cb (+ res), f32, straight from the accumulators, 8 bytes a
+// thread; res row (b, t) lies at b * res_rows + t
+struct BiasResF32 {
+  struct Args {
+    const float* bias;  // (N,)
+    const float* res;   // or nullptr
+    float* out;         // (M, N)
+    int T, res_rows;
+  };
+  template <int BN>
+  static constexpr int bytes() {
+    return 0;
+  }
+  template <int BN>
+  __device__ static void store(float (&d)[BN / 2], const Args& a, long long M, int N,
+                               long long m0, int n0, uint8_t*, int, int tid) {
+    const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const long long m = m0 + 16 * warp + (lane >> 2) + 8 * i;
+      if (m >= M) continue;
+      const float* res_row = a.res == nullptr ? nullptr
+          : a.res + ((m / a.T) * a.res_rows + m % a.T) * N;
+      float* out_row = a.out + m * N;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * (lane & 3);
+        const float2 cb = *reinterpret_cast<const float2*>(a.bias + n);
+        float v0 = d[4 * j + 2 * i] + cb.x, v1 = d[4 * j + 2 * i + 1] + cb.y;
+        if (res_row != nullptr) {
+          const float2 r = *reinterpret_cast<const float2*>(res_row + n);
+          v0 += r.x;
+          v1 += r.y;
+        }
+        *reinterpret_cast<float2*>(out_row + n) = make_float2(v0, v1);
+      }
+    }
+  }
+};
+
+template <int BN>
+using CconvGemm = hp::Gemm<__nv_bfloat16, BN, true, false, BiasResF32>;
+
+size_t round_up(size_t v) { return (v + 1023) / 1024 * 1024; }
+
+// bytes of each half of the fast route's A: (B*T, K*D) bf16
+size_t taps_bytes(int B, int T, int D, int K) {
+  return round_up((size_t)B * T * K * D * sizeof(__nv_bfloat16));
+}
+
+template <int BN>
+int cconv_fast(hp::Params<BiasResF32> p, const void* a_hi, const void* a_lo, const void* w,
+               cudaStream_t stream) {
+  const int kd = p.k1;
+  int err = hp::make_map(&p.a, a_hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kd, p.M, 2ull * kd,
+                         64, hp::BM);
+  if (!err)
+    err = hp::make_map(&p.a2, a_lo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kd, p.M, 2ull * kd, 64,
+                       hp::BM);
+  if (!err)
+    err = hp::make_map(&p.b, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.N, kd, 2ull * p.N, 64, 64);
+  if (err) return err;
+  return hp::launch_gemm<CconvGemm<BN>>(p, stream);
+}
+
 }  // namespace
 
 extern "C" int h36x_gn_relu_cconv(const float* x, const float* scale,
@@ -206,4 +366,39 @@ extern "C" int h36x_gn_relu_cconv(const float* x, const float* scale,
   cconv_gemm<<<grid, kThreads, 0, s>>>(x, scale, bias, w, cb, res, mean,
                                            rstd, out, B, T, D, O, K, G, x_rows, res_rows);
   return (int)cudaGetLastError();
+}
+
+// bytes of the fast route's workspace for these shapes (0: shapes it does
+// not take: D or O not a multiple of 64, or no rows)
+extern "C" size_t h36x_gn_relu_cconv_fast_workspace(int B, int T, int D, int O, int K) {
+  if (B <= 0 || T <= 0 || D % 64 || O % 64 || K <= 0) return 0;
+  return 2 * taps_bytes(B, T, D, K);
+}
+
+// The fast route. w_bf16 is the (K*D, O) bf16 copy of the weights; ws holds
+// h36x_gn_relu_cconv_fast_workspace(B, T, D, O, K) bytes, 1024-aligned: A's
+// hi and lo halves. Returns the first launch's CUDA error, or 0.
+extern "C" int h36x_gn_relu_cconv_fast(const float* x, const float* scale, const float* bias,
+                                       const void* w_bf16, const float* cb, const float* res,
+                                       float* mean, float* rstd, void* ws, float* out, int B,
+                                       int T, int D, int O, int K, int G, float eps,
+                                       int x_rows, int res_rows, void* stream) {
+  if (h36x_gn_relu_cconv_fast_workspace(B, T, D, O, K) == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* a_hi = static_cast<__nv_bfloat16*>(ws);
+  __nv_bfloat16* a_lo = reinterpret_cast<__nv_bfloat16*>(static_cast<uint8_t*>(ws) +
+                                                         taps_bytes(B, T, D, K));
+  gn_act_taps<<<dim3(G, B), kStatsThreads, 0, s>>>(x, scale, bias, mean, rstd, a_hi, a_lo, T,
+                                                  D, G, K, eps, x_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  hp::Params<BiasResF32> p{};
+  p.M = (long long)B * T;
+  p.N = O;
+  p.k1 = K * D;
+  p.K = 2 * p.k1;  // the pair's hi half, then its lo half, against the same rows of B
+  p.b_wrap = 1;
+  p.epi = {cb, res, out, T, res_rows};
+  return O % 128 == 0 ? cconv_fast<128>(p, a_hi, a_lo, w_bf16, s)
+                      : cconv_fast<64>(p, a_hi, a_lo, w_bf16, s);
 }

@@ -20,7 +20,11 @@ engines in :mod:`h36x_torch.infer`:
   the causal convs' left edge padding), with optional future rollout.
 
 Everything runs under `torch.inference_mode()` on an explicit device (cuda
-unless the caller asks for another).
+unless the caller asks for another). Both engines default to
+`precise=False` (bfloat16 weights, activations as bfloat16 pairs, float32
+sums, about 1e-3 relative: :mod:`h36x_torch.infer`), with the bfloat16
+weight copies made once where they take the params
+(:func:`h36x_torch.infer.serving_params`); `precise=True` runs in float32.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from h36x_torch.infer import (
     _regressor,
     _temporal_net,
     _temporal_net_masked,
+    serving_params,
     sorted_blocks,
 )
 from h36x_torch.ops.causal_conv import causal_conv1d
@@ -45,13 +50,14 @@ def _project(params, feats):
 @torch.inference_mode()
 def _rollout_from_x(params, x, steps: int, joints_num: int, groups: int,
                     use_kernels: bool, with_ctx: bool = True,
-                    regressor_iters: int = 3):
+                    regressor_iters: int = 3, precise: bool = True):
     """Rollout over already-projected inputs x (B, T, latent) -> (joints_ctx,
     joints_future, phi_ext). The streaming predictor keeps its ring buffer
     in projected space, so it feeds this entry directly; with_ctx=False
     skips the context-window regressor pass for callers that only want the
-    future frames (StreamingPredictor.forecast)."""
-    phi = _temporal_net(x, params["f_movie"], groups, use_kernels)
+    future frames (StreamingPredictor.forecast). `precise` as in the
+    engine; params may be its :func:`h36x_torch.infer.serving_params`."""
+    phi = _temporal_net(x, params["f_movie"], groups, use_kernels, precise)
     b, t, d = phi.shape
     buf = phi.new_zeros((b, t + steps, d))
     buf[:, :t] = phi
@@ -62,47 +68,51 @@ def _rollout_from_x(params, x, steps: int, joints_num: int, groups: int,
         if fused:
             # f_AR over the strips that exist: rows of a longer buffer, so
             # the batch stride is (T + steps) * D (the wrapper takes that)
-            ar = _temporal_net(buf[:, :t + s], params["f_AR"], groups, True)
+            ar = _temporal_net(buf[:, :t + s], params["f_AR"], groups, True,
+                               precise)
         else:
             # fixed-shape buffer, GroupNorm statistics masked to the t + s
             # frames that exist; the causal convs guarantee that position
             # t + s - 1 only sees the already-written prefix
             ar = _temporal_net_masked(buf, params["f_AR"], groups,
-                                      valid_len=t + s)
+                                      valid_len=t + s, precise=precise)
         buf[:, t + s] = ar[:, t + s - 1]
 
     joints_ctx = (_regressor(phi, params["f_3D"], joints_num, use_kernels,
-                             iters=regressor_iters) if with_ctx else None)
+                             regressor_iters, precise) if with_ctx else None)
     joints_future = _regressor(buf[:, t:], params["f_3D"], joints_num,
-                               use_kernels, iters=regressor_iters)
+                               use_kernels, regressor_iters, precise)
     return joints_ctx, joints_future, buf
 
 
 def _rollout(params, feats, steps: int, joints_num: int, groups: int,
-             use_kernels: bool, regressor_iters: int = 3):
+             use_kernels: bool, regressor_iters: int = 3, precise: bool = True):
     """(params, feats (B, T, D_feat)) -> (joints_ctx (B, T, J, 3),
     joints_future (B, steps, J, 3), phi_ext (B, T + steps, D))."""
     with torch.inference_mode():
         x = _project(params, feats)
     return _rollout_from_x(params, x, steps, joints_num, groups, use_kernels,
-                           True, regressor_iters)
+                           True, regressor_iters, precise)
 
 
-def make_rollout_fn(steps: int, joints_num: int = 17, groups: int = 32,
+def make_rollout_fn(params, steps: int, joints_num: int = 17, groups: int = 32,
                     use_kernels: bool = True, regressor_iters: int = 3,
-                    device=None):
-    """(params, feats (B, T, feature_dim)) ->
-    (joints_ctx (B, T, J, 3), joints_future (B, steps, J, 3)), tensors on
-    `device` (cuda unless the caller asks for another), where `params` (a
-    flax-layout tree of tensors) must live. feats may be a numpy array.
+                    device=None, precise: bool = False):
+    """feats (B, T, feature_dim) -> (joints_ctx (B, T, J, 3), joints_future
+    (B, steps, J, 3)), tensors on `device` (cuda unless the caller asks for
+    another), over `params` (a flax-layout tree of tensors or arrays), which
+    are moved there and whose fast-mode copies
+    (:func:`h36x_torch.infer.serving_params`) are made here, once. feats
+    may be a numpy array.
 
     regressor_iters must match the checkpoint's training config."""
     device = resolve_device(device)
+    params = serving_params(_tree_to(params, device), use_kernels, precise)
 
-    def fn(params, feats):
+    def fn(feats):
         feats = torch.as_tensor(feats, dtype=torch.float32).to(device)
         ctx, fut, _ = _rollout(params, feats, steps, joints_num, groups,
-                               use_kernels, regressor_iters)
+                               use_kernels, regressor_iters, precise)
         return ctx, fut
 
     return fn
@@ -176,20 +186,24 @@ def _capture_freeze(x, net_params, groups: int, eps: float):
     return x, stats, state
 
 
-def _stream_block(u, p, st, fs, groups: int):
-    """One residual block on ONE new frame u (1, D) with frozen GN stats fs
-    and conv tap history st; returns (out (1, D), new history)."""
-    h = _frozen_gn_relu(u, fs["mu1"], fs["rstd1"], p["gn1"]["scale"],
-                        p["gn1"]["bias"], groups)
+def _stream_block(u, p, st, fs):
+    """One residual block on ONE new frame u (1, D) with GroupNorm statistics
+    fs frozen per channel ({mean1, rstd1, mean2, rstd2}, each (D,)) and conv
+    tap history st ({h, g}, each (K-1, D)), which it updates in place;
+    returns out (1, D). The arithmetic of h36x's frozen block."""
+    h = torch.relu((u - fs["mean1"]) * fs["rstd1"] * p["gn1"]["scale"]
+                   + p["gn1"]["bias"])
     h_hist = torch.cat([st["h"], h], dim=0)  # (K, D)
     c1 = torch.einsum("kd,kdo->o", h_hist, p["conv1"]["kernel"])[None, :] \
         + p["conv1"]["bias"]
-    g = _frozen_gn_relu(c1, fs["mu2"], fs["rstd2"], p["gn2"]["scale"],
-                        p["gn2"]["bias"], groups)
+    g = torch.relu((c1 - fs["mean2"]) * fs["rstd2"] * p["gn2"]["scale"]
+                   + p["gn2"]["bias"])
     g_hist = torch.cat([st["g"], g], dim=0)
     c2 = torch.einsum("kd,kdo->o", g_hist, p["conv2"]["kernel"])[None, :] \
         + p["conv2"]["bias"]
-    return c2 + u, {"h": h_hist[1:], "g": g_hist[1:]}
+    st["h"].copy_(h_hist[1:])
+    st["g"].copy_(g_hist[1:])
+    return c2 + u
 
 
 def _tree_to(tree, device):
@@ -216,20 +230,35 @@ class StreamingPredictor:
     see module comment). freeze() switches to O(1)-per-push incremental
     inference with the GroupNorm statistics pinned at the freeze-time
     window: per-frame GN and a (K, D) x (K, D, O) contraction in plain
-    PyTorch, then the regressor.
+    PyTorch (float32, as h36x's frozen block), then the regressor.
+
+    The frozen push is one step over static buffers that live as long as the
+    freeze (the features in, the window, each block's tap histories, the
+    per-channel frozen statistics, the joints out), updated in place. On a
+    CUDA device the first frozen push after freeze() runs the step eagerly
+    (the kernels built, their one-time set-up done) and then captures it, from
+    the projection to the joints, as one CUDA graph; every later push copies
+    the features in, replays the graph and reads the joints back, and adds
+    one to `replays`: the graph's launches run without the kernels'
+    wrappers, which count only the eager push and none at the capture.
+    freeze() again, or unfreeze(), throws the graph away. On the CPU the
+    same step runs eagerly.
 
     `params` is a flax-layout tree of tensors (or arrays); it is moved to
     `device` (cuda unless the caller asks for another). With `use_kernels`
     the temporal net and the regressor run through the hand-written kernels
-    on a CUDA device (and through their plain versions on the CPU).
+    on a CUDA device (and through their plain versions on the CPU), at
+    `precise` (False by default, with the bfloat16 weight copies made here,
+    once: :func:`h36x_torch.infer.serving_params`).
     """
 
     def __init__(self, params, window: int = 40, feature_dim: int = 2048,
                  joints_num: int = 17, groups: int = 32,
                  use_kernels: bool = True, eps: float = 1e-5,
-                 regressor_iters: int = 3, device=None):
+                 regressor_iters: int = 3, device=None, precise: bool = False):
         self.device = resolve_device(device)
-        self.params = _tree_to(params, self.device)
+        self.params = serving_params(_tree_to(params, self.device), use_kernels,
+                                     precise)
         self.window = window
         self.feature_dim = int(self.params["input_proj"]["kernel"].shape[0])
         if feature_dim != self.feature_dim:
@@ -241,9 +270,13 @@ class StreamingPredictor:
         self.use_kernels = use_kernels
         self.eps = eps
         self.regressor_iters = regressor_iters
+        self.precise = precise
         self._xbuf = None  # (1, window, latent) projected, device-resident
         self._seen = 0
         self._frozen = None  # (stats, state) trees when frozen
+        self._io = None  # the frozen step's input and output buffers
+        self._graph = None  # the frozen step's CUDA graph
+        self.replays = 0  # frozen pushes served by replaying the graph
 
     @torch.inference_mode()
     def push(self, feat: np.ndarray) -> np.ndarray:
@@ -252,30 +285,64 @@ class StreamingPredictor:
         if feat.size != self.feature_dim:
             raise ValueError(
                 f"feat has {feat.size} features, expected {self.feature_dim}")
+        self._seen += 1
+        if self._frozen is not None:
+            return self._frozen_push(torch.from_numpy(feat))
         xnew = _project(self.params, torch.from_numpy(feat).to(self.device))
-        if self._seen == 0:
+        if self._seen == 1:
             # edge-replicate warm start (constant window, so the roll below
             # is a no-op on content)
             self._xbuf = xnew[None, None, :].repeat(1, self.window, 1)
-        self._seen += 1
         self._xbuf = torch.cat([self._xbuf[:, 1:], xnew[None, None, :]], dim=1)
-        if self._frozen is not None:
-            stats, state = self._frozen
-            u = xnew[None, :]
-            new_state = {}
-            for name in sorted_blocks(self.params["f_movie"]):
-                u, new_state[name] = _stream_block(
-                    u, self.params["f_movie"][name], state[name], stats[name],
-                    self.groups)
-            self._frozen = (stats, new_state)
-            phi_new = u[:, None, :]
-        else:
-            phi = _temporal_net(self._xbuf, self.params["f_movie"],
-                                self.groups, self.use_kernels)
-            phi_new = phi[:, -1:]
-        joints = _regressor(phi_new, self.params["f_3D"], self.joints_num,
-                            self.use_kernels, iters=self.regressor_iters)
+        phi = _temporal_net(self._xbuf, self.params["f_movie"], self.groups,
+                            self.use_kernels, self.precise)
+        joints = _regressor(phi[:, -1:], self.params["f_3D"], self.joints_num,
+                            self.use_kernels, self.regressor_iters, self.precise)
         return joints[0, -1].cpu().numpy()
+
+    def _frozen_step(self) -> None:
+        """One frozen push over the static buffers: the features in
+        `_io["feat"]` -> the window and the tap histories updated in place,
+        the joints in `_io["joints"]`."""
+        stats, state = self._frozen
+        xnew = _project(self.params, self._io["feat"])
+        self._xbuf[0, :-1] = self._xbuf[0, 1:].clone()
+        self._xbuf[0, -1] = xnew
+        u = xnew[None, :]
+        for name in sorted_blocks(self.params["f_movie"]):
+            u = _stream_block(u, self.params["f_movie"][name], state[name],
+                              stats[name])
+        joints = _regressor(u[:, None, :], self.params["f_3D"], self.joints_num,
+                            self.use_kernels, self.regressor_iters, self.precise)
+        self._io["joints"].copy_(joints[0, 0])
+
+    def _frozen_push(self, feat: torch.Tensor) -> np.ndarray:
+        self._io["feat"].copy_(feat)
+        if self.device.type != "cuda":
+            self._frozen_step()
+        elif self._graph is None:
+            # eager first, on a side stream as CUDA graph captures want: the
+            # kernels' build, their attributes, the libraries' handles and
+            # workspaces exist before the capture records the step
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._frozen_step()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self._graph = self._capture()
+        else:
+            self._graph.replay()
+            self.replays += 1
+        return self._io["joints"].cpu().numpy()
+
+    def _capture(self) -> torch.cuda.CUDAGraph:
+        """Record the frozen step as one CUDA graph. A capture runs nothing:
+        the buffers stay as the eager push left them. A capture that fails
+        raises."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._frozen_step()
+        return graph
 
     @torch.inference_mode()
     def freeze(self) -> None:
@@ -286,11 +353,23 @@ class StreamingPredictor:
             raise RuntimeError("no frames pushed yet")
         _, stats, state = _capture_freeze(self._xbuf, self.params["f_movie"],
                                           self.groups, self.eps)
+        rep = self._xbuf.shape[-1] // self.groups
+        # per channel once, not on every push
+        stats = {name: {k.replace("mu", "mean"): v.repeat_interleave(rep)
+                        for k, v in fs.items()} for name, fs in stats.items()}
+        state = {name: {k: v.clone() for k, v in st.items()}
+                 for name, st in state.items()}
+        self._graph = None
+        self._xbuf = self._xbuf.clone()
+        self._io = {"feat": torch.empty(self.feature_dim, device=self.device),
+                    "joints": torch.empty((self.joints_num, 3), device=self.device)}
         self._frozen = (stats, state)
 
     def unfreeze(self) -> None:
         """Return to exact sliding-statistics inference."""
         self._frozen = None
+        self._io = None
+        self._graph = None
 
     @property
     def frozen(self) -> bool:
@@ -304,7 +383,7 @@ class StreamingPredictor:
         # future frames are wanted)
         _, future, _ = _rollout_from_x(
             self.params, self._xbuf, steps, self.joints_num, self.groups,
-            self.use_kernels, False, self.regressor_iters)
+            self.use_kernels, False, self.regressor_iters, self.precise)
         return future[0].cpu().numpy()
 
     @property

@@ -416,12 +416,15 @@ def build_predict_fn(artifact: str = "", model_path: str = "",
                      regressor_iters: int = 3, groups: int = 32,
                      ar_blocks: int = 3, kernel_size: int = 3,
                      regressor_hidden: int = 1024, joints_num: int = 17,
-                     device=None):
+                     device=None, precise: bool = False):
     """Returns predict_fn for a checkpoint.
 
     Checkpoint mode loads the params (held against the model's shapes) onto
     `device` (cuda unless the caller asks for another) and serves
-    :func:`h36x_torch.infer.make_fused_forward` with the kernels on.
+    :func:`h36x_torch.infer.make_fused_forward` with the kernels on, at
+    `precise` (False, the serving default: bfloat16 weights and
+    activations as bfloat16 pairs with float32 sums, the bfloat16 weight
+    copies made once by the engine).
 
     Every forward runs on one dedicated device thread, and warm=True runs
     one max_batch forward there at startup: the kernels' first build and
@@ -449,17 +452,17 @@ def build_predict_fn(artifact: str = "", model_path: str = "",
         regressor_hidden=regressor_hidden), device="cpu")
     model.load_state_dict(ckpt.load_params_only(model_path, model.state_dict()))
     model.to(device)
-    params = param_tree(model)
-    forward = make_fused_forward(joints_num=joints_num, groups=groups,
+    forward = make_fused_forward(param_tree(model), joints_num=joints_num,
+                                 groups=groups,
                                  use_kernels=True,
-                                 regressor_iters=regressor_iters)
+                                 regressor_iters=regressor_iters, precise=precise)
 
     device_thread = ThreadPoolExecutor(max_workers=1,
                                        thread_name_prefix="h36x-device")
 
     def run(feats):
         x = torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(device)
-        return forward(params, x).cpu().numpy()
+        return forward(x).cpu().numpy()
 
     def predict(feats):
         return device_thread.submit(run, feats).result()

@@ -17,7 +17,6 @@ import torch
 
 from h36x_torch.data.features import FeatureClipDataset
 from h36x_torch.data.sampler import SequentialBatchSampler
-from h36x_torch.models.phd import param_tree
 from h36x_torch.train.step import make_forward
 
 
@@ -86,7 +85,8 @@ def evaluate_test(model, dataset: FeatureClipDataset, batch_size: int = 16,
     (per-batch metric SUMS over real rows, drained once), so the dataset
     mean is exact even when the tail batch is short and there is no
     per-batch host sync. `use_kernels` as in the trainer's eval: the fused
-    kernels on CUDA tensors. A `mesh` (evaluation sharded over several
+    kernels on CUDA tensors, at precise=True (float32, as training and the
+    model's own forward). A `mesh` (evaluation sharded over several
     devices) is not ported yet and raises."""
     if mesh is not None:
         raise NotImplementedError(
@@ -116,8 +116,9 @@ def dump_result_batch(
     """Predict one batch and write the results NPZ; returns the payload.
 
     The default forward is the model's plain eval forward; forward_fn
-    optionally overrides it with a (params, feats) -> joints engine (e.g.
-    h36x_torch.infer.make_fused_forward for the kernels' path)."""
+    optionally overrides it with a feats -> joints engine over the model's
+    params (e.g. h36x_torch.infer.make_fused_forward for the kernels'
+    path)."""
     if not dataset.test_set:
         raise ValueError(
             "dump_result_batch needs clip meta (video lookup) — construct "
@@ -126,7 +127,7 @@ def dump_result_batch(
     feats, j3d, j2d, K, meta = dataset.get_batch(idx)
     x = torch.from_numpy(np.ascontiguousarray(feats)).to(_device_of(model)).float()
     if forward_fn is not None:
-        pred = forward_fn(param_tree(model), x)
+        pred = forward_fn(x)
     else:
         pred = make_forward(model, use_kernels=False)(x)
     pred = pred.cpu().numpy()

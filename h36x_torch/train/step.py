@@ -89,11 +89,15 @@ def make_train_step(model, optimizer, fused: bool = False,
 
 
 def make_forward(model, use_kernels: bool = True) -> Callable:
-    """forward(feats) -> joints_pred (B,T,J,3), eval mode, f_AR skipped."""
-    fwd = make_fused_forward(joints_num=model.joints_num, groups=model.groups,
-                             use_kernels=use_kernels,
-                             regressor_iters=model.regressor_iters)
-    return lambda feats: fwd(param_tree(model), feats.float())
+    """forward(feats) -> joints_pred (B,T,J,3), eval mode, f_AR skipped, at
+    precise=True: the trainer's eval and the results stage keep float32."""
+    def forward(feats):
+        fwd = make_fused_forward(param_tree(model), joints_num=model.joints_num,
+                                 groups=model.groups, use_kernels=use_kernels,
+                                 regressor_iters=model.regressor_iters, precise=True)
+        return fwd(feats.float())
+
+    return forward
 
 
 def make_eval_step(model, return_preds: bool = False,

@@ -2,12 +2,15 @@
 small odd shapes that the main paths do not reach (ragged tiles, group
 sizes, tap counts, widths that are no multiple of a tile), plus what the
 wrappers refuse. The backward kernels are held against autograd of the
-plain versions. Marked `cuda`: they skip without a GPU. On a machine with
+plain versions. B1 and B3 on both routes of `precise` (the fast routes
+also at the serving and streaming shapes), and the frozen streaming push
+through its CUDA graph against the same step run eagerly. Marked `cuda`: they skip without a GPU. On a machine with
 one, and without jax, run them with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,7 +33,9 @@ from h36x_torch.ops.regressor import (
     fused_joint_regressor,
     joint_regressor_bwd,
 )
+from h36x_torch.ops.regressor import bf16_weights as regressor_bf16
 from h36x_torch.ops.temporal import (
+    bf16_kernel,
     fused_gn_relu_cconv,
     gn_relu_cconv_bwd,
     reference_gn_relu_cconv,
@@ -72,7 +77,7 @@ def _temporal(dev, b, t, d, o, k, groups, residual, seed=0):
 def test_temporal_kernel_matches_plain(dev, b, t, d, o, k, groups, residual):
     args = _temporal(dev, b, t, d, o, k, groups, residual)
     before = fused_gn_relu_cconv.launches
-    got = fused_gn_relu_cconv(*args, groups=groups)
+    got = fused_gn_relu_cconv(*args, groups=groups, precise=True)
     torch.cuda.synchronize()
     assert fused_gn_relu_cconv.launches == before + 1
     want = reference_gn_relu_cconv(*args, groups=groups)
@@ -94,10 +99,10 @@ def test_temporal_kernel_takes_a_prefix_of_a_longer_buffer(dev, b, t_buf, d, o, 
     for t in range(1, t_buf + 1):
         x, res = x_buf[:, :t], None if r_buf is None else r_buf[:, :t]
         assert b == 1 or t == t_buf or not x.is_contiguous()
-        got = fused_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups)
+        got = fused_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups, precise=True)
         dense = fused_gn_relu_cconv(x.contiguous(), scale, bias, w, cb,
                                     None if res is None else res.contiguous(),
-                                    groups=groups)
+                                    groups=groups, precise=True)
         assert got.is_contiguous() and torch.equal(got, dense), t
         want = reference_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups)
         torch.testing.assert_close(got, want, **TOL, msg=f"t={t}")
@@ -105,7 +110,8 @@ def test_temporal_kernel_takes_a_prefix_of_a_longer_buffer(dev, b, t_buf, d, o, 
 
 def test_temporal_backward_needs_dense_inputs(dev):
     x_buf, scale, bias, w, cb, _ = _temporal(dev, 2, 6, 64, 64, 3, 8, False)
-    out = fused_gn_relu_cconv(x_buf[:, :4], scale.requires_grad_(), bias, w, cb, groups=8)
+    out = fused_gn_relu_cconv(x_buf[:, :4], scale.requires_grad_(), bias, w, cb, groups=8,
+                              precise=True)
     with pytest.raises(ValueError, match="contiguous"):
         out.sum().backward()
 
@@ -129,7 +135,7 @@ def test_regressor_kernel_matches_plain(dev, n, d, h, p, iters):
           0.1 * torch.randn(p, generator=g)]
     ws = [w.to(dev) for w in ws]
     before = fused_joint_regressor.launches
-    got = fused_joint_regressor(*ws, iters, p)
+    got = fused_joint_regressor(*ws, iters, p, precise=True)
     torch.cuda.synchronize()
     assert fused_joint_regressor.launches == before + 1
     torch.testing.assert_close(got, _reference_forward(*ws, iters, p), **TOL)
@@ -138,15 +144,16 @@ def test_regressor_kernel_matches_plain(dev, n, d, h, p, iters):
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x, scale, bias, w, cb, _ = _temporal(dev, 2, 4, 64, 64, 3, 8, False)
     with pytest.raises(TypeError, match="float32"):
-        fused_gn_relu_cconv(x.double(), scale, bias, w, cb, groups=8)
+        fused_gn_relu_cconv(x.double(), scale, bias, w, cb, groups=8, precise=True)
     with pytest.raises(ValueError, match="contiguous"):
         fused_gn_relu_cconv(x.transpose(0, 1).contiguous().transpose(0, 1),
-                            scale, bias, w, cb, groups=8)
+                            scale, bias, w, cb, groups=8, precise=True)
     with pytest.raises(ValueError, match="expected cuda"):
-        fused_gn_relu_cconv(x, scale.cpu(), bias, w, cb, groups=8)
+        fused_gn_relu_cconv(x, scale.cpu(), bias, w, cb, groups=8, precise=True)
     # a tensor that requires grad is taken: its gradient is the backward kernel's
     before = gn_relu_cconv_bwd.launches
-    fused_gn_relu_cconv(x, scale.requires_grad_(), bias, w, cb, groups=8).sum().backward()
+    fused_gn_relu_cconv(x, scale.requires_grad_(), bias, w, cb, groups=8,
+                        precise=True).sum().backward()
     assert scale.grad is not None and gn_relu_cconv_bwd.launches == before + 1
     phi = torch.randn(4, 64, device=dev)
 
@@ -158,10 +165,188 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     before = fused_joint_regressor.launches
     # at H=2400 the block's activations outgrow its shared memory
     with pytest.raises(RuntimeError, match="CUDA error"):
-        fused_joint_regressor(phi, *weights(2400), 3, 51)
+        fused_joint_regressor(phi, *weights(2400), 3, 51, precise=True)
     assert fused_joint_regressor.launches == before
     # the refused launch leaves no error behind for the next one
-    assert fused_joint_regressor(phi, *weights(64), 3, 51).shape == (4, 51)
+    assert fused_joint_regressor(phi, *weights(64), 3, 51, precise=True).shape == (4, 51)
+
+
+# -- the fast routes of B1 and B3 (precise=False) ---------------------------------
+# Against the fast mode's plain version (the same operands rounded alike,
+# f32 sums in another order): element-wise within FAST_TOL and by relative
+# norm within FAST_REL_NORM; against the float32 plain version by relative
+# norm within 2^-8 (bf16 weights: about 2^-9 relative each).
+FAST_TOL = dict(rtol=1e-3, atol=1e-4)
+FAST_REL_NORM = 1e-4
+F32_REL_NORM = 2.0 ** -8
+
+
+def _rel_norm(got, want):
+    return float((got - want).double().norm() / want.double().norm())
+
+
+@pytest.mark.parametrize("b, t, d, o, k, groups, residual", [
+    (3, 7, 128, 128, 3, 8, True),
+    (2, 1, 64, 64, 3, 8, True),
+    (1, 70, 128, 64, 5, 32, False),
+    (5, 9, 64, 192, 1, 2, False),
+    (2, 33, 64, 64, 2, 16, True),
+    (16, 40, 1024, 1024, 3, 32, False),  # the serving shape
+    (1, 40, 1024, 1024, 3, 32, True),    # one exact push
+])
+def test_temporal_fast_route_matches_its_plain_version(dev, b, t, d, o, k, groups,
+                                                       residual):
+    args = _temporal(dev, b, t, d, o, k, groups, residual)
+    before = fused_gn_relu_cconv.launches
+    got = fused_gn_relu_cconv(*args, groups=groups)  # precise=False, the default
+    again = fused_gn_relu_cconv(*args, groups=groups, kernel_bf16=bf16_kernel(args[3]))
+    torch.cuda.synchronize()
+    assert fused_gn_relu_cconv.launches == before + 2
+    assert torch.equal(got, again)  # run to run, bit for bit
+    want = reference_gn_relu_cconv(*args, groups=groups, precise=False)
+    torch.testing.assert_close(got, want, **FAST_TOL)
+    assert _rel_norm(got, want) <= FAST_REL_NORM
+    f32 = reference_gn_relu_cconv(*args, groups=groups)
+    assert _rel_norm(got, f32) <= F32_REL_NORM
+
+
+@pytest.mark.parametrize("b, t_buf, groups, residual", [
+    (3, 12, 8, True),
+    (8, 65, 32, True),   # the rollout's buffer: T 40 + 25 steps
+])
+def test_temporal_fast_route_takes_a_prefix_of_a_longer_buffer(dev, b, t_buf, groups,
+                                                               residual):
+    x_buf, scale, bias, w, cb, r_buf = _temporal(dev, b, t_buf, 128, 128, 3, groups,
+                                                 residual)
+    wb = bf16_kernel(w)
+    for t in range(1, t_buf + 1):
+        x, res = x_buf[:, :t], None if r_buf is None else r_buf[:, :t]
+        got = fused_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups,
+                                  kernel_bf16=wb)
+        dense = fused_gn_relu_cconv(x.contiguous(), scale, bias, w, cb,
+                                    None if res is None else res.contiguous(),
+                                    groups=groups, kernel_bf16=wb)
+        assert torch.equal(got, dense), t
+        want = reference_gn_relu_cconv(x, scale, bias, w, cb, res, groups=groups,
+                                       precise=False)
+        torch.testing.assert_close(got, want, **FAST_TOL, msg=f"t={t}")
+
+
+@pytest.mark.parametrize("n, d, h, p, iters", [
+    (37, 128, 256, 51, 3),
+    (13, 64, 64, 30, 2),
+    (100, 128, 192, 64, 4),
+    (1, 1024, 1024, 51, 3),     # one streamed frame at the flagship width
+    (200, 1024, 1024, 51, 3),   # a rollout's future strips
+    (640, 1024, 1024, 51, 3),   # the serving shape
+])
+def test_regressor_fast_route_matches_its_plain_version(dev, n, d, h, p, iters):
+    g = torch.Generator().manual_seed(1)
+    ws = [torch.randn(n, d, generator=g),
+          torch.randn(d + p, h, generator=g) / (d + p) ** 0.5,
+          0.1 * torch.randn(h, generator=g),
+          torch.randn(h, h, generator=g) / h ** 0.5,
+          0.1 * torch.randn(h, generator=g),
+          torch.randn(h, p, generator=g) / h ** 0.5,
+          0.1 * torch.randn(p, generator=g)]
+    ws = [w.to(dev) for w in ws]
+    before = fused_joint_regressor.launches
+    got = fused_joint_regressor(*ws, iters, p)  # precise=False, the default
+    again = fused_joint_regressor(*ws, iters, p,
+                                  weights_bf16=regressor_bf16(ws[1], ws[3], ws[5]))
+    torch.cuda.synchronize()
+    assert fused_joint_regressor.launches == before + 2
+    assert torch.equal(got, again)
+    want = _reference_forward(*ws, iters, p, precise=False)
+    torch.testing.assert_close(got, want, **FAST_TOL)
+    assert _rel_norm(got, want) <= FAST_REL_NORM
+    assert _rel_norm(got, _reference_forward(*ws, iters, p)) <= F32_REL_NORM
+
+
+def test_fast_routes_refuse_what_they_do_not_take(dev):
+    x, scale, bias, w, cb, _ = _temporal(dev, 2, 4, 96, 80, 3, 8, False)
+    before = fused_gn_relu_cconv.launches
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fused_gn_relu_cconv(x, scale, bias, w, cb, groups=8)
+    x, scale, bias, w, cb, _ = _temporal(dev, 2, 4, 64, 64, 3, 8, False)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_gn_relu_cconv(x, scale, bias, w, cb, groups=8, kernel_bf16=w)
+    assert fused_gn_relu_cconv.launches == before
+    ws = [torch.zeros(4, 96, device=dev), torch.zeros(96 + 51, 64, device=dev),
+          torch.zeros(64, device=dev), torch.zeros(64, 64, device=dev),
+          torch.zeros(64, device=dev), torch.zeros(64, 51, device=dev),
+          torch.zeros(51, device=dev)]
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fused_joint_regressor(*ws, 3, 51)
+
+
+@pytest.mark.parametrize("precise", [True, False])
+def test_frozen_push_graph_replays_the_eager_step(dev, precise):
+    """The frozen push through its CUDA graph against the same step run
+    eagerly on a second predictor in the same state, push by push through
+    freeze -> push -> re-freeze -> push. The first push after a freeze runs
+    eagerly (one regressor launch counted, none at the capture); every later
+    one is a replay, which no wrapper counts and `replays` does."""
+    from h36x_torch.models.phd import PHDFor3DJoints, param_tree
+    from h36x_torch.serve import StreamingPredictor
+
+    model = PHDFor3DJoints(latent_dim=128, feature_dim=64, number_blocks=2, groups=8,
+                           regressor_hidden=128, device=dev)
+    kw = dict(window=8, feature_dim=64, groups=8, precise=precise, device=dev)
+    graph, eager = (StreamingPredictor(param_tree(model), **kw) for _ in range(2))
+    feats = torch.randn(30, 64, generator=torch.Generator().manual_seed(6)).numpy()
+    for i, f in enumerate(feats):
+        if i in (8, 20):
+            graph.freeze()
+            eager.freeze()
+        if not graph.frozen:
+            np.testing.assert_array_equal(graph.push(f), eager.push(f))
+            continue
+        counts = (fused_gn_relu_cconv.launches, fused_joint_regressor.launches)
+        replays, first = graph.replays, graph._graph is None
+        got = graph.push(f)
+        assert (fused_gn_relu_cconv.launches - counts[0],
+                fused_joint_regressor.launches - counts[1]) == (0, int(first))
+        assert graph.replays == replays + (not first)
+        eager._seen += 1
+        with torch.inference_mode():  # the predictor's buffers are inference tensors
+            eager._io["feat"].copy_(torch.from_numpy(f))
+            eager._frozen_step()
+        np.testing.assert_allclose(got, eager._io["joints"].cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=f"push {i}")
+    assert graph._graph is not None and eager._graph is None
+    assert graph.replays == 30 - 8 - 2 and eager.replays == 0
+    graph.unfreeze()
+    assert graph._graph is None
+
+
+def test_fast_regressor_chains_on_two_streams_at_once(dev):
+    """Two fast B3 calls in flight together on two streams (the daemon's
+    device thread beside a streaming predictor): each chain's grid barrier
+    needs all its blocks resident, which its cooperative launch guarantees,
+    so both finish and each equals the same call made alone."""
+    g = torch.Generator().manual_seed(9)
+    d = h = 1024
+    p, iters = 51, 3
+    ws = tuple(t.to(dev) for t in (
+        torch.randn(d + p, h, generator=g) / 32, torch.randn(h, generator=g) / 32,
+        torch.randn(h, h, generator=g) / 32, torch.randn(h, generator=g) / 32,
+        torch.randn(h, p, generator=g) / 32, torch.randn(p, generator=g) / 32))
+    wb = regressor_bf16(ws[0], ws[2], ws[4])
+    # 1280 rows: each chain is one block per SM, so neither fits beside the
+    # other
+    phis = [torch.randn(1280, d, generator=g).to(dev) for _ in range(2)]
+    alone = [fused_joint_regressor(phi, *ws, iters, p, weights_bf16=wb) for phi in phis]
+    streams = [torch.cuda.Stream(dev) for _ in phis]
+    torch.cuda.synchronize()
+    outs = [None, None]
+    for _ in range(20):
+        for i, (s, phi) in enumerate(zip(streams, phis)):
+            with torch.cuda.stream(s):
+                outs[i] = fused_joint_regressor(phi, *ws, iters, p, weights_bf16=wb)
+    torch.cuda.synchronize()
+    for got, want in zip(outs, alone):
+        assert torch.equal(got, want)
 
 
 def _grads(fn, leaves, gout, **kw):
@@ -184,7 +369,7 @@ def test_temporal_backward_kernel_matches_autograd(dev, b, t, d, o, k, groups,
     leaves = [None if a is None else a.clone().requires_grad_() for a in args]
     gout = torch.randn(b, t, o, generator=torch.Generator().manual_seed(2)).to(dev)
     before = gn_relu_cconv_bwd.launches
-    got = _grads(fused_gn_relu_cconv, leaves, gout, groups=groups)
+    got = _grads(fused_gn_relu_cconv, leaves, gout, groups=groups, precise=True)
     torch.cuda.synchronize()
     assert gn_relu_cconv_bwd.launches == before + 1
     want = _grads(reference_gn_relu_cconv, leaves, gout, groups=groups)
@@ -259,7 +444,8 @@ def test_regressor_backward_kernel_matches_autograd(dev, weights, n, d, h, p, it
     gout = torch.randn(n, p, generator=torch.Generator().manual_seed(3)).to(dev)
     leaves = [v.clone().requires_grad_() for v in (phi, *ws)]
     before = joint_regressor_bwd.launches
-    got = _grads(fused_joint_regressor, leaves, gout, iters=iters, out_dim=p)
+    got = _grads(fused_joint_regressor, leaves, gout, iters=iters, out_dim=p,
+                 precise=True)
     torch.cuda.synchronize()
     assert joint_regressor_bwd.launches == before + 1
     want = _grads(_reference_forward, leaves, gout, iters=iters, out_dim=p)

@@ -96,11 +96,12 @@ def test_forward_matches_h36x_fused_engine(small):
         interpret=True))
     want = engine(params, jnp.asarray(feats))
     tparams = param_tree(_port(params, **SMALL))
-    got = phd_forward_fused(tparams, torch.from_numpy(feats), True, groups=8)
+    got = phd_forward_fused(tparams, torch.from_numpy(feats), True, groups=8,
+                            precise=True)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
                                    rtol=1e-3, atol=1e-4)
-    joints = make_fused_forward(groups=8)(tparams, torch.from_numpy(feats))
+    joints = make_fused_forward(tparams, groups=8, precise=True)(torch.from_numpy(feats))
     np.testing.assert_allclose(joints.numpy(), np.asarray(want[2]),
                                rtol=1e-3, atol=1e-4)
 

@@ -91,7 +91,7 @@ class TestTemporal:
         ins = _temporal_inputs(rng, t=t)
         res = rng.normal(size=ins[0].shape).astype(np.float32) if with_residual else None
         got = fused_gn_relu_cconv(*_t(*ins), None if res is None else _t(res)[0],
-                                  groups=8).numpy()
+                                  groups=8, precise=True).numpy()
         want_ref, want_kernel = _jax_temporal(
             *[jnp.asarray(v) for v in ins], None if res is None else jnp.asarray(res),
             groups=8)
@@ -122,7 +122,8 @@ class TestTemporal:
                 "bias": (rng.normal(size=(d,)) * 0.1).astype(np.float32)}
         tp = {k: {n: torch.from_numpy(v) for n, v in sub.items()} for k, sub in p.items()}
         jp = {k: {n: jnp.asarray(v) for n, v in sub.items()} for k, sub in p.items()}
-        got = fused_residual_block(torch.from_numpy(x), tp, groups=8).numpy()
+        got = fused_residual_block(torch.from_numpy(x), tp, groups=8,
+                                   precise=True).numpy()
         block = jax.jit(functools.partial(jax_block, groups=8, tile_o=32,
                                           interpret=True))
         want = np.asarray(block(jnp.asarray(x), jp))
@@ -131,8 +132,8 @@ class TestTemporal:
     def test_cpu_runs_plain_version_without_counting(self, rng):
         before = fused_gn_relu_cconv.launches
         ins = _t(*_temporal_inputs(rng))
-        got = fused_gn_relu_cconv(*ins, groups=8)
-        want = reference_gn_relu_cconv(*ins, groups=8)
+        got = fused_gn_relu_cconv(*ins, groups=8)  # precise=False, h36x's default
+        want = reference_gn_relu_cconv(*ins, groups=8, precise=False)
         assert torch.equal(got, want)
         assert fused_gn_relu_cconv.launches == before
 
@@ -160,7 +161,7 @@ class TestRegressor:
     @pytest.mark.parametrize("n, iters", [(40, 3), (13, 3), (7, 2)])
     def test_matches_h36x(self, rng, n, iters):
         ins = _regressor_inputs(rng, n=n)
-        got = fused_joint_regressor(*_t(*ins), iters, 51).numpy()
+        got = fused_joint_regressor(*_t(*ins), iters, 51, precise=True).numpy()
         want_ref, want_kernel = _jax_regressor(*[jnp.asarray(v) for v in ins],
                                                iters=iters)
         assert got.shape == (n, 51)
@@ -215,7 +216,7 @@ def test_temporal_grads_match_h36x(rng, b, t, with_residual):
     want = _jax_temporal_grads(*[jnp.asarray(v) for v in ins[:5]],
                                jnp.asarray(ins[5]) if with_residual else None,
                                jnp.asarray(gout), groups=8, has_res=with_residual)
-    got = _torch_grads(fused_gn_relu_cconv, ins, gout, groups=8)
+    got = _torch_grads(fused_gn_relu_cconv, ins, gout, groups=8, precise=True)
     for name, a, w in zip(("dx", "dscale", "dbias", "dW", "dcb", "dres"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), **GRAD_TOL,
                                    err_msg=name)
@@ -235,7 +236,8 @@ def test_regressor_grads_match_h36x(rng, n):
     gout = rng.normal(size=(n, 51)).astype(np.float32)
     want = _jax_regressor_grads(*[jnp.asarray(v) for v in ins], jnp.asarray(gout),
                                 iters=3)
-    got = _torch_grads(fused_joint_regressor, ins, gout, iters=3, out_dim=51)
+    got = _torch_grads(fused_joint_regressor, ins, gout, iters=3, out_dim=51,
+                       precise=True)
     for name, a, w in zip(("dphi", "dw1", "db1", "dw2", "db2", "dw3", "db3"),
                           got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL, err_msg=name)
@@ -253,8 +255,9 @@ def test_residual_block_dropout_mask_between_the_calls(rng):
     mask = torch.from_numpy((rng.random((2, 8, d)) < 0.5).astype(np.float32) * 2)
     got = fused_residual_block(x, p, groups=8, dropout_mask=mask)
     h = reference_gn_relu_cconv(x, p["gn1"]["scale"], p["gn1"]["bias"],
-                                p["conv1"]["kernel"], p["conv1"]["bias"], groups=8)
+                                p["conv1"]["kernel"], p["conv1"]["bias"], groups=8,
+                                precise=False)
     want = reference_gn_relu_cconv(h * mask, p["gn2"]["scale"], p["gn2"]["bias"],
                                    p["conv2"]["kernel"], p["conv2"]["bias"],
-                                   residual=x, groups=8)
+                                   residual=x, groups=8, precise=False)
     assert torch.equal(got, want)

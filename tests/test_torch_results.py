@@ -25,7 +25,7 @@ from h36x_torch.cli.debug_batch import main as debug_main
 from h36x_torch.cli.results import main as results_main
 from h36x_torch.data.features import FeatureClipDataset
 from h36x_torch.infer import make_fused_forward
-from h36x_torch.models.phd import PHDFor3DJoints, params_from_flax
+from h36x_torch.models.phd import PHDFor3DJoints, param_tree, params_from_flax
 from h36x_torch.train import results
 from tests.helpers import make_synthetic_store
 from tests.test_full_pipeline import ingested_tree  # noqa: F401  (a fixture)
@@ -191,7 +191,8 @@ def test_dump_result_batch_field_for_field(ingested_tree, tmp_path, rng, flax_st
     jax_results.dump_result_batch(
         flax_model, state.params, JaxDataset(str(store), subjects=[9], test_set=True),
         str(ingested_tree), str(tmp_path / "jax.npz"), **kw)
-    forward_fn = make_fused_forward(groups=port_model.groups) if fused else None
+    forward_fn = (make_fused_forward(param_tree(port_model), groups=port_model.groups,
+                                     precise=True) if fused else None)
     payload = results.dump_result_batch(
         port_model, FeatureClipDataset(store, subjects=[9], test_set=True),
         str(ingested_tree), str(tmp_path / "torch.npz"), forward_fn=forward_fn, **kw)

@@ -148,7 +148,7 @@ def test_daemon_concurrent_requests_match_port_forward(served_ckpt):
             await srv.wait_closed()
 
     outs = asyncio.run(run())
-    want = make_fused_forward()(param_tree(model), torch.from_numpy(np.stack(feats)))
+    want = make_fused_forward(param_tree(model))(torch.from_numpy(np.stack(feats)))
     for got, w in zip(outs, want.numpy()):
         assert got.shape == (T, 17, 3)
         np.testing.assert_allclose(got, w, rtol=1e-5, atol=1e-6)
