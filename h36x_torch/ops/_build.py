@@ -47,6 +47,11 @@ SIGNATURES = {
         # x, scale, bias, w, g, mean, rstd, da, part, dx, dw, dscale, dbias,
         # B, T, D, O, K, G, stream
         "h36x_gn_relu_cconv_bwd": [_P] * 13 + [_I] * 6 + [_P],
+        # B, T, D, O, K -> workspace bytes of the hopper route (0: not taken)
+        "h36x_gn_relu_cconv_bwd_hopper_workspace": [_I] * 5,
+        # x, scale, bias, w, g, mean, rstd, ws, da, part, dx, dw, dscale,
+        # dbias, B, T, D, O, K, G, stream
+        "h36x_gn_relu_cconv_bwd_hopper": [_P] * 14 + [_I] * 6 + [_P],
     },
     "regressor": {
         # phi, w1, b1, w2, b2, w3, b3, out, N, D, H, out_dim, iters, stream
@@ -63,6 +68,10 @@ SIGNATURES = {
         # phi, w1, b1, w2, b2, w3, b3, g, ws, dphi, dw1, db1, dw2, db2, dw3,
         # db3, N, D, H, P, iters, stream
         "h36x_joint_regressor_bwd": [_P] * 16 + [_I] * 5 + [_P],
+        # N, D, H, P, iters -> workspace bytes of the hopper route (0: not taken)
+        "h36x_joint_regressor_bwd_hopper_workspace": [_I] * 5,
+        # as h36x_joint_regressor_bwd, the workspace that of the hopper route
+        "h36x_joint_regressor_bwd_hopper": [_P] * 16 + [_I] * 5 + [_P],
     },
     "bottleneck": {
         # x, w1, b1, w2, b2, w3p, b3p, a_ws, b_ws, out,
@@ -75,6 +84,8 @@ SIGNATURES = {
     },
 }
 RESTYPES = {"h36x_joint_regressor_bwd_workspace": ctypes.c_size_t,
+            "h36x_joint_regressor_bwd_hopper_workspace": ctypes.c_size_t,
+            "h36x_gn_relu_cconv_bwd_hopper_workspace": ctypes.c_size_t,
             "h36x_gn_relu_cconv_fast_workspace": ctypes.c_size_t,
             "h36x_joint_regressor_fast_workspace": ctypes.c_size_t}
 

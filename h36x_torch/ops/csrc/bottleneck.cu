@@ -30,7 +30,7 @@
 // 9*C_mid, whose A tile a producer warpgroup fills with 16-byte cp.async,
 // zero-filled outside the image (the pixel of each row and its 9 taps'
 // validity found once per tile; a 64-channel K stage lies within one tap);
-// (3) [b | x] @ [W3; Wp] (two A tensor maps, switching at k1 = C_mid along
+// (3) [b | x] @ [W3; Wp] (two K segments, switching at C_mid along
 // K) or b @ W3 with the identity residual in the epilogue. A loads by TMA
 // K-major and the weights as they lie, (K, N) row-major, MN-major through
 // wgmma's transpose bit, both with 128-byte swizzle. BN is the widest of
@@ -411,8 +411,8 @@ int map_rows(CUtensorMap* map, const void* base, long long rows, int cols, int b
 template <bool IM2COL>
 int hopper_gemm(HopperParams p, const void* w, cudaStream_t stream) {
   const int bn = p.N % 256 == 0 ? 256 : p.N % 128 == 0 ? 128 : 64;
-  if (p.N % 64 || p.K % 64 || p.k1 % 64 || p.K < 64) return (int)cudaErrorInvalidValue;
-  const int err = map_rows(&p.b, w, p.K, p.N, 64);
+  if (!hp::fits<BlockGemm<64, IM2COL>>(p)) return (int)cudaErrorInvalidValue;
+  const int err = map_rows(&p.b[0], w, p.K, p.N, 64);
   if (err) return err;
   switch (bn) {
     case 256: return hp::launch_gemm<BlockGemm<256, IM2COL>>(p, stream);
@@ -432,29 +432,29 @@ int block_forward_hopper(const void* x, const void* w1, const float* b1, const v
   HopperParams p{};
   p.M = M;
   // (1) a = relu(x @ W1 + b1)
-  int err = map_rows(&p.a, x, M, c_in, hp::BM);
+  int err = map_rows(&p.a[0], x, M, c_in, hp::BM);
   if (err) return err;
-  p.a2 = p.a;
   p.N = c_mid;
-  p.K = p.k1 = c_in;
+  hp::add_seg(p, 0, 0, c_in);
   p.epi = {b1, nullptr, static_cast<__nv_bfloat16*>(a_ws)};
   if ((err = hopper_gemm<false>(p, w1, stream))) return err;
   // (2) b = relu(conv3x3_SAME(a) + b2), an implicit GEMM of depth 9*C_mid
   p.im = {static_cast<const __nv_bfloat16*>(a_ws), c_mid, H, W};
-  p.K = p.k1 = 9 * c_mid;
+  p.K = p.segs = 0;
+  hp::add_seg(p, 0, 0, 9 * c_mid);
   p.epi = {b2, nullptr, static_cast<__nv_bfloat16*>(b_ws)};
   if ((err = hopper_gemm<true>(p, w2, stream))) return err;
   // (3) out = relu(b @ W3 + b3 + x) or relu([b | x] @ [W3; Wp] + (b3 + bp))
-  if ((err = map_rows(&p.a, b_ws, M, c_mid, hp::BM))) return err;
+  if ((err = map_rows(&p.a[0], b_ws, M, c_mid, hp::BM))) return err;
   p.N = c_out;
-  p.k1 = c_mid;
+  p.K = p.segs = 0;
+  hp::add_seg(p, 0, 0, c_mid);
   if (has_proj) {
-    if ((err = map_rows(&p.a2, x, M, c_in, hp::BM))) return err;
-    p.K = c_mid + c_in;
+    // [b | x] @ [W3; Wp]: x against W3p's rows c_mid ..
+    if ((err = map_rows(&p.a[1], x, M, c_in, hp::BM))) return err;
+    hp::add_seg(p, 1, 0, c_in, c_mid);
     p.epi = {b3p, nullptr, static_cast<__nv_bfloat16*>(out)};
   } else {
-    p.a2 = p.a;
-    p.K = c_mid;
     p.epi = {b3p, static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out)};
   }
   return hopper_gemm<false>(p, w3p, stream);

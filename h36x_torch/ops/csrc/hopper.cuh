@@ -18,17 +18,27 @@
 // the producer refills it while they multiply; across tiles the ring keeps
 // loading, so one tile's epilogue overlaps the next tile's loads. The
 // epilogue is the caller's (a class with Args, bytes<BN>() and store<BN>()).
-// A may be two tensors side by side along K, split at k1: either two
-// different operands against the rows of one longer B ([b | x] @ [W3; Wp],
-// B5's projection block), or the hi and lo halves of one bf16 pair against
-// the same rows of B read again (b_wrap: the fast routes of B1 and B3).
+// K may be several segments one after the other, each a pair of tensor
+// maps (A, B) read from its own first row: two different operands against
+// the rows of one longer B ([b | x] @ [W3; Wp], B5's projection block, B
+// read from a row offset), the hi and lo halves of one bf16 pair against
+// the same rows of B read again (the fast routes of B1 and B3), or the
+// passes of a product of float32 operands split into bf16 parts
+// (split_passes: the backward kernels B2 and B4, three parts each, six
+// passes). A segment's length is a multiple of the K stage; TMA's zero
+// fill past an exact tensor map pads a shorter contraction.
+// A is K-major, or MN-major (A_MN: a (K, M) row-major tensor, the X of a
+// weight gradient X^T G, read as it lies through wgmma's transpose bit).
+// A GEMM may also be `splits` independent products over consecutive row
+// ranges of K (split_k rows each), written one after the other as (splits
+// * M, N): partial sums that the caller adds in a fixed order.
 //
 // Shared-memory layouts are those of TMA's 128-byte swizzle: a K-major tile
 // of R rows is R x 128 bytes, 16-byte chunk c of row r at r * 128 +
 // ((c ^ (r % 8)) * 16); 8 rows make one 1024-byte swizzle atom. An MN-major
 // bf16 tile (a (K, N) row-major B read as it lies: the probe's y, the
-// bottleneck's weights) is BN / 64 boxes of 64 K rows x 64 columns, one
-// after the other.
+// bottleneck's weights, an MN-major A) is BN / 64 (BM / 64) boxes of 64 K
+// rows x 64 columns, one after the other.
 
 #pragma once
 
@@ -271,13 +281,13 @@ __device__ __forceinline__ void fence_acc(A (&d)[N]) {
   for (int i = 0; i < N; ++i) fence_reg(d[i]);
 }
 
-// D (64 x N per warpgroup, f32 or s32 in registers) += A (64 x K, shared,
-// K-major) . B (K x N, shared; TRANS_B = 1: MN-major). bf16 takes K = 16,
-// s8 K = 32 (K-major only); scale_d = 0 overwrites D. Thread t of the
+// D (64 x N per warpgroup, f32 or s32 in registers) += A (64 x K, shared;
+// TRANS_A = 1: MN-major) . B (K x N, shared; TRANS_B = 1: MN-major). bf16
+// takes K = 16, s8 K = 32 (K-major only); scale_d = 0 overwrites D. Thread t of the
 // warpgroup holds rows 16 (t / 32) + (t % 32) / 4 + 8 i and columns 8 j +
 // 2 (t % 4) + c at d[4 j + 2 i + c].
 
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da,
     uint64_t db, int scale_d) {
   asm volatile(
@@ -286,16 +296,16 @@ __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, %35;\n"
+      " %32, %33, p, 1, 1, %36, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da,
     uint64_t db, int scale_d) {
   asm volatile(
@@ -306,7 +316,7 @@ __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, %67;\n"
+      " %64, %65, p, 1, 1, %68, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -316,10 +326,10 @@ __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t da,
     uint64_t db, int scale_d) {
   asm volatile(
@@ -334,7 +344,7 @@ __device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t da,
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, %131;\n"
+      " %128, %129, p, 1, 1, %132, %131;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -352,7 +362,7 @@ __device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t da,
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
@@ -426,11 +436,11 @@ struct MmaOf<int8_t> {
 };
 
 // one wgmma over 32 bytes of K (16 bf16, 32 int8) for a 64 x BN warpgroup tile
-template <typename T, int BN, bool B_MN>
+template <typename T, int BN, bool A_MN, bool B_MN>
 __device__ __forceinline__ void mma_32b(typename MmaOf<T>::Acc (&d)[BN / 2], uint64_t da,
                                         uint64_t db, int scale_d) {
   if constexpr (sizeof(T) == 1) {
-    static_assert(!B_MN, "s8 wgmma takes K-major operands only");
+    static_assert(!A_MN && !B_MN, "s8 wgmma takes K-major operands only");
     static_assert(BN == 128 || BN == 256, "s8 tile widths");
     if constexpr (BN == 256) {
       wgmma_s8_n256(d, da, db, scale_d);
@@ -440,11 +450,11 @@ __device__ __forceinline__ void mma_32b(typename MmaOf<T>::Acc (&d)[BN / 2], uin
   } else {
     static_assert(BN == 64 || BN == 128 || BN == 256, "bf16 tile widths");
     if constexpr (BN == 256) {
-      wgmma_bf16_n256<B_MN ? 1 : 0>(d, da, db, scale_d);
+      wgmma_bf16_n256<A_MN ? 1 : 0, B_MN ? 1 : 0>(d, da, db, scale_d);
     } else if constexpr (BN == 128) {
-      wgmma_bf16_n128<B_MN ? 1 : 0>(d, da, db, scale_d);
+      wgmma_bf16_n128<A_MN ? 1 : 0, B_MN ? 1 : 0>(d, da, db, scale_d);
     } else {
-      wgmma_bf16_n64<B_MN ? 1 : 0>(d, da, db, scale_d);
+      wgmma_bf16_n64<A_MN ? 1 : 0, B_MN ? 1 : 0>(d, da, db, scale_d);
     }
   }
 }
@@ -463,26 +473,83 @@ struct Im2col {
   int C, H, W;
 };
 
-template <class Epi>
+// one segment of K: columns [the previous segment's end, end) read A map
+// `a` and B map `b` from their row 0 (B from row b_off), both K rows on
+struct KSeg {
+  int end, a, b, b_off;
+};
+
+// MAPS tensor maps each of A and B, up to MAPS (MAPS + 1) / 2 segments:
+// with MAPS = 3, the six passes of a product of two float32 operands split
+// into three bf16 parts each (split_passes)
+template <class Epi, int MAPS = 2>
 struct Params {
-  CUtensorMap a;   // A (M, K): box (BM rows, 128 bytes); columns k >= k1 come from a2
-  CUtensorMap a2;
-  CUtensorMap b;   // B K-major (N, K): box (BN rows, 128 bytes); MN-major (K, N): box (64, 64)
+  static constexpr int SEGS = MAPS * (MAPS + 1) / 2;
+  // A K-major (M, K): box (BM rows, 128 bytes); MN-major (K, M): box (64, 64)
+  CUtensorMap a[MAPS];
+  // B K-major (N, K): box (BN rows, 128 bytes); MN-major (K, N): box (64, 64)
+  CUtensorMap b[MAPS];
   long long M;
-  int N, K, k1;
-  int b_wrap;      // 1: A's columns k >= k1 read B's rows k - k1 again
-  Im2col im;       // IM2COL: A comes from here instead
+  int N, K;        // K: the end of the last segment
+  int segs;        // 1 .. SEGS
+  KSeg seg[SEGS];
+  int splits;      // 0 or 1: one product; more: one per split_k rows of K
+  int split_k;     // rows of each segment's tensors a split reads, a multiple of BK
+  Im2col im;       // IM2COL: A comes from here instead (and B from b[0])
   typename Epi::Args epi;
 };
 
-template <typename T, int BN_, bool B_MN_, bool IM2COL_, class Epi_>
+// appends a segment of `len` K columns (a multiple of the K stage: TMA
+// fills past the tensor with zeros) reading A map a and B map b
+template <class P>
+inline void add_seg(P& p, int a, int b, int len, int b_off = 0) {
+  p.K += len;
+  p.seg[p.segs++] = KSeg{p.K, a, b, b_off};
+}
+
+// the passes of a product whose operands are split into `parts` bf16 parts
+// (maps 0 .. parts-1, largest first), each `len` K columns: every (i, j)
+// with i + j < parts, largest first. Three parts: a.b to about 2^-27 of
+// each product, below float32's own rounding
+template <class P>
+inline void split_passes(P& p, int parts, int len) {
+  for (int s = 0; s < parts; ++s)
+    for (int i = 0; i <= s; ++i) add_seg(p, i, s - i, len);
+}
+
+// the shapes fit G: N % BN, every segment's length % BK and K >= BK
+template <class G>
+inline bool fits(const typename G::P& p) {
+  if (p.N <= 0 || p.N % G::BN || p.K < G::BK || p.segs < 1 || p.segs > G::P::SEGS)
+    return false;
+  int start = 0;
+  for (int s = 0; s < p.segs; ++s) {
+    if (p.seg[s].end <= start || (p.seg[s].end - start) % G::BK) return false;
+    start = p.seg[s].end;
+  }
+  return start == p.K && (p.splits <= 1 || (p.split_k > 0 && p.split_k % G::BK == 0));
+}
+
+template <class P>
+__host__ __device__ __forceinline__ int split_count(const P& p) {
+  return p.splits > 1 ? p.splits : 1;
+}
+
+// PROMOTE (> 0): every PROMOTE K stages' products go into a fresh wgmma
+// accumulator that is then added into a separate f32 sum (round to
+// nearest): the tensor cores' own accumulation across a long chain of
+// stages loses low bits in one direction, an error that grows with K
+// (PERF.md); a window's products then share one short chain
+template <typename T, int BN_, bool B_MN_, bool IM2COL_, class Epi_, bool A_MN_ = false,
+          int MAPS_ = 2, int PROMOTE_ = 0>
 struct Gemm {
   using Elem = T;
   using Epi = Epi_;
   using Acc = typename MmaOf<T>::Acc;
-  using P = Params<Epi>;
+  using P = Params<Epi, MAPS_>;
   static constexpr int BN = BN_;
-  static constexpr bool B_MN = B_MN_, IM2COL = IM2COL_;
+  static constexpr bool A_MN = A_MN_, B_MN = B_MN_, IM2COL = IM2COL_;
+  static constexpr int PROMOTE = PROMOTE_;
   static constexpr int BK = ROW_BYTES / (int)sizeof(T);  // K elements a stage
   static constexpr int A_BYTES = BM * ROW_BYTES, B_BYTES = BN * ROW_BYTES;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
@@ -497,7 +564,9 @@ struct Gemm {
   static constexpr int CONSUMER_REGS = IM2COL ? 224 : 232;
   static_assert(STAGES >= 2, "a ring");
   static_assert(!B_MN || sizeof(T) == 2, "MN-major B is bf16 only");
+  static_assert(!A_MN || (sizeof(T) == 2 && !IM2COL), "MN-major A is bf16 by TMA only");
   static_assert(!IM2COL || sizeof(T) == 2, "the implicit convolution is bf16 only");
+  static_assert(!PROMOTE || sizeof(T) == 2, "promotion sums f32 accumulators");
   static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536, "register file");
 };
 
@@ -505,37 +574,64 @@ struct Gemm {
 // bytes) box; MN-major BN / 64 boxes of 64 K rows x 64 columns, one after
 // the other
 template <class G>
-__device__ __forceinline__ void load_b(uint8_t* dst, const typename G::P& p, uint64_t* bar,
+__device__ __forceinline__ void load_b(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
                                        int k0, int n0) {
   if constexpr (G::B_MN) {
 #pragma unroll
     for (int j = 0; j < G::BN / 64; ++j)
-      tma_load_2d(dst + j * G::BK * ROW_BYTES, &p.b, bar, n0 + 64 * j, k0);
+      tma_load_2d(dst + j * G::BK * ROW_BYTES, map, bar, n0 + 64 * j, k0);
   } else {
-    tma_load_2d(dst, &p.b, bar, k0, n0);
+    tma_load_2d(dst, map, bar, k0, n0);
   }
+}
+
+// the A tile of rows m0 .. and K columns k0 ..: K-major one (BM, 128 bytes)
+// box; MN-major two boxes of 64 K rows x 64 columns (rows), the second
+// skipped when it lies wholly past M (its rows' sums are never stored)
+template <class G>
+__device__ __forceinline__ void load_a(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                       int k0, int m0, long long M) {
+  if constexpr (G::A_MN) {
+    tma_load_2d(dst, map, bar, m0, k0);
+    if (m0 + 64 < M) tma_load_2d(dst + G::BK * ROW_BYTES, map, bar, m0 + 64, k0);
+  } else {
+    tma_load_2d(dst, map, bar, k0, m0);
+  }
+}
+
+// output tile t of a GEMM: its split, first row and first column
+struct TileAt {
+  int split, m0, n0;
+};
+
+__device__ __forceinline__ TileAt tile_at(long long t, long long per_split, int tiles_n, int bn) {
+  const int s = (int)(t / per_split);
+  const long long r = t - s * per_split;
+  return TileAt{s, (int)(r / tiles_n) * BM, (int)(r % tiles_n) * bn};
 }
 
 template <class G>
 __device__ __forceinline__ void produce_tma(const typename G::P& p, uint8_t* ring,
                                             uint64_t* full, uint64_t* empty, long long tiles,
                                             int tiles_n, int nk, int& stage, uint32_t& phase) {
+  const long long per_split = tiles / split_count(p);
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int m0 = (int)(t / tiles_n) * BM, n0 = (int)(t % tiles_n) * G::BN;
+    const TileAt at = tile_at(t, per_split, tiles_n, G::BN);
+    const int k_base = at.split * p.split_k;
+    int s = 0, start = 0;
     for (int kt = 0; kt < nk; ++kt) {
+      const int k0 = kt * G::BK;
+      if (k0 >= p.seg[s].end) start = p.seg[s++].end;
+      const KSeg& sg = p.seg[s];
       mbar_wait(&empty[stage], phase ^ 1);
       uint8_t* a_dst = ring + stage * G::STAGE_BYTES;
-      uint8_t* b_dst = a_dst + G::A_BYTES;
-      mbar_arrive_expect_tx(&full[stage], G::STAGE_BYTES);
-      const int k0 = kt * G::BK;
-      int kb = k0;
-      if (k0 < p.k1) {
-        tma_load_2d(a_dst, &p.a, &full[stage], k0, m0);
-      } else {
-        tma_load_2d(a_dst, &p.a2, &full[stage], k0 - p.k1, m0);
-        if (p.b_wrap) kb = k0 - p.k1;
-      }
-      load_b<G>(b_dst, p, &full[stage], kb, n0);
+      const int ka = k0 - start + k_base;
+      // an MN-major A whose second box lies past M asks for one box only
+      const uint32_t a_bytes =
+          G::A_MN && at.m0 + 64 >= p.M ? G::A_BYTES / 2 : G::A_BYTES;
+      mbar_arrive_expect_tx(&full[stage], a_bytes + G::B_BYTES);
+      load_a<G>(a_dst, &p.a[sg.a], &full[stage], ka, at.m0, p.M);
+      load_b<G>(a_dst + G::A_BYTES, &p.b[sg.b], &full[stage], ka + sg.b_off, at.n0);
       if (++stage == G::STAGES) {
         stage = 0;
         phase ^= 1;
@@ -586,7 +682,7 @@ __device__ __forceinline__ void produce_im2col(const typename G::P& p, uint8_t* 
       const int k0 = kt * G::BK;
       if (tid == 0) {
         mbar_expect_tx(&full[stage], G::B_BYTES);
-        load_b<G>(a_dst + G::A_BYTES, p, &full[stage], k0, n0);
+        load_b<G>(a_dst + G::A_BYTES, &p.b[0], &full[stage], k0, n0);
       }
       const int tap = k0 / C, c0 = k0 - tap * C;
       const int shift = (tap / 3 - 1) * W + (tap % 3 - 1);
@@ -607,6 +703,31 @@ __device__ __forceinline__ void produce_im2col(const typename G::P& p, uint8_t* 
   }
 }
 
+// the wgmmas of one K stage (128 bytes of K) into accumulator d; acc: add
+// to what d holds (else the first k step overwrites it)
+template <class G>
+__device__ __forceinline__ void stage_mma(typename G::Acc (&d)[G::BN / 2], uint32_t a_addr,
+                                          uint32_t b_addr, bool acc) {
+#pragma unroll
+  for (int kk = 0; kk < ROW_BYTES / 32; ++kk) {
+    // MN-major: a k step is 16 rows of 128 bytes; K-major: 32 bytes of a row
+    const uint64_t da =
+        G::A_MN ? desc_sw128(a_addr + 16 * ROW_BYTES * kk, G::BK * ROW_BYTES, 1024)
+                : desc_sw128(a_addr + 32 * kk, 16, 1024);
+    const uint64_t db =
+        G::B_MN ? desc_sw128(b_addr + 16 * ROW_BYTES * kk, G::BK * ROW_BYTES, 1024)
+                : desc_sw128(b_addr + 32 * kk, 16, 1024);
+    mma_32b<typename G::Elem, G::BN, G::A_MN, G::B_MN>(d, da, db, acc || kk != 0);
+  }
+}
+
+// sum (+)= d, element by element in f32 (first: sum = d)
+template <int N>
+__device__ __forceinline__ void add_acc(float (&sum)[N], const float (&d)[N], bool first) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) sum[i] = first ? d[i] : sum[i] + d[i];
+}
+
 // One consumer warpgroup: rows 64 wg .. 64 wg + 63 of every tile. A stage is
 // released (one arrival per warp) once the next stage's wgmmas are issued and
 // its own have completed.
@@ -617,28 +738,46 @@ __device__ __forceinline__ void consume(const typename G::P& p, uint8_t* ring, u
                                         uint32_t& phase) {
   const uint32_t ring_addr = smem_u32(ring);
   const int lane = tid & 31;
+  const long long per_split = tiles / split_count(p);
   typename G::Acc d[G::BN / 2];
+  // PROMOTE: a second accumulator, the windows taking the two in turn so that
+  // one window's products run while the other's are added, and the f32 sum
+  constexpr int W = G::PROMOTE > 0 ? G::PROMOTE : 1;
+  typename G::Acc d2[G::PROMOTE ? G::BN / 2 : 1];
+  float sum[G::PROMOTE ? G::BN / 2 : 1];
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long m0 = (t / tiles_n) * BM + 64 * wg;
-    const int n0 = (int)(t % tiles_n) * G::BN;
+    const TileAt at = tile_at(t, per_split, tiles_n, G::BN);
     int prev = -1;
     for (int kt = 0; kt < nk; ++kt) {
       mbar_wait(&full[stage], phase);
       if constexpr (G::IM2COL) fence_proxy_async();  // A came by cp.async
+      // this warpgroup's 64 rows: 64 rows of 128 bytes K-major, the wg-th
+      // box of 64 K rows x 64 columns MN-major, 8 KB either way
       const uint32_t a_addr = ring_addr + stage * G::STAGE_BYTES + wg * 64 * ROW_BYTES;
       const uint32_t b_addr = ring_addr + stage * G::STAGE_BYTES + G::A_BYTES;
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < ROW_BYTES / 32; ++kk) {
-        const uint64_t da = desc_sw128(a_addr + 32 * kk, 16, 1024);
-        // MN-major: a k step is 16 rows of 128 bytes; K-major: 32 bytes of a row
-        const uint64_t db =
-            G::B_MN ? desc_sw128(b_addr + 16 * ROW_BYTES * kk, G::BK * ROW_BYTES, 1024)
-                    : desc_sw128(b_addr + 32 * kk, 16, 1024);
-        mma_32b<typename G::Elem, G::BN, G::B_MN>(d, da, db, (kt | kk) != 0);
+      if constexpr (G::PROMOTE) {
+        if ((kt / W) & 1) {
+          stage_mma<G>(d2, a_addr, b_addr, kt % W != 0);
+        } else {
+          stage_mma<G>(d, a_addr, b_addr, kt % W != 0);
+        }
+      } else {
+        stage_mma<G>(d, a_addr, b_addr, kt != 0);
       }
       wgmma_commit();
-      wgmma_wait<1>();
+      wgmma_wait<1>();  // the stage before this one has completed
+      if constexpr (G::PROMOTE) {
+        if (kt > 0 && kt % W == 0) {  // ... and closed a window
+          if (((kt - 1) / W) & 1) {
+            fence_acc(d2);
+            add_acc(sum, d2, false);
+          } else {
+            fence_acc(d);
+            add_acc(sum, d, kt == W);
+          }
+        }
+      }
       if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
       prev = stage;
       if (++stage == G::STAGES) {
@@ -647,10 +786,29 @@ __device__ __forceinline__ void consume(const typename G::P& p, uint8_t* ring, u
       }
     }
     wgmma_wait<0>();
-    fence_acc(d);
+    if constexpr (G::PROMOTE) {
+      if (((nk - 1) / W) & 1) {
+        fence_acc(d2);
+        add_acc(sum, d2, false);
+      } else {
+        fence_acc(d);
+        add_acc(sum, d, nk <= W);
+      }
+    } else {
+      fence_acc(d);
+    }
     if (lane == 0) mbar_arrive(&empty[prev]);
-    G::Epi::template store<G::BN>(d, p.epi, p.M, p.N, m0, n0, epi + wg * G::EPI_WG_BYTES, wg,
-                                  tid);
+    // split s stores rows s * M .. of a (splits * M, N) output
+    const long long row0 = (long long)at.split * p.M;
+    auto store = [&](auto& acc) {
+      G::Epi::template store<G::BN>(acc, p.epi, row0 + p.M, p.N, row0 + at.m0 + 64 * wg, at.n0,
+                                    epi + wg * G::EPI_WG_BYTES, wg, tid);
+    };
+    if constexpr (G::PROMOTE) {
+      store(sum);
+    } else {
+      store(d);
+    }
   }
 }
 
@@ -688,7 +846,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
   const Smem m = setup_smem<G>(smem_raw);
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const int tiles_n = p.N / G::BN;
-  const long long tiles = (p.M + BM - 1) / BM * tiles_n;
+  const long long tiles = (p.M + BM - 1) / BM * tiles_n * split_count(p);
   const int nk = p.K / G::BK;
   int stage = 0;
   uint32_t phase = 0;
@@ -708,15 +866,15 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
 }
 
 // Launch on `stream` with one persistent block per SM (fewer if there are
-// fewer tiles). The shapes must fit G (N % BN, K % BK, k1 % BK all 0, K >=
-// BK); the caller checks them. The shared-memory attribute is set once per
+// fewer tiles). The shapes must fit G (fits<G>); the caller checks them.
+// The shared-memory attribute is set once per
 // kernel, at its first launch, so that a launch inside a CUDA graph capture
 // makes no other runtime call (per device). Returns the launch's CUDA error, or 0; an
 // empty M is a grid of 0 blocks, which the launch refuses.
 template <class G>
 int launch_gemm(const typename G::P& p, cudaStream_t stream) {
   static size_t smem_set[64] = {};
-  const long long tiles = (p.M + BM - 1) / BM * (p.N / G::BN);
+  const long long tiles = (p.M + BM - 1) / BM * (p.N / G::BN) * split_count(p);
   const long long sms = sm_count();
   const unsigned blocks = (unsigned)(tiles < sms ? tiles : sms);
   if (int err = raise_smem(smem_set, gemm_kernel<G>, G::SMEM_BYTES)) return err;
@@ -783,7 +941,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int i = 0; i < c.phases; ++i) {
     const typename G::P& p = c.ph[i];
     const int tiles_n = p.N / G::BN;
-    const long long tiles = (p.M + BM - 1) / BM * tiles_n;
+    const long long tiles = (p.M + BM - 1) / BM * tiles_n * split_count(p);
     const int nk = p.K / G::BK;
     if (i > 0) grid_sync(c.sync, (unsigned)i * gridDim.x);
     if (wg == 0) {
@@ -807,7 +965,8 @@ int launch_chain(const ChainParams<typename G::Epi, MAX>& c, cudaStream_t stream
   static size_t smem_set[64] = {};
   long long tiles = 1;
   for (int i = 0; i < c.phases; ++i) {
-    const long long t = (c.ph[i].M + BM - 1) / BM * (c.ph[i].N / G::BN);
+    const long long t =
+        (c.ph[i].M + BM - 1) / BM * (c.ph[i].N / G::BN) * split_count(c.ph[i]);
     tiles = t > tiles ? t : tiles;
   }
   const long long sms = sm_count();
@@ -880,6 +1039,49 @@ __device__ __forceinline__ void store_tile_bf16(const float (&v)[BN / 2], __nv_b
             *reinterpret_cast<const uint4*>(stage + r * PITCH + ((ch ^ (r & 7)) << 4));
     }
   }
+}
+
+// out (M, N) f32 = the accumulators, 8 bytes a thread straight from the
+// registers, rows at or past M skipped
+struct StoreF32 {
+  struct Args {
+    float* out;
+  };
+  template <int BN>
+  static constexpr int bytes() {
+    return 0;
+  }
+  template <int BN>
+  __device__ static void store(float (&d)[BN / 2], const Args& a, long long M, int N,
+                               long long m0, int n0, uint8_t*, int, int tid) {
+    const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const long long m = m0 + 16 * warp + (lane >> 2) + 8 * i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        *reinterpret_cast<float2*>(a.out + m * N + n0 + 8 * j + 2 * (lane & 3)) =
+            make_float2(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+    }
+  }
+};
+
+// v split into three bf16 parts, v0 = bf16(v), v1 = bf16(v - v0), v2 =
+// bf16(v - v0 - v1) (each difference exact in f32): float32's 24
+// significant bits. Two neighbouring values at `off` of parts that lie
+// `half` elements apart.
+__device__ __forceinline__ void store_split3(__nv_bfloat16* parts, long long half, long long off,
+                                             float v0, float v1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = v0 - hf.x, r1 = v1 - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  *reinterpret_cast<__nv_bfloat162*>(parts + off) = h;
+  *reinterpret_cast<__nv_bfloat162*>(parts + half + off) = m;
+  *reinterpret_cast<__nv_bfloat162*>(parts + 2 * half + off) =
+      __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
 }
 
 }  // namespace h36x_hopper

@@ -150,14 +150,12 @@ int run_bf16(const void* x, const void* y, void* out, int M, int K, int N,
              cudaStream_t stream) {
   using G = Gemm<__nv_bfloat16, BN, true, false, StoreBf16>;
   typename G::P p{};
-  int err = make_map(&p.a, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, M, 2ull * K, 64, BM);
-  if (!err) err = make_map(&p.b, y, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N, K, 2ull * N, 64, 64);
+  int err = make_map(&p.a[0], x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, M, 2ull * K, 64, BM);
+  if (!err) err = make_map(&p.b[0], y, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N, K, 2ull * N, 64, 64);
   if (err) return err;
-  p.a2 = p.a;
   p.M = M;
   p.N = N;
-  p.K = K;
-  p.k1 = K;
+  add_seg(p, 0, 0, K);
   p.epi.out = static_cast<__nv_bfloat16*>(out);
   return launch_gemm<G>(p, stream);
 }
@@ -169,14 +167,13 @@ int run_s8(const void* x, const void* y, void* y_ws, void* out, int M, int K, in
   int err = transpose(y, y_ws, K, N, stream);
   if (err) return err;
   typename G::P p{};
-  err = make_map(&p.a, x, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, M, (uint64_t)K, 128, BM);
-  if (!err) err = make_map(&p.b, y_ws, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, N, (uint64_t)K, 128, BN);
+  err = make_map(&p.a[0], x, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, M, (uint64_t)K, 128, BM);
+  if (!err)
+    err = make_map(&p.b[0], y_ws, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, N, (uint64_t)K, 128, BN);
   if (err) return err;
-  p.a2 = p.a;
   p.M = M;
   p.N = N;
-  p.K = K;
-  p.k1 = K;
+  add_seg(p, 0, 0, K);
   p.epi.out = static_cast<int32_t*>(out);
   return launch_gemm<G>(p, stream);
 }

@@ -48,7 +48,7 @@
 // The weights are single bf16 values; the activations (phi, h1, h2 and
 // the iterate y) are carried as bf16 pairs (hi, lo: about 16 significant
 // bits), read as A = [hi | lo] against the same B rows (hopper.cuh's
-// b_wrap), as the temporal kernel's fast route carries its activation
+// two K segments), as the temporal kernel's fast route carries its activation
 // (temporal.cu): a single bf16 rounding of an activation that is itself a
 // sum of products makes the result jump wherever two summation orders of
 // that sum round to neighbouring bf16 values, and such jumps cascade
@@ -363,18 +363,17 @@ ChainPlan chain_plan(int N, int D, int H) {
 int phase(hp::Params<ChainEpi>& p, long long N, int K, int cols, const void* hi,
           const void* lo, const void* w, ChainEpi::Args epi) {
   p = hp::Params<ChainEpi>{};
-  int err = hp::make_map(&p.a, hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, N, 2ull * K, 64,
+  int err = hp::make_map(&p.a[0], hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, N, 2ull * K, 64,
                          hp::BM);
   if (!err)
-    err = hp::make_map(&p.a2, lo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, N, 2ull * K, 64,
+    err = hp::make_map(&p.a[1], lo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, N, 2ull * K, 64,
                        hp::BM);
-  if (!err) err = hp::make_map(&p.b, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cols, K, 2ull * cols,
-                               64, 64);
+  if (!err) err = hp::make_map(&p.b[0], w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cols, K,
+                               2ull * cols, 64, 64);
   p.M = N;
   p.N = cols;
-  p.k1 = K;
-  p.K = 2 * K;
-  p.b_wrap = 1;
+  hp::add_seg(p, 0, 0, K);
+  hp::add_seg(p, 1, 0, K);
   p.epi = epi;
   return err;
 }

@@ -68,7 +68,7 @@
 //   2. hopper.cuh's TMA + wgmma GEMM over K = 2*K*D: the pair's hi half,
 //      then its lo half, both read by TMA as they lie, against the same
 //      rows of the weights (K*D, O) in bf16, read MN-major as they lie
-//      (b_wrap). The f32 epilogue adds the conv bias and the strided
+//      (two K segments). The f32 epilogue adds the conv bias and the strided
 //      residual from the registers. The result does not depend on the
 //      order in which blocks run, so it is the same bit for bit from run
 //      to run, and the strided call equals the dense one.
@@ -337,14 +337,15 @@ size_t taps_bytes(int B, int T, int D, int K) {
 template <int BN>
 int cconv_fast(hp::Params<BiasResF32> p, const void* a_hi, const void* a_lo, const void* w,
                cudaStream_t stream) {
-  const int kd = p.k1;
-  int err = hp::make_map(&p.a, a_hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kd, p.M, 2ull * kd,
+  const int kd = p.seg[0].end;
+  int err = hp::make_map(&p.a[0], a_hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kd, p.M, 2ull * kd,
                          64, hp::BM);
   if (!err)
-    err = hp::make_map(&p.a2, a_lo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kd, p.M, 2ull * kd, 64,
+    err = hp::make_map(&p.a[1], a_lo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kd, p.M, 2ull * kd, 64,
                        hp::BM);
   if (!err)
-    err = hp::make_map(&p.b, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.N, kd, 2ull * p.N, 64, 64);
+    err = hp::make_map(&p.b[0], w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.N, kd, 2ull * p.N, 64,
+                       64);
   if (err) return err;
   return hp::launch_gemm<CconvGemm<BN>>(p, stream);
 }
@@ -395,9 +396,9 @@ extern "C" int h36x_gn_relu_cconv_fast(const float* x, const float* scale, const
   hp::Params<BiasResF32> p{};
   p.M = (long long)B * T;
   p.N = O;
-  p.k1 = K * D;
-  p.K = 2 * p.k1;  // the pair's hi half, then its lo half, against the same rows of B
-  p.b_wrap = 1;
+  // the pair's hi half, then its lo half, against the same rows of B
+  hp::add_seg(p, 0, 0, K * D);
+  hp::add_seg(p, 1, 0, K * D);
   p.epi = {cb, res, out, T, res_rows};
   return O % 128 == 0 ? cconv_fast<128>(p, a_hi, a_lo, w_bf16, s)
                       : cconv_fast<64>(p, a_hi, a_lo, w_bf16, s);

@@ -13,7 +13,17 @@ Counterpart of h36x/ops/pallas_regressor.py:
   `fused_joint_regressor.launches`; on a CPU tensor it runs the plain
   version; on any other device it raises. It is differentiable: its
   backward on CUDA tensors is the kernel `csrc/regressor_bwd.cu`
-  (:func:`joint_regressor_bwd`, counted in `joint_regressor_bwd.launches`).
+  (:func:`joint_regressor_bwd`, counted in `joint_regressor_bwd.launches`
+  and per route in `joint_regressor_bwd.launches_by_route`).
+
+The backward kernel has two routes, a pure function of the widths
+(:func:`regressor_bwd_route`): "hopper" (D and H multiples of 64, P <=
+P_PAD) runs its products on the tensor cores at float32 accuracy, as the
+temporal op's (:func:`~h36x_torch.ops.temporal.dot_split`: three bf16 parts,
+six passes); "general" (the first design, FP32) takes the other widths.
+:func:`reference_joint_regressor_bwd_split` is the hopper route's plain version
+and :func:`bwd_on_route` launches one named route, uncounted. The backward
+runs the same way whatever the forward's `precise` was.
 
 The `precise` switch, as the temporal op's (:mod:`h36x_torch.ops.temporal`,
 which says how its fast mode differs from h36x's):
@@ -32,7 +42,7 @@ import functools
 import torch
 
 from h36x_torch.ops import _build
-from h36x_torch.ops.temporal import bf16_pair
+from h36x_torch.ops.temporal import HOPPER_WIDTH, bf16_pair, dot_split
 
 P_PAD = 64  # the iterate y is carried P_PAD columns wide (joints_num*3 <= 64)
 
@@ -136,10 +146,82 @@ def _launch_forward(phi2d, w1, b1, w2, b2, w3, b3, iters, out_dim, precise,
     return out[:, :out_dim]
 
 
-def joint_regressor_bwd(phi2d, w1, b1, w2, b2, w3, b3, g, iters: int = 3):
-    """Wrapper of the backward kernel `csrc/regressor_bwd.cu` (CUDA tensors
-    only): the grads (dphi, dw1, db1, dw2, db2, dw3, db3) of the regressor
-    at output gradient g (N, out_dim)."""
+def reference_joint_regressor_bwd_split(phi2d, w1, b1, w2, b2, w3, b3, g,
+                                        iters: int = 3, parts: int = 3):
+    """Plain version of the backward kernel's hopper route: the grads
+    (dphi, dw1, db1, dw2, db2, dw3, db3) of the regressor at output
+    gradient g (N, out_dim), every product on operands split into `parts`
+    bf16 parts (:func:`dot_split`: 3, the kernel's six passes; 2, h36x's
+    three), the rest float32. Explicit formulas, as `csrc/regressor_bwd.cu` states
+    them: the forward recomputed (y_0 = 0, pw1 = phi @ W1p, h1_i, h2_i,
+    y_{i+1}), then with dY_{iters-1} = g, the last round first:
+    dh2_i = (dY_i @ W3^T) * (h2_i > 0), dh1_i = (dh2_i @ W2^T) * (h1_i > 0),
+    dY_{i-1} = dY_i + dh1_i @ W1y^T; dpw1 = sum_i dh1_i; dphi = dpw1 @
+    W1p^T; the weight gradients over the rows of all rounds stacked; the
+    bias gradients the column sums of the sums over rounds."""
+    d = phi2d.shape[1]
+    w1p, w1y = w1[:d], w1[d:]
+
+    def dot(a, b):
+        return dot_split(a, b, parts)
+
+    zeros = torch.zeros_like(g)
+    pw1 = dot(phi2d, w1p)
+    ys, h1s, h2s = [zeros], [], []
+    for it in range(iters):
+        h1 = torch.relu(pw1 + b1) if it == 0 else torch.relu(pw1 + dot(ys[it], w1y) + b1)
+        h2 = torch.relu(dot(h1, w2) + b2)
+        h1s.append(h1)
+        h2s.append(h2)
+        if it + 1 < iters:
+            ys.append(ys[it] + dot(h2, w3) + b3)
+    dys, dh1s, dh2s = [None] * iters, [None] * iters, [None] * iters
+    dy = dys[iters - 1] = g
+    dpw1 = dh2sum = 0
+    dysum = g
+    for it in reversed(range(iters)):
+        dh2s[it] = dot(dy, w3.T) * (h2s[it] > 0)
+        dh1s[it] = dot(dh2s[it], w2.T) * (h1s[it] > 0)
+        dh2sum = dh2sum + dh2s[it]
+        dpw1 = dpw1 + dh1s[it]
+        if it > 0:
+            dy = dys[it - 1] = dy + dot(dh1s[it], w1y.T)
+            dysum = dysum + dy
+    cat = torch.cat
+    dw1 = cat([dot(phi2d.T, dpw1), dot(cat(ys).T, cat(dh1s))])
+    return (dot(dpw1, w1p.T), dw1, dpw1.sum(0), dot(cat(h1s).T, cat(dh2s)),
+            dh2sum.sum(0), dot(cat(h2s).T, cat(dys)), dysum.sum(0))
+
+
+BWD_ROUTES = ("general", "hopper")  # the backward kernel's routes
+
+
+def regressor_bwd_route(d: int, hidden: int, out_dim: int) -> str:
+    """The backward kernel's route for feature width D, hidden width H and
+    out_dim P: "hopper" when D and H are multiples of 64 and P <= P_PAD,
+    else "general". A function of the widths alone (any N), decided before
+    the launch."""
+    if d % HOPPER_WIDTH == 0 and hidden % HOPPER_WIDTH == 0 and out_dim <= P_PAD:
+        return "hopper"
+    return "general"
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_workspace(route, n, d, hidden, out_dim, iters) -> int:
+    (lib,) = _build.load("regressor_bwd")
+    if route == "hopper":
+        return lib.h36x_joint_regressor_bwd_hopper_workspace(n, d, hidden, out_dim, iters)
+    return lib.h36x_joint_regressor_bwd_workspace(n, hidden, out_dim, iters)
+
+
+def bwd_on_route(phi2d, w1, b1, w2, b2, w3, b3, g, iters: int, route: str):
+    """The backward kernel on the named route, CUDA tensors only, uncounted:
+    for comparing or timing one route against the other on the same
+    inputs. :func:`joint_regressor_bwd` is the entry point, and takes the
+    route :func:`regressor_bwd_route` names. A route refused for these
+    shapes raises."""
+    if route not in BWD_ROUTES:
+        raise ValueError(f"joint_regressor_bwd: route {route!r} is not one of {BWD_ROUTES}")
     n, d = phi2d.shape
     hidden = w2.shape[0]
     out_dim = w3.shape[1]
@@ -151,27 +233,41 @@ def joint_regressor_bwd(phi2d, w1, b1, w2, b2, w3, b3, g, iters: int = 3):
                             w2=w2, b2=b2, w3=w3, b3=b3, g=g)
     (lib,) = _build.load("regressor_bwd")
     dev = phi2d.device
-    ws_bytes = lib.h36x_joint_regressor_bwd_workspace(n, hidden, out_dim, iters)
-    ws = torch.empty((ws_bytes // 4,), device=dev, dtype=torch.float32)
+    # 0 on the hopper route: shapes it does not take, which its entry point refuses
+    ws_bytes = _bwd_workspace(route, n, d, hidden, out_dim, iters)
+    ws = torch.empty((max(ws_bytes, 1),), device=dev, dtype=torch.uint8)
     grads = [torch.empty_like(t) for t in (phi2d, w1, b1, w2, b2, w3, b3)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.h36x_joint_regressor_bwd(
-            phi2d.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), g.data_ptr(),
-            ws.data_ptr(), *[t.data_ptr() for t in grads],
-            n, d, hidden, out_dim, iters, stream)
-    _build.check(rc, f"joint_regressor_bwd (N={n}, H={hidden})")
-    joint_regressor_bwd.launches += 1
+    entry = (lib.h36x_joint_regressor_bwd_hopper if route == "hopper"
+             else lib.h36x_joint_regressor_bwd)
+    with _build.on_device(dev):
+        rc = entry(phi2d.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                   b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), g.data_ptr(),
+                   ws.data_ptr(), *[t.data_ptr() for t in grads],
+                   n, d, hidden, out_dim, iters, _build.stream_of(phi2d))
+    _build.check(rc, f"joint_regressor_bwd ({route}, N={n}, D={d}, H={hidden})")
     return tuple(grads)
 
 
-joint_regressor_bwd.launches = 0  # kernel launches
+def joint_regressor_bwd(phi2d, w1, b1, w2, b2, w3, b3, g, iters: int = 3):
+    """Wrapper of the backward kernel `csrc/regressor_bwd.cu` (CUDA tensors
+    only): the grads (dphi, dw1, db1, dw2, db2, dw3, db3) of the regressor
+    at output gradient g (N, out_dim), on the route
+    :func:`regressor_bwd_route` names."""
+    route = regressor_bwd_route(phi2d.shape[1], w2.shape[0], w3.shape[1])
+    grads = bwd_on_route(phi2d, w1, b1, w2, b2, w3, b3, g, iters, route)
+    joint_regressor_bwd.launches += 1
+    joint_regressor_bwd.launches_by_route[route] += 1
+    return grads
+
+
+joint_regressor_bwd.launches = 0  # kernel launches, every route
+joint_regressor_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 
 
 class _JointRegressor(torch.autograd.Function):
     """B3 forward (either route), B4 backward (the custom_vjp of the JAX op;
-    float32, the gradient of the float32 function)."""
+    the gradient of the float32 function, at h36x's precise arithmetic on
+    the hopper route, FP32 on the general one)."""
 
     @staticmethod
     def forward(ctx, phi2d, w1, b1, w2, b2, w3, b3, iters, out_dim, precise,

@@ -11,7 +11,22 @@ block; a full block is two calls (:func:`fused_residual_block`).
   launch in `fused_gn_relu_cconv.launches`; on a CPU tensor it runs the
   plain version; on any other device it raises. It is differentiable: its
   backward on CUDA tensors is the kernel `csrc/temporal_bwd.cu`
-  (:func:`gn_relu_cconv_bwd`, counted in `gn_relu_cconv_bwd.launches`).
+  (:func:`gn_relu_cconv_bwd`, counted in `gn_relu_cconv_bwd.launches` and
+  per route in `gn_relu_cconv_bwd.launches_by_route`).
+
+The backward kernel has two routes, a pure function of the widths
+(:func:`temporal_bwd_route`): "hopper" (D and O multiples of 64) runs its
+products on the tensor cores at float32 accuracy, each float32 operand
+split into three bf16 parts and six passes (:func:`dot_split`; h36x's
+`h36x/ops/pallas_temporal.py::_dot32(precise=True)` takes two parts and
+three passes, :func:`dot3`, which misses the gradient tolerance at the
+training shape); "general" (the first design, FP32) takes the other widths.
+:func:`reference_gn_relu_cconv_bwd_split` is the hopper route's plain
+version (explicit formulas, every product a :func:`dot_split`), and
+:func:`bwd_on_route` launches one named route, uncounted, to compare or
+time the two on the same inputs. The backward runs the same way whatever
+the forward's `precise` was (h36x's single-pass backward at
+precise=False has no caller in either package).
 
 The `precise` switch (h36x's has the same name and defaults,
 `h36x/ops/pallas_temporal.py::_dot32`): `precise=True` runs in float32
@@ -48,6 +63,42 @@ def bf16_pair(t: torch.Tensor) -> torch.Tensor:
     significant bits)."""
     hi = _bf16_round(t)
     return hi + _bf16_round(t - hi)
+
+
+def bf16_parts(t: torch.Tensor, parts: int = 3) -> list:
+    """t (float32) split into `parts` bfloat16 parts, as the backward
+    kernels' hopper routes store a float32 operand: p0 = bf16(t), p1 =
+    bf16(t - p0), p2 = bf16(t - p0 - p1) (each difference exact in
+    float32), returned as float32. Two parts keep about 16 significant
+    bits, three float32's 24."""
+    out, rest = [], t
+    for _ in range(parts):
+        part = _bf16_round(rest)
+        out.append(part)
+        rest = rest - part
+    return out
+
+
+def dot_split(a: torch.Tensor, b: torch.Tensor, parts: int) -> torch.Tensor:
+    """a @ b with both operands split into `parts` bfloat16 parts
+    (:func:`bf16_parts`) and every product a_i @ b_j with i + j < parts
+    taken in float32, largest first: the passes of the hopper routes'
+    K segments (hopper.cuh's split_passes)."""
+    pa, pb = bf16_parts(a, parts), bf16_parts(b, parts)
+    out = None
+    for s in range(parts):
+        for i in range(s + 1):
+            term = pa[i] @ pb[s - i]
+            out = term if out is None else out + term
+    return out
+
+
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as h36x's _dot32(precise=True) computes it: both operands split
+    into bf16 hi and lo parts (the lo parts rounded to bf16, as the card
+    stores them) and three float32 products, a_hi.b_hi + a_hi.b_lo +
+    a_lo.b_hi: about 2^-18 of each product's magnitude."""
+    return dot_split(a, b, 2)
 
 
 def bf16_kernel(kernel: torch.Tensor) -> torch.Tensor:
@@ -152,11 +203,93 @@ def _launch_forward(x, scale, bias, kernel, conv_bias, residual, groups, eps,
     return out, mean, rstd
 
 
-def gn_relu_cconv_bwd(x, scale, bias, kernel, g, mean, rstd, groups: int = 32):
-    """Wrapper of the backward kernel `csrc/temporal_bwd.cu` (CUDA tensors
-    only): (dx, dW, dscale, dbias) of GN -> ReLU -> causal conv at output
-    gradient g (B, T, O), from the forward's statistics mean/rstd (B, G).
-    The conv-bias and residual gradients are not part of it."""
+def gn_stats(x, groups: int = 32, eps: float = 1e-5):
+    """GroupNorm statistics (mean, rstd), each (B, G), as the forward kernel
+    takes them: per sample and group over (T, D/G), variance two-pass."""
+    b, t_len, d = x.shape
+    xg = x.reshape(b, t_len, groups, d // groups)
+    mean = xg.mean(dim=(1, 3))
+    var = ((xg - mean[:, None, :, None]) ** 2).mean(dim=(1, 3))
+    return mean, 1.0 / torch.sqrt(var + eps)
+
+
+def reference_gn_relu_cconv_bwd_split(x, scale, bias, kernel, g, groups: int = 32,
+                                      eps: float = 1e-5, mean=None, rstd=None,
+                                      parts: int = 3):
+    """Plain version of the backward kernel's hopper route: (dx, dW, dscale,
+    dbias) of GN -> ReLU -> causal conv at output gradient g (B, T, O), the
+    two contractions on operands split into `parts` bf16 parts
+    (:func:`dot_split`: 3, the kernel's six passes; 2, h36x's three), the
+    rest float32. mean/rstd (B, G) are the forward's (:func:`gn_stats` when
+    None). Explicit formulas, as `csrc/temporal_bwd.cu` states them:
+    dr[j] = sum_k Gk[j] @ W[k]^T with Gk[j] = g[j + s_k] (0 past T) and
+    Gk[0] = g[0] + ... + g[min(s_k, T-1)], s_k = K-1-k; da = dr * (a > 0);
+    the GroupNorm backward; dW[k] = sum_{b,t} r[b, max(t - s_k, 0)]^T g[b, t]."""
+    b, t_len, d = x.shape
+    k_taps, _, d_out = kernel.shape
+    if mean is None:
+        mean, rstd = gn_stats(x, groups, eps)
+    gs = d // groups
+    mu = mean.repeat_interleave(gs, dim=1)[:, None, :]
+    rs = rstd.repeat_interleave(gs, dim=1)[:, None, :]
+    xh = (x - mu) * rs
+    a = xh * scale + bias
+    r = torch.relu(a)
+    taps_g, taps_r = [], []
+    for k in range(k_taps):
+        s = k_taps - 1 - k
+        gk = torch.zeros_like(g)
+        gk[:, 0] = g[:, :s + 1].sum(dim=1)
+        if t_len > s + 1:
+            gk[:, 1:t_len - s] = g[:, s + 1:]
+        taps_g.append(gk)
+        src = (torch.arange(t_len, device=x.device) - s).clamp_min(0)
+        taps_r.append(r[:, src])
+    rows = b * t_len
+    g_taps = torch.cat(taps_g, dim=2).reshape(rows, k_taps * d_out)
+    w_t = kernel.permute(0, 2, 1).reshape(k_taps * d_out, d)  # [k*O + o, d] = W[k, d, o]
+    dr = dot_split(g_taps, w_t, parts).reshape(b, t_len, d)
+    da = dr * (a > 0)
+    dscale = (xh * da).sum(dim=(0, 1))
+    dbias = da.sum(dim=(0, 1))
+    dxh = (da * scale).reshape(b, t_len, groups, gs)
+    xhg = xh.reshape(b, t_len, groups, gs)
+    m1 = dxh.mean(dim=(1, 3), keepdim=True)
+    m2 = (dxh * xhg).mean(dim=(1, 3), keepdim=True)
+    dx = rs * (dxh - m1 - xhg * m2).reshape(b, t_len, d)
+    r_taps = torch.cat(taps_r, dim=2).reshape(rows, k_taps * d)
+    dw = dot_split(r_taps.T, g.reshape(rows, d_out), parts).reshape(k_taps, d, d_out)
+    return dx, dw, dscale, dbias
+
+
+BWD_ROUTES = ("general", "hopper")  # the backward kernel's routes
+HOPPER_WIDTH = 64  # the hopper route's K stage and narrowest tile
+
+
+def temporal_bwd_route(d: int, d_out: int) -> str:
+    """The backward kernel's route for input width D and output width O:
+    "hopper" when both are multiples of 64, else "general". A function of
+    the widths alone (any B and T: rows past B*T read as zeros), decided
+    before the launch."""
+    if d % HOPPER_WIDTH == 0 and d_out % HOPPER_WIDTH == 0:
+        return "hopper"
+    return "general"
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_hopper_workspace(b, t, d, o, k) -> int:
+    (lib,) = _build.load("temporal_bwd")
+    return lib.h36x_gn_relu_cconv_bwd_hopper_workspace(b, t, d, o, k)
+
+
+def bwd_on_route(x, scale, bias, kernel, g, mean, rstd, groups: int, route: str):
+    """The backward kernel on the named route, CUDA tensors only, uncounted:
+    for comparing or timing one route against the other on the same
+    inputs. :func:`gn_relu_cconv_bwd` is the entry point, and takes the
+    route :func:`temporal_bwd_route` names. A route refused for these
+    shapes raises."""
+    if route not in BWD_ROUTES:
+        raise ValueError(f"gn_relu_cconv_bwd: route {route!r} is not one of {BWD_ROUTES}")
     b, t_len, d = x.shape
     k_taps, _, d_out = kernel.shape
     if tuple(g.shape) != (b, t_len, d_out) or tuple(mean.shape) != (b, groups):
@@ -172,25 +305,47 @@ def gn_relu_cconv_bwd(x, scale, bias, kernel, g, mean, rstd, groups: int = 32):
     dw = torch.empty((k_taps, d, d_out), device=dev, dtype=torch.float32)
     dscale = torch.empty((d,), device=dev, dtype=torch.float32)
     dbias = torch.empty_like(dscale)
+    ptrs = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), kernel.data_ptr(),
+            g.data_ptr(), mean.data_ptr(), rstd.data_ptr())
+    outs = (da.data_ptr(), part.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+            dscale.data_ptr(), dbias.data_ptr())
+    dims = (b, t_len, d, d_out, k_taps, groups)
     (lib,) = _build.load("temporal_bwd")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.h36x_gn_relu_cconv_bwd(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), kernel.data_ptr(),
-            g.data_ptr(), mean.data_ptr(), rstd.data_ptr(), da.data_ptr(),
-            part.data_ptr(), dx.data_ptr(), dw.data_ptr(), dscale.data_ptr(),
-            dbias.data_ptr(), b, t_len, d, d_out, k_taps, groups, stream)
-    _build.check(rc, "gn_relu_cconv_bwd")
-    gn_relu_cconv_bwd.launches += 1
+    with _build.on_device(dev):
+        stream = _build.stream_of(x)
+        if route == "hopper":
+            ws_bytes = _bwd_hopper_workspace(b, t_len, d, d_out, k_taps)
+            # 0: shapes the route does not take; the entry point refuses them
+            ws = torch.empty((max(ws_bytes, 1),), device=dev, dtype=torch.uint8)
+            rc = lib.h36x_gn_relu_cconv_bwd_hopper(*ptrs, ws.data_ptr(), *outs, *dims,
+                                                   stream)
+        else:
+            rc = lib.h36x_gn_relu_cconv_bwd(*ptrs, *outs, *dims, stream)
+    _build.check(rc, f"gn_relu_cconv_bwd ({route}, D={d}, O={d_out}, B*T={b * t_len})")
     return dx, dw, dscale, dbias
 
 
-gn_relu_cconv_bwd.launches = 0  # kernel launches
+def gn_relu_cconv_bwd(x, scale, bias, kernel, g, mean, rstd, groups: int = 32):
+    """Wrapper of the backward kernel `csrc/temporal_bwd.cu` (CUDA tensors
+    only): (dx, dW, dscale, dbias) of GN -> ReLU -> causal conv at output
+    gradient g (B, T, O), from the forward's statistics mean/rstd (B, G),
+    on the route :func:`temporal_bwd_route` names. The conv-bias and
+    residual gradients are not part of it."""
+    route = temporal_bwd_route(x.shape[2], kernel.shape[2])
+    out = bwd_on_route(x, scale, bias, kernel, g, mean, rstd, groups, route)
+    gn_relu_cconv_bwd.launches += 1
+    gn_relu_cconv_bwd.launches_by_route[route] += 1
+    return out
+
+
+gn_relu_cconv_bwd.launches = 0  # kernel launches, every route
+gn_relu_cconv_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 
 
 class _GnReluCconv(torch.autograd.Function):
     """B1 forward (either route), B2 backward (the custom_vjp of the JAX
-    op; float32, the gradient of the float32 function)."""
+    op; the gradient of the float32 function, at h36x's precise
+    arithmetic on the hopper route, FP32 on the general one)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, kernel, conv_bias, residual, groups, eps,

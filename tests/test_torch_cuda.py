@@ -28,17 +28,22 @@ from h36x_torch.ops.matmul_probe import (
     probe_matmul,
     reference_matmul,
 )
+from h36x_torch.ops import regressor as reg_ops
+from h36x_torch.ops import temporal as temporal_ops
 from h36x_torch.ops.regressor import (
     _reference_forward,
     fused_joint_regressor,
     joint_regressor_bwd,
+    reference_joint_regressor_bwd_split,
 )
 from h36x_torch.ops.regressor import bf16_weights as regressor_bf16
 from h36x_torch.ops.temporal import (
     bf16_kernel,
     fused_gn_relu_cconv,
     gn_relu_cconv_bwd,
+    gn_stats,
     reference_gn_relu_cconv,
+    reference_gn_relu_cconv_bwd_split,
 )
 
 pytestmark = pytest.mark.cuda
@@ -485,6 +490,111 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
         joint_regressor_bwd(torch.ones(4, 16, device=dev),
                             *_regressor_weights(dev, 16, 8, 51),
                             torch.ones(4, 51, device=dev), 0)
+
+
+# -- the backward kernels' two routes -------------------------------------------
+
+REL_NORM = 1e-4  # each gradient by relative norm (chip_smoke.py's REL_NORM_TOL)
+
+
+def _hold(got, want, tol, names):
+    for name, a, w in zip(names, got, want):
+        torch.testing.assert_close(a, w, **tol, msg=name)
+        assert _rel_norm(a, w) <= REL_NORM, name
+
+
+@pytest.mark.parametrize("route", temporal_ops.BWD_ROUTES)
+@pytest.mark.parametrize("b, t, d, o, k, groups", [
+    (3, 7, 64, 128, 3, 8), (2, 2, 128, 64, 3, 16), (1, 1, 64, 64, 3, 8),
+    (5, 40, 64, 192, 2, 4), (2, 70, 128, 64, 5, 32)])
+def test_temporal_backward_routes_match_autograd_and_their_plain_version(
+        dev, route, b, t, d, o, k, groups):
+    """Both routes at widths the hopper route takes: against autograd of the
+    float32 plain forward (dx, dW, dscale, dbias), two runs bit for bit, and
+    the hopper route against its split plain version. B*T of 7 to 140 rows:
+    the hopper route's dW reads the rows past B*T as zeros."""
+    x, scale, bias, w, cb, _ = _temporal(dev, b, t, d, o, k, groups, False)
+    gout = torch.randn(b, t, o, generator=torch.Generator().manual_seed(2)).to(dev)
+    mean, rstd = gn_stats(x, groups)
+    got = temporal_ops.bwd_on_route(x, scale, bias, w, gout, mean, rstd, groups, route)
+    again = temporal_ops.bwd_on_route(x, scale, bias, w, gout, mean, rstd, groups, route)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+    leaves = [v.clone().requires_grad_() for v in (x, scale, bias, w)]
+    dx, dscale, dbias, dw = torch.autograd.grad(
+        reference_gn_relu_cconv(*leaves, cb, groups=groups), leaves, gout)
+    names = ("dx", "dW", "dscale", "dbias")
+    _hold(got, (dx, dw, dscale, dbias), GRAD_TOL, names)
+    if route == "hopper":
+        split = reference_gn_relu_cconv_bwd_split(x, scale, bias, w, gout, groups,
+                                                  mean=mean, rstd=rstd)
+        _hold(got, split, GRAD_TOL, names)
+
+
+@pytest.mark.parametrize("route", reg_ops.BWD_ROUTES)
+@pytest.mark.parametrize("n, d, h, p, iters", [
+    (37, 64, 192, 51, 3), (100, 128, 256, 64, 4), (1, 64, 64, 51, 2), (130, 64, 128, 30, 1)])
+def test_regressor_backward_routes_match_autograd_and_their_plain_version(
+        dev, route, n, d, h, p, iters):
+    """Both routes at widths the hopper route takes, init-scale weights on
+    rows clear of ReLU ties: against autograd of the float32 plain forward,
+    two runs bit for bit, and the hopper route against its split plain
+    version."""
+    ws = _init_weights(dev, d, h, p)
+    phi = _untied_rows(dev, n, d, ws, iters, p)
+    gout = torch.randn(n, p, generator=torch.Generator().manual_seed(3)).to(dev)
+    got = reg_ops.bwd_on_route(phi, *ws, gout, iters, route)
+    again = reg_ops.bwd_on_route(phi, *ws, gout, iters, route)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    leaves = [v.clone().requires_grad_() for v in (phi, *ws)]
+    want = _grads(_reference_forward, leaves, gout, iters=iters, out_dim=p)
+    names = ("dphi", "dw1", "db1", "dw2", "db2", "dw3", "db3")
+    _hold(got, want, TOL, names)
+    if route == "hopper":
+        _hold(got, reference_joint_regressor_bwd_split(phi, *ws, gout, iters), TOL, names)
+
+
+def test_backward_wrappers_take_the_route_of_the_widths(dev):
+    """64-multiples on the hopper route, odd widths on the general one, each
+    launch counted once and by its route."""
+    for d, o, route in ((64, 128, "hopper"), (96, 80, "general")):
+        args = _temporal(dev, 2, 5, d, o, 3, 8, False)
+        leaves = [None if a is None else a.clone().requires_grad_() for a in args]
+        before = dict(gn_relu_cconv_bwd.launches_by_route)
+        _grads(fused_gn_relu_cconv, leaves, torch.ones(2, 5, o, device=dev), groups=8,
+               precise=True)
+        after = gn_relu_cconv_bwd.launches_by_route
+        assert {r: after[r] - before[r] for r in after} == {
+            r: int(r == route) for r in after}
+    for d, h, route in ((64, 64, "hopper"), (1000, 64, "general")):
+        ws = _regressor_weights(dev, d, h, 30)
+        before = dict(joint_regressor_bwd.launches_by_route)
+        joint_regressor_bwd(torch.randn(5, d, device=dev), *ws, torch.ones(5, 30, device=dev),
+                            2)
+        after = joint_regressor_bwd.launches_by_route
+        assert {r: after[r] - before[r] for r in after} == {
+            r: int(r == route) for r in after}
+
+
+def test_hopper_backward_refuses_other_widths_and_leaves_no_error(dev):
+    """The hopper route named for widths it does not take: the entry point
+    refuses the launch, the wrapper raises, and the next launch runs."""
+    x, scale, bias, w, _, _ = _temporal(dev, 2, 4, 96, 80, 3, 8, False)
+    mean, rstd = gn_stats(x, 8)
+    gout = torch.ones(2, 4, 80, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        temporal_ops.bwd_on_route(x, scale, bias, w, gout, mean, rstd, 8, "hopper")
+    ws = _regressor_weights(dev, 1000, 64, 30)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        reg_ops.bwd_on_route(torch.ones(4, 1000, device=dev), *ws,
+                             torch.ones(4, 30, device=dev), 2, "hopper")
+    with pytest.raises(ValueError, match="route"):
+        reg_ops.bwd_on_route(torch.ones(4, 1000, device=dev), *ws,
+                             torch.ones(4, 30, device=dev), 2, "fast")
+    got = temporal_ops.bwd_on_route(x, scale, bias, w, gout, mean, rstd, 8, "general")
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got)
 
 
 # -- B5, the fused bottleneck ---------------------------------------------------
