@@ -54,7 +54,15 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
    480 u8 frames, the folded
    `opt` engine (13 B5 launches, all on the hopper route) against the
    plain module (cuDNN), both bfloat16, and each against the float32
-   module, by relative norm; each engine's frames/s.
+   module, by relative norm; each engine's frames/s. The grouped step
+   (`--optim.steps-per-dispatch 4`) at full width: the first group eager
+   and captured as one CUDA graph of 4 fused steps (forward, B1-B4,
+   AdamW); one replay against the same 4 steps run eagerly, params, mu,
+   nu, count and metrics bit for bit, no wrapper count during the replay,
+   and the replay's torch.profiler trace holding the eager group's B1-B4
+   kernels; set_learning_rate between two replays reaching the second
+   (equal to eager steps at the new rate); at dropout 0.5 two replays of
+   one batch drawing other masks; ms per step eager and graphed.
 4. The serving path at full model width: a seeded PHDFor3DJoints is saved
    as a checkpoint, served by the port's BatchingServer on a local socket,
    precise and then at its default (fast), and answers 16 concurrent and 3
@@ -65,12 +73,21 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
    regressor launches per device batch. phd_forward_fused(predict_future=
    True) with kernels is held against its plain version too (f_AR and the
    second regressor pass), in both modes.
-5. The training path: a full-width 128-clip store (T 40, feature 2048)
-   written with the port's ShardWriter, trained for 2 epochs by
-   h36x_torch.cli.train.main with --optim.fused true --model.dropout 0 at
-   batch 32; finite losses, best/last checkpoints (last equal to the
-   trained model), 2 metrics.jsonl lines, and exactly 4 B1 + 4 B2 + 1 B3 +
-   1 B4 launches per train step and 4 B1 + 1 B3 per eval batch.
+5. The training path: a full-width 192-clip store (T 40, feature 2048;
+   128 train clips, 4 batches an epoch, 64 val) written with the port's
+   ShardWriter, trained for 2 epochs by h36x_torch.cli.train.main with
+   --optim.fused true --model.dropout 0 at batch 32; finite losses,
+   best/last checkpoints (last equal to the trained model), 2
+   metrics.jsonl lines, and exactly 4 B1 + 4 B2 + 1 B3 + 1 B4 launches per
+   train step and 4 B1 + 1 B3 per eval batch. Then, each its own path on
+   that store: --optim.steps-per-dispatch 4 (epoch 1 eager and captured,
+   epoch 2 one replay; metrics.jsonl within 1e-6 of the ungrouped run);
+   --optim.grad-accum 2 for one epoch with --profile-dir (finite, a trace
+   holding B1-B4's kernels); --optim.stop-after-epochs 1 then --resume
+   (rows equal to the uninterrupted run's); phase 2 --init-from the
+   phase-1 best for 2 epochs, --optim.curriculum-steps 2 (finite,
+   input_proj, f_movie and f_3D bit for bit unchanged, f_AR moved; plain
+   ops, no launch).
 6. The extraction path: h36x_torch.extract.pipeline.run_extract (what
    h36x_torch.cli.extract calls) over an in-memory video source made from a
    seed (SyntheticVideos: the machine has no OpenCV to decode mp4), at the
@@ -1117,16 +1134,18 @@ def check_train_step(dev, g):
     return rec
 
 
-def write_store(root, g, clips=128, per_shard=16, t=40, f=2048):
+def write_store(root, g, clips=128, per_shard=16, t=40, f=2048, train_clips=None):
     """A full-width feature store: `clips` clips of (t, f) features, one
-    variant each, the first half subject 1 (train), the rest subject 5
-    (val), written with the port's ShardWriter."""
+    variant each, the first `train_clips` (half when None) subject 1
+    (train), the rest subject 5 (val), written with the port's
+    ShardWriter."""
     from h36x_torch.data.shards import ShardWriter, write_index
 
+    train_clips = clips // 2 if train_clips is None else train_clips
     writer = ShardWriter(root, n_vars=1)
     index = []
     for sid in range(clips // per_shard):
-        subject = 1 if sid < clips // per_shard // 2 else 5
+        subject = 1 if sid < train_clips // per_shard else 5
         arrays = {
             "feats": torch.randn(per_shard, t, f, generator=g).numpy(),
             "joints3d": (300 * torch.randn(per_shard, t, 17, 3, generator=g)).numpy(),
@@ -1144,6 +1163,23 @@ def write_store(root, g, clips=128, per_shard=16, t=40, f=2048):
                 feat_dtype="float32")
 
 
+TRAIN = dict(epochs=2, batch=32, train_clips=128, val_clips=64)  # the trainer's runs
+
+
+def train_argv(store, outdir, *flags):
+    """cli.train's arguments for the trainer's runs on `store`: fused
+    kernels, dropout 0, TRAIN's epochs and batch, then `flags`."""
+    return ["--train-root", store, "--train-subjects", "1", "--val-subjects", "5",
+            "--outdir", outdir, "--optim.fused", "true", "--model.dropout", "0",
+            "--optim.epochs", str(TRAIN["epochs"]), "--optim.batch-size",
+            str(TRAIN["batch"]), "--optim.log-every", "0", *flags]
+
+
+def read_rows(outdir) -> list:
+    with open(os.path.join(outdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
 def drive_train_path(g, tmp):
     """The trainer end to end: h36x_torch.cli.train.main over a full-width
     store, 2 epochs, fused kernels, dropout 0; returns the launch counts."""
@@ -1154,16 +1190,14 @@ def drive_train_path(g, tmp):
 
     store, outdir = os.path.join(tmp, "store"), os.path.join(tmp, "runs")
     t0 = time.perf_counter()
-    write_store(store, g)
+    write_store(store, g, clips=TRAIN["train_clips"] + TRAIN["val_clips"],
+                train_clips=TRAIN["train_clips"])
     log({"phase": "store_written", "seconds": time.perf_counter() - t0})
-    epochs, batch, train_clips, val_clips = 2, 32, 64, 64
+    epochs, batch, train_clips, val_clips = (TRAIN[k] for k in (
+        "epochs", "batch", "train_clips", "val_clips"))
     zero_counts()
     t0 = time.perf_counter()
-    model, best = train_main([
-        "--train-root", store, "--train-subjects", "1", "--val-subjects", "5",
-        "--outdir", outdir, "--optim.fused", "true", "--model.dropout", "0",
-        "--optim.epochs", str(epochs), "--optim.batch-size", str(batch),
-        "--optim.log-every", "0"])
+    model, best = train_main(train_argv(store, outdir))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counts()
@@ -1173,8 +1207,7 @@ def drive_train_path(g, tmp):
     want = expect_counts(gn_relu_cconv=4 * steps + 4 * evals,
                          gn_relu_cconv_bwd=4 * steps,
                          joint_regressor=steps + evals, joint_regressor_bwd=steps)
-    with open(os.path.join(outdir, "metrics.jsonl")) as f:
-        rows = [json.loads(line) for line in f]
+    rows = read_rows(outdir)
     log({"phase": "trainer", "seconds": seconds, "train_steps": steps,
          "eval_batches": evals, "launches": launches, "best_val_mpjpe": best,
          "metrics": rows})
@@ -1199,6 +1232,328 @@ def drive_train_path(g, tmp):
         raise AssertionError("best.msgpack (last epoch) differs from the model")
     log({"check": "trainer checkpoints", "best_epoch": best_epoch, "ok": True})
     return launches
+
+
+ROW_KEYS = ("lr", "train_loss", "train_mpjpe", "val_loss", "val_mpjpe", "val_bone")
+
+
+def ours(name: str) -> bool:
+    """A CUDA kernel of h36x_torch/ops/csrc (anonymous namespaces and
+    hopper.cuh's h36x_hopper), not PyTorch's or cuBLAS's."""
+    return (("(anonymous namespace)::" in name or "h36x_hopper::" in name)
+            and "at::" not in name and "c10::" not in name)
+
+
+def traced_kernels(fn) -> dict:
+    """Name -> count of this package's CUDA kernels in a torch.profiler
+    trace of fn (CUPTI's kernel records, replayed graph nodes included)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return dict(Counter(e.name for e in prof.events()
+                        if e.device_type == DeviceType.CUDA and ours(e.name)))
+
+
+def check_graphed_train_step(dev, g, smi):
+    """The grouped train step at full width (flagship model, batch 32 x T
+    40, fused, k = 4 steps a group): the first group runs eagerly and
+    captures one CUDA graph of the 4 steps; then
+
+    - graph against eager: one replay against the same 4 steps run
+      eagerly from the same params and AdamW state: params, mu, nu, count
+      and metrics bit for bit; the wrappers count no launch during the
+      replay, and a torch.profiler trace of the replay holds the same
+      kernels of B1-B4 as the eager group's (4 x (4 B1 + 4 B2 + 1 B3 +
+      1 B4) calls);
+    - the learning rate reaches the graph: set_learning_rate between two
+      replays, the second equal to eager steps at the new rate;
+    - dropout under the graph: at dropout 0.5 the generator is registered,
+      two replays of one batch from one state draw other masks (other
+      losses), as two eager groups do;
+    - ms per step, eager and graphed (CUDA events)."""
+    from h36x_torch.config import SEQ_LEN, ModelConfig
+    from h36x_torch.models.phd import PHDFor3DJoints
+    from h36x_torch.train.state import make_optimizer, optimizer_tensors, set_learning_rate
+    from h36x_torch.train.step import make_train_step
+
+    mc, b, k = ModelConfig(), 32, 4
+    t0 = time.perf_counter()
+    model = PHDFor3DJoints(generator=torch.Generator().manual_seed(2), device=dev,
+                           dropout=0.0)
+    opt, _ = make_optimizer(model, 1e-4)
+    state = [*model.parameters(), *optimizer_tensors(opt)]
+
+    def snapshot():
+        return [x.detach().clone() for x in state]
+
+    def restore(snap):
+        with torch.no_grad():
+            for x, y in zip(state, snap):
+                x.copy_(y)
+
+    def same(snap) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(state, snap))
+
+    def group():
+        return ((torch.randn(k, b, SEQ_LEN, mc.feature_dim, generator=g)).to(dev),
+                (0.3 * torch.randn(k, b, SEQ_LEN, 17, 3, generator=g)).to(dev),
+                (100 * torch.randn(k, b, SEQ_LEN, 17, 2, generator=g)).to(dev),
+                (1000 * torch.eye(3)).expand(k, b, 3, 3).contiguous().to(dev))
+
+    groups = [group() for _ in range(3)]
+    step = make_train_step(model, opt, fused=True, scan_steps=k)
+    t1 = time.perf_counter()
+    step(groups[0])
+    torch.cuda.synchronize()
+    rec = {"phase": "graphed_train_step", "batch": b, "steps_per_graph": k,
+           "first_group_and_capture_s": time.perf_counter() - t1}
+    if (step.eager_steps, step.graph_replays) != (k, 0):
+        raise AssertionError(f"first group: {step.eager_steps} eager, "
+                             f"{step.graph_replays} replays")
+
+    # graph against eager, bit for bit
+    s0 = snapshot()
+    zero_counts()
+    replayed = step(groups[1])
+    torch.cuda.synchronize()
+    if step.graph_replays != 1 or read_counts() != expect_counts():
+        raise AssertionError(f"replay: {step.graph_replays} replays, wrapper counts "
+                             f"{read_counts()} (want none)")
+    after = snapshot()
+    restore(s0)
+    zero_counts()
+    eager = step.run_eager(groups[1])
+    torch.cuda.synchronize()
+    want = expect_counts(gn_relu_cconv=4 * k, gn_relu_cconv_bwd=4 * k,
+                         joint_regressor=k, joint_regressor_bwd=k)
+    if read_counts() != want:
+        raise AssertionError(f"eager group launches {read_counts()} != {want}")
+    bitwise = same(after) and all(torch.equal(replayed[m], eager[m]) for m in eager)
+    rec["replay_equals_eager_bitwise"] = bitwise
+    rec["max_abs_param_diff"] = max(float((x - y).abs().max()) for x, y in
+                                    zip(state[:len(list(model.parameters()))], after)
+                                    if x.dtype.is_floating_point)
+    if not bitwise:
+        log(rec)
+        raise AssertionError("a replay of the graphed step differs from the eager steps")
+
+    # the replay's kernels against the eager group's
+    def replay_once():
+        restore(s0)
+        step(groups[1])
+
+    def eager_once():
+        restore(s0)
+        step.run_eager(groups[1])
+
+    # CUPTI drops a record now and then: a pair of traces that differ is
+    # taken again, at most 3 times
+    for attempt in range(3):
+        eager_kernels = traced_kernels(eager_once)
+        zero_counts()
+        replay_kernels = traced_kernels(replay_once)
+        if read_counts() != expect_counts():
+            raise AssertionError(f"a traced replay counted launches: {read_counts()}")
+        if replay_kernels == eager_kernels:
+            break
+        log({"check": "replay kernels", "attempt": attempt,
+             "eager": sum(eager_kernels.values()), "replay": sum(replay_kernels.values())})
+    else:
+        raise AssertionError(f"replay kernels {replay_kernels} != eager {eager_kernels}")
+    rec["kernels_per_group"] = sum(eager_kernels.values())
+    rec["kernel_names"] = len(eager_kernels)
+
+    # the learning rate reaches a replay
+    step(groups[2])  # a replay at lr 1e-4
+    s1 = snapshot()
+    set_learning_rate(opt, 3e-5)
+    step(groups[2])
+    after_lr = snapshot()
+    restore(s1)  # the learning rate too: set it again
+    set_learning_rate(opt, 3e-5)
+    step.run_eager(groups[2])
+    rec["new_lr_replay_equals_eager"] = same(after_lr)
+    if not rec["new_lr_replay_equals_eager"]:
+        raise AssertionError("a replay after set_learning_rate differs from eager "
+                             "steps at the new rate")
+    restore(s1)
+    set_learning_rate(opt, 1e-4)
+    step.run_eager(groups[2])
+    if same(after_lr):
+        raise AssertionError("the replay at the new rate equals eager steps at the old")
+    set_learning_rate(opt, 3e-5)
+
+    # ms per step, eager and graphed
+    def per_step_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (reps * k)
+
+    rec["eager_ms_per_step"] = per_step_ms(lambda: step.run_eager(groups[1]))
+    rec["graphed_ms_per_step"] = per_step_ms(lambda: step(groups[1]))
+    rec["card"] = smi
+
+    # dropout under the graph
+    model.dropout = 0.5
+    dstep = make_train_step(model, opt, fused=True, scan_steps=k)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    dstep(groups[0], gen)
+    s2 = snapshot()
+    losses = {}
+    for how, fn in (("replay", lambda: dstep(groups[1], gen)),
+                    ("eager", lambda: dstep.run_eager(groups[1], gen))):
+        losses[how] = []
+        for _ in range(2):
+            restore(s2)
+            losses[how].append(fn()["loss"])
+    if dstep.graph_replays != 2:
+        raise AssertionError(f"dropout step: {dstep.graph_replays} replays, want 2")
+    if any(torch.equal(*losses[how]) for how in losses):
+        raise AssertionError(f"dropout 0.5: two draws gave the same losses {losses}")
+    # the same generator state: a replay draws the eager masks (logged)
+    restore(s2)
+    gen.manual_seed(12)
+    a = dstep(groups[1], gen)["loss"]
+    restore(s2)
+    gen.manual_seed(12)
+    rec["dropout_replay_masks_equal_eager"] = torch.equal(a, dstep.run_eager(groups[1], gen)["loss"])
+    rec["dropout_losses"] = {h: [v.tolist() for v in ls] for h, ls in losses.items()}
+    model.dropout = 0.0
+    rec["seconds"] = time.perf_counter() - t0
+    log(rec)
+    del step, dstep
+    torch.cuda.empty_cache()
+    return rec
+
+
+def drive_grouped_train_paths(tmp, base_rows):
+    """cli.train's grouped, resumed, phase-2 and profiled runs on the
+    store and the run of drive_train_path (in tmp), each its own path with
+    the counts set to 0 before it and read after:
+
+    - train_graphed: --optim.steps-per-dispatch 4, against the ungrouped
+      run's metrics.jsonl (rtol 1e-6): epoch 1's group runs eagerly and
+      captures, epoch 2's is one replay;
+    - train_accum_profiled: --optim.grad-accum 2, one epoch, finite, with
+      --profile-dir, which must leave a trace holding B1-B4's kernels;
+    - train_resume: --optim.stop-after-epochs 1, then --resume, against
+      the ungrouped run: rows equal;
+    - train_phase2: --optim.phase 2 --init-from the phase-1 best, 2
+      epochs, --optim.curriculum-steps 2: finite; input_proj, f_movie and
+      f_3D bit for bit those of best.msgpack, f_AR moved. Plain ops (h36x
+      has no fused phase-2 step): no kernel launches.
+    Returns {path: launch counts}."""
+    import math
+
+    from h36x_torch.cli.train import main as train_main
+    from h36x_torch.train.checkpoint import load_params_only
+
+    store, base = os.path.join(tmp, "store"), os.path.join(tmp, "runs")
+    steps = TRAIN["train_clips"] // TRAIN["batch"]
+    evals = math.ceil(TRAIN["val_clips"] / TRAIN["batch"])
+    paths = {}
+
+    def run(name, *flags, outdir=None):
+        outdir = outdir or os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        model, best = train_main(train_argv(store, outdir, *flags))
+        torch.cuda.synchronize()
+        return model, read_rows(outdir), time.perf_counter() - t0
+
+    def finite(rows):
+        return all(math.isfinite(r[k]) for r in rows
+                   for k in ("train_loss", "train_mpjpe", "val_loss", "val_mpjpe"))
+
+    def close(rows, want, rtol):
+        return len(rows) == len(want) and all(
+            abs(r[k] - w[k]) <= rtol * abs(w[k]) for r, w in zip(rows, want)
+            for k in ROW_KEYS)
+
+    # train_graphed
+    zero_counts()
+    _, rows, secs = run("graphed", "--optim.steps-per-dispatch", "4")
+    paths["train_graphed"] = read_counts()
+    want = expect_counts(gn_relu_cconv=4 * steps + 4 * TRAIN["epochs"] * evals,
+                         gn_relu_cconv_bwd=4 * steps, joint_regressor=steps
+                         + TRAIN["epochs"] * evals, joint_regressor_bwd=steps)
+    grouping = [(r["graph_replays"], r["eager_steps"]) for r in rows]
+    log({"phase": "train_graphed", "seconds": secs, "launches": paths["train_graphed"],
+         "graph_replays_eager_steps": grouping,
+         "max_rel_diff": max(abs(r[k] - w[k]) / abs(w[k]) for r, w in zip(rows, base_rows)
+                             for k in ROW_KEYS), "metrics": rows})
+    if paths["train_graphed"] != want or grouping != [(0, steps), (1, 0)]:
+        raise AssertionError(f"graphed trainer: launches {paths['train_graphed']} "
+                             f"(want {want}), replays/eager {grouping}")
+    if not close(rows, base_rows, 1e-6):
+        raise AssertionError("steps-per-dispatch 4 differs from the ungrouped run")
+
+    # train_accum_profiled
+    prof_dir = os.path.join(tmp, "trace")
+    zero_counts()
+    _, rows, secs = run("accum", "--optim.grad-accum", "2", "--optim.epochs", "1",
+                        "--profile-dir", prof_dir)
+    paths["train_accum_profiled"] = read_counts()
+    traces = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir)]
+    with open(traces[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    # a kernel each of B1 (precise route), B2, B3 (precise), B4
+    kinds = {k: any(k in n for n in names) for k in
+             ("cconv_gemm", "gn_bwd", "regressor_kernel", "split_prologue")}
+    want = expect_counts(gn_relu_cconv=4 * steps + 4 * evals, gn_relu_cconv_bwd=4 * steps,
+                         joint_regressor=steps + evals, joint_regressor_bwd=steps)
+    log({"phase": "train_accum_profiled", "seconds": secs,
+         "launches": paths["train_accum_profiled"], "metrics": rows,
+         "trace": os.path.basename(traces[0]), "trace_bytes": os.path.getsize(traces[0]),
+         "trace_kernels_of": kinds})
+    if (len(traces) != 1 or not all(kinds.values()) or not finite(rows)
+            or [r["eager_steps"] for r in rows] != [steps // 2]
+            or paths["train_accum_profiled"] != want):
+        raise AssertionError("grad-accum / profile-dir run failed its checks")
+
+    # train_resume
+    zero_counts()
+    cut = os.path.join(tmp, "resume")
+    _, _, s1 = run("resume", "--optim.stop-after-epochs", "1", outdir=cut)
+    _, rows, s2 = run("resume", "--resume", cut, outdir=cut)
+    paths["train_resume"] = read_counts()
+    keyed = [{k: r[k] for k in ("epoch", *ROW_KEYS)} for r in rows]
+    log({"phase": "train_resume", "seconds": s1 + s2, "launches": paths["train_resume"],
+         "metrics": keyed})
+    if keyed != [{k: r[k] for k in ("epoch", *ROW_KEYS)} for r in base_rows]:
+        raise AssertionError("stop-after + --resume differs from the uninterrupted run")
+
+    # train_phase2
+    best = os.path.join(base, "best.msgpack")
+    zero_counts()
+    model, rows, secs = run("phase2", "--optim.phase", "2", "--optim.fused", "false",
+                            "--init-from", best, "--optim.curriculum-steps", "2")
+    paths["train_phase2"] = read_counts()
+    start = load_params_only(best, {k: v.cpu() for k, v in model.state_dict().items()})
+    moved = {k: not torch.equal(v.cpu(), start[k]) for k, v in model.state_dict().items()}
+    frozen_same = not any(m for k, m in moved.items() if not k.startswith("f_AR."))
+    ar_moved = sum(m for k, m in moved.items() if k.startswith("f_AR."))
+    log({"phase": "train_phase2", "seconds": secs, "launches": paths["train_phase2"],
+         "metrics": rows, "frozen_modules_unchanged": frozen_same,
+         "f_AR_leaves_moved": ar_moved,
+         "f_AR_leaves": sum(k.startswith("f_AR.") for k in moved)})
+    if not (finite(rows) and len(rows) == TRAIN["epochs"] and frozen_same and ar_moved):
+        raise AssertionError("phase-2 run failed its checks")
+    if paths["train_phase2"] != expect_counts():
+        raise AssertionError(f"phase 2 launched kernels: {paths['train_phase2']}")
+    return paths
 
 
 def check_matmul_probe(dev):
@@ -1915,6 +2270,7 @@ def main() -> int:
                check_regressor(dev, g), check_regressor_bwd(dev, g),
                check_bottleneck(dev, frames_per_dispatch()), check_matmul_probe(dev)]
     check_train_step(dev, g)
+    check_graphed_train_step(dev, g, smi.splitlines()[0])
     check_backbone(dev, frames_per_dispatch())
 
     # the main paths, each with the counts set to 0 just before it
@@ -1923,6 +2279,7 @@ def main() -> int:
         paths["serve"] = drive_main_path(dev, g, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         paths["train"] = drive_train_path(g, tmp)
+        paths.update(drive_grouped_train_paths(tmp, read_rows(os.path.join(tmp, "runs"))))
     t0 = time.perf_counter()
     e = EXTRACT
     videos = SyntheticVideos(0, e["videos"], e["frames"], e["raw"], e["seq_len"], e["stride"])

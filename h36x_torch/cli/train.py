@@ -1,14 +1,26 @@
-"""CLI: phase-1 training (freeze f_AR, train f_movie + f_3D) on one GPU
-(counterpart of h36x/cli/train.py).
+"""CLI: training on one GPU (counterpart of h36x/cli/train.py).
 
     python -m h36x_torch.cli.train --train-root STORE [--optim.fused true] \\
-        [--device cpu] [the --data.* / --model.* / --optim.* flags of h36x]
+        [--optim.phase 1|2|0] [--init-from CKPT] [--resume OUTDIR] \\
+        [--optim.steps-per-dispatch K | --optim.grad-accum K] \\
+        [--profile-dir DIR] [--device cpu] [the --data.* / --model.* /
+        --optim.* flags of h36x]
 
-trains on the GPU; `--optim.fused true` runs every residual block forward
-and backward through the hand-written kernels (and the regressor too at
-`--model.dropout 0`). `--device cpu` runs the plain PyTorch path on the CPU.
-Phase 2, --resume, orbax checkpoints, bfloat16 compute, profiling and
-multi-device runs come with later slices and raise.
+trains on the GPU. Phase 1 (the default) freezes f_AR and trains f_movie +
+f_3D; `--optim.fused true` runs every residual block forward and backward
+through the hand-written kernels (and the regressor too at
+`--model.dropout 0`). Phase 2 trains f_AR alone on the curriculum
+(`--optim.input-len`, `--optim.pred-len`, `--optim.curriculum-steps`,
+`--optim.lambda-future`), usually `--init-from` a phase-1 checkpoint, on
+the plain path (it refuses `--optim.fused`); phase 0 trains everything.
+`--resume OUTDIR` continues from OUTDIR/last.msgpack, written by this
+package or by h36x. `--optim.steps-per-dispatch K` makes K updates per
+stacked group of batches, on the card one replay of a CUDA graph of the K
+steps; `--optim.grad-accum K` one update over the mean gradient of K
+microbatches. `--profile-dir` writes a torch.profiler trace of the first
+(resumed) epoch. `--device cpu` runs the plain PyTorch path on the CPU.
+Orbax checkpoints, bfloat16 compute and multi-device runs come with later
+slices and raise.
 """
 
 import argparse
@@ -53,8 +65,19 @@ def main(argv=None):
     )
     val_sampler = SequentialBatchSampler(val_set, batch_size=cfg.optim.batch_size)
 
-    print(f"===== Phase-{cfg.optim.phase} training =====")
-    print(f"Device: {device} | fused kernels: {cfg.optim.fused}")
+    o = cfg.optim
+    print(f"===== Phase-{o.phase} training =====")
+    print(f"Device: {device} | fused kernels: {o.fused}")
+    if o.steps_per_dispatch > 1:
+        print(f"Grouped: {o.steps_per_dispatch} steps per dispatch"
+              + (" (one CUDA graph replay per group)" if device.type == "cuda" else ""))
+    if o.grad_accum > 1:
+        print(f"Grouped: gradient accumulation over {o.grad_accum} microbatches")
+    if o.phase == 2:
+        print(f"AR window: input {o.input_len} | horizon 1 -> {o.pred_len} over "
+              f"{o.curriculum_steps} epochs | lambda_future {o.lambda_future}")
+    if cfg.resume:
+        print(f"Resuming from {cfg.resume}/last.msgpack")
     print(f"Train clips: {len(train_set)} | Val clips: {len(val_set)}")
     print(f"Batch size: {cfg.optim.batch_size} | LR: {cfg.optim.lr} | "
           f"Epochs: {cfg.optim.epochs}")

@@ -5,11 +5,10 @@ The clip geometry constants, `ModelConfig`, and the training configs
 and the extraction config (`ExtractConfig`) with h36x's field names and
 defaults, so the trainer and the extractor take the same
 `--optim.batch-size`-style flags (:func:`parse_into`). Only the training
-fields that the trainer reads are carried over; values that this slice of
-the port does not run yet are refused
-(:func:`h36x_torch.train.loop.check_supported`). The phase-2 curriculum
-fields, the multi-process launch fields and the ingest config come with
-their slices.
+fields that the trainer reads are carried over; values that the port does
+not run yet are refused (:func:`h36x_torch.train.loop.check_supported`).
+The multi-process launch fields and the ingest config come with their
+slices.
 """
 
 from __future__ import annotations
@@ -22,12 +21,15 @@ from typing import List, Optional, Sequence
 
 FRAME_SKIP = 2  # temporal subsampling applied when decoding video
 SEQ_LEN = 40  # frames per clip (after subsampling)
+INPUT_LEN = 15  # warm-up frames for future prediction
+PRED_LEN = 25  # autoregressive prediction horizon
 JOINTS_NUM = 17  # H36M 17-joint skeleton
 FEATURE_DIM = 2048  # ResNet-50 pooled feature width
 LATENT_DIM = 1024  # model latent ("movie strip") width
 BATCH_SIZE = 32
 LR = 1e-4
 EPOCHS = 50
+CURRICULUM_STEPS = 25
 
 TRAIN_SUBJECTS = (1, 6, 7, 8)
 VAL_SUBJECTS = (5,)
@@ -75,10 +77,18 @@ class OptimConfig:
     batch_size: int = BATCH_SIZE
     freeze_ar: bool = True  # phase-1: f_AR frozen
     phase: int = 1  # 1: train f_movie+f_3D; 2: train f_AR (curriculum); 0: all
+    # phase 2: the AR window is frames [input_len, input_len + horizon), the
+    # horizon growing from 1 to pred_len over curriculum_steps epochs;
+    # loss = l_ar + lambda_future * l3d over that window
+    input_len: int = INPUT_LEN
+    pred_len: int = PRED_LEN
+    curriculum_steps: int = CURRICULUM_STEPS
+    lambda_future: float = 1.0
     early_stop_patience: int = 10
     early_stop_min_delta: float = 0.0
     # run at most this many epochs this invocation (0 = no bound); the LR
-    # schedule still targets `epochs`
+    # and curriculum schedules still target `epochs`, so --resume continues
+    # the uninterrupted trajectory
     stop_after_epochs: int = 0
     lambda_2d: float = 0.0  # 2D reprojection loss weight (0 = 3D MSE only)
     seed: int = 0
@@ -87,7 +97,11 @@ class OptimConfig:
     # backward (B1/B2 for every residual block, B3/B4 for the regressor at
     # dropout 0)
     fused: bool = False
+    # >1: that many optimizer updates per stacked batch group; on the card
+    # each full group is one replay of a CUDA graph of the group's steps
     steps_per_dispatch: int = 1
+    # >1: one optimizer update over the mean gradient of that many
+    # microbatches (exclusive with steps_per_dispatch)
     grad_accum: int = 1
 
 
@@ -122,7 +136,7 @@ class TrainConfig:
     init_from: str = ""  # warm-start weights from a checkpoint .msgpack
     train_subjects: List[int] = field(default_factory=lambda: list(TRAIN_SUBJECTS))
     val_subjects: List[int] = field(default_factory=lambda: list(VAL_SUBJECTS))
-    profile_dir: str = ""
+    profile_dir: str = ""  # torch.profiler trace of the first (resumed) epoch
     ckpt_backend: str = "msgpack"
 
 

@@ -11,7 +11,8 @@ PHDFor3DJoints over a flax-layout param tree of tensors (see
 
 :func:`phd_forward_train_fused` is the training forward of the phase-1
 loss path through the same ops, differentiable (their backward kernels on
-CUDA tensors).
+CUDA tensors); :func:`phd_forward_train_future` is phase 2's (plain ops
+only: h36x has no fused phase-2 step).
 
 With `use_kernels=True` (the default) those calls go to the CUDA kernels
 for CUDA tensors and to the plain versions for CPU tensors;
@@ -244,9 +245,20 @@ def phd_forward_train_fused(
     if dropout > 0.0 and generator is None:
         raise ValueError("dropout > 0 needs a torch.Generator for its masks")
     x = feats @ params["input_proj"]["kernel"] + params["input_proj"]["bias"]
+    x = _temporal_net_train(x, params["f_movie"], generator, dropout, groups,
+                            use_kernels, precise)
+    joints = _regressor_train(x, params["f_3D"], generator, dropout,
+                              regressor_iters, joints_num, use_kernels, precise)
+    return x, joints
+
+
+def _temporal_net_train(x, net_params, generator, dropout, groups, use_kernels,
+                        precise):
+    """Training-mode temporal net: one dropout mask per block, between its
+    two convs, drawn in block order."""
     keep = 1.0 - dropout
-    for name in sorted_blocks(params["f_movie"]):
-        p = params["f_movie"][name]
+    for name in sorted_blocks(net_params):
+        p = net_params[name]
         mask = None
         if dropout > 0.0:
             shape = x.shape[:2] + (p["conv1"]["kernel"].shape[-1],)
@@ -256,6 +268,35 @@ def phd_forward_train_fused(
                                      precise=precise)
         else:
             x = _plain_block(x, p, groups, dropout_mask=mask, precise=precise)
-    joints = _regressor_train(x, params["f_3D"], generator, dropout,
-                              regressor_iters, joints_num, use_kernels, precise)
-    return x, joints
+    return x
+
+
+def phd_forward_train_future(
+    params: dict,
+    feats: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    dropout: float = 0.5,
+    joints_num: int = 17,
+    groups: int = 32,
+    regressor_iters: int = 3,
+):
+    """Training forward of the phase-2 loss path, plain ops with autograd
+    (the counterpart of h36x's `model.apply(predict_future=True,
+    train=True)`): input_proj -> f_movie -> phi -> f_AR -> shifted one step
+    (zeros at t = 0) -> phi_hat -> f_3D(phi_hat). Masks are drawn from
+    `generator` in the order f_movie's blocks, f_AR's blocks, the
+    regressor's rounds. f_3D(phi) is not run: no phase-2 loss reads it.
+    Gradients reach the modules whose params require them (phase 2 freezes
+    all but f_AR). Returns (phi, phi_hat, joints_hat)."""
+    if dropout > 0.0 and generator is None:
+        raise ValueError("dropout > 0 needs a torch.Generator for its masks")
+    x = feats @ params["input_proj"]["kernel"] + params["input_proj"]["bias"]
+    phi = _temporal_net_train(x, params["f_movie"], generator, dropout, groups,
+                              False, True)
+    ar_out = _temporal_net_train(phi, params["f_AR"], generator, dropout, groups,
+                                 False, True)
+    phi_hat = torch.cat([torch.zeros_like(ar_out[:, :1]), ar_out[:, :-1]], dim=1)
+    joints_hat = _regressor_train(phi_hat, params["f_3D"], generator, dropout,
+                                  regressor_iters, joints_num, False, True)
+    return phi, phi_hat, joints_hat

@@ -21,7 +21,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from h36x_torch.infer import phd_forward_fused, phd_forward_train_fused
+from h36x_torch.infer import (
+    phd_forward_fused,
+    phd_forward_train_fused,
+    phd_forward_train_future,
+)
 from h36x_torch.utils.runtime import resolve_device
 
 
@@ -113,7 +117,11 @@ class PHDFor3DJoints(nn.Module):
     gradients and dropout (masks from `dropout_generator`, on the model's
     device) and returns (phi, joints_phi): f_AR is not run, no phase-1 loss
     reads it. With `use_kernels=False` that is plain autograd through the
-    plain ops, the counterpart of `model.apply(train=True)`.
+    plain ops, the counterpart of `model.apply(train=True)`. With
+    `predict_future=True` too it runs phase 2's loss path and returns (phi,
+    phi_hat, joints_hat) (:func:`h36x_torch.infer.phd_forward_train_future`):
+    plain ops only, so it needs `use_kernels=False` (h36x has no fused
+    phase-2 forward).
     """
 
     def __init__(self, latent_dim: int = 1024, feature_dim: int = 2048,
@@ -142,6 +150,15 @@ class PHDFor3DJoints(nn.Module):
     def forward(self, feats: torch.Tensor, predict_future: bool = False, *,
                 use_kernels: bool = True, train: bool = False,
                 dropout_generator: Optional[torch.Generator] = None):
+        if train and predict_future:
+            if use_kernels:
+                raise ValueError(
+                    "the phase-2 training forward runs the plain ops only "
+                    "(h36x has no fused phase-2 forward): pass use_kernels=False")
+            return phd_forward_train_future(
+                param_tree(self), feats, dropout_generator,
+                dropout=self.dropout, joints_num=self.joints_num,
+                groups=self.groups, regressor_iters=self.regressor_iters)
         if train:
             return phd_forward_train_fused(
                 param_tree(self), feats, dropout_generator,

@@ -255,8 +255,9 @@ def joint_regressor_bwd(phi2d, w1, b1, w2, b2, w3, b3, g, iters: int = 3):
     :func:`regressor_bwd_route` names."""
     route = regressor_bwd_route(phi2d.shape[1], w2.shape[0], w3.shape[1])
     grads = bwd_on_route(phi2d, w1, b1, w2, b2, w3, b3, g, iters, route)
-    joint_regressor_bwd.launches += 1
-    joint_regressor_bwd.launches_by_route[route] += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture launches nothing
+        joint_regressor_bwd.launches += 1
+        joint_regressor_bwd.launches_by_route[route] += 1
     return grads
 
 

@@ -333,8 +333,9 @@ def gn_relu_cconv_bwd(x, scale, bias, kernel, g, mean, rstd, groups: int = 32):
     residual gradients are not part of it."""
     route = temporal_bwd_route(x.shape[2], kernel.shape[2])
     out = bwd_on_route(x, scale, bias, kernel, g, mean, rstd, groups, route)
-    gn_relu_cconv_bwd.launches += 1
-    gn_relu_cconv_bwd.launches_by_route[route] += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture launches nothing
+        gn_relu_cconv_bwd.launches += 1
+        gn_relu_cconv_bwd.launches_by_route[route] += 1
     return out
 
 

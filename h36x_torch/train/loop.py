@@ -1,11 +1,14 @@
 """Epoch-level training loop on one device (counterpart of
-h36x/train/loop.py, phases 1 and 0).
+h36x/train/loop.py, phases 1, 2 and 0).
 
 Per epoch: the sampler reshuffles (`set_epoch`), the cosine learning rate
-is set, the train pass runs (batches fed by a background thread), then the
-weighted eval pass; `best` is saved on a val-MPJPE improvement before
-`last`, a record goes to <outdir>/metrics.jsonl, and early stopping and
-`stop_after_epochs` end the run. What this slice does not run yet raises
+is set (and in phase 2 the curriculum horizon), the train pass runs
+(batches fed by a background thread, stacked into groups for the grouped
+steps), then the weighted eval pass; `best` is saved on a val-MPJPE
+improvement before `last`, a record goes to <outdir>/metrics.jsonl, and
+early stopping and `stop_after_epochs` end the run. `--resume` continues
+from a `last` checkpoint of either package; `--profile-dir` traces the
+first (resumed) epoch. What the port does not run yet raises
 (:func:`check_supported`).
 """
 
@@ -26,7 +29,14 @@ from h36x_torch.models.phd import PHDFor3DJoints
 from h36x_torch.parallel.feed import feed_dtype, prefetch_to_device
 from h36x_torch.train import checkpoint as ckpt
 from h36x_torch.train.state import cosine_lr, make_optimizer, set_learning_rate
-from h36x_torch.train.step import make_train_step, make_weighted_eval_step
+from h36x_torch.train.step import (
+    curriculum_horizon,
+    make_future_train_step,
+    make_train_step,
+    make_weighted_eval_step,
+    make_weighted_future_eval_step,
+)
+from h36x_torch.utils.profiling import maybe_trace, step_annotation
 from h36x_torch.utils.runtime import resolve_device
 from h36x_torch.utils.timers import PhaseTimers
 
@@ -37,14 +47,8 @@ def check_supported(cfg: TrainConfig) -> None:
     """Raise for every setting this slice of the port does not run, rather
     than run something else."""
     o, m = cfg.optim, cfg.model
-    if o.phase == 2:
-        raise NotImplementedError(
-            f"--optim.phase 2 (the f_AR curriculum, make_future_train_step) {_LATER}")
-    if o.phase not in (0, 1):
+    if o.phase not in (0, 1, 2):
         raise ValueError(f"unknown --optim.phase {o.phase} (0, 1 or 2)")
-    if cfg.resume:
-        raise NotImplementedError(f"--resume {_LATER}; --init-from warm-starts "
-                                  "the weights")
     if cfg.ckpt_backend == "orbax":
         raise NotImplementedError(f"--ckpt-backend orbax {_LATER}")
     if cfg.ckpt_backend != "msgpack":
@@ -53,8 +57,6 @@ def check_supported(cfg: TrainConfig) -> None:
         raise NotImplementedError(f"--model.dtype bfloat16 {_LATER}")
     if m.dtype != "float32":
         raise ValueError(f"unknown --model.dtype {m.dtype!r}")
-    if cfg.profile_dir:
-        raise NotImplementedError(f"--profile-dir {_LATER}")
     if (cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1 or cfg.mesh.slices != 1
             or cfg.dist.num_processes != 1):
         raise NotImplementedError(
@@ -81,10 +83,17 @@ def build_model(cfg: TrainConfig, device=None,
     )
 
 
-def _batches(dataset, sampler, device, feats_dtype, with_weights: bool = False):
+def _batches(dataset, sampler, device, feats_dtype, with_weights: bool = False,
+             stack: int = 1):
     """Host batches -> device batches, prefetched by a background thread.
     With with_weights every batch gains a float32 (B,) weight vector of
-    ones (the weighted eval step's contract; one device pads no rows)."""
+    ones (the weighted eval step's contract; one device pads no rows).
+
+    stack > 1 groups that many consecutive batches into one batch with a
+    leading step axis (k, B, ...) for the grouped train steps. A batch with
+    another row count (a short tail with drop_last=False) flushes the group
+    and rides a group of its own; the last group of an epoch may be
+    shorter."""
 
     def gen():
         for idx_batch in sampler:
@@ -94,38 +103,69 @@ def _batches(dataset, sampler, device, feats_dtype, with_weights: bool = False):
                 batch = (*batch, np.ones(len(idx_batch), dtype=np.float32))
             yield batch
 
-    return prefetch_to_device(gen(), device, feats_dtype=feats_dtype)
+    def stacked():
+        group = []
+        for batch in gen():
+            if group and batch[0].shape[0] != group[0][0].shape[0]:
+                yield tuple(np.stack(xs) for xs in zip(*group))
+                group = []
+            group.append(batch)
+            if len(group) == stack:
+                yield tuple(np.stack(xs) for xs in zip(*group))
+                group = []
+        if group:
+            yield tuple(np.stack(xs) for xs in zip(*group))
+
+    return prefetch_to_device(stacked() if stack > 1 else gen(), device,
+                              feats_dtype=feats_dtype)
 
 
 def _drain(pending: list, totals: dict) -> None:
-    """Add the device metric dicts of `pending` into `totals` (one copy to
-    the host), then empty `pending`."""
+    """Add the device metric dicts of `pending` (0-d, or stacked (k,) for a
+    group) into `totals` (one copy to the host), then empty `pending`. The
+    steps' values are added one by one in step order, so grouping the same
+    steps differently gives the same sums, bit for bit."""
     if not pending:
         return
     keys = list(totals)
-    host = torch.stack([torch.stack([m[k] for k in keys]) for m in pending])
-    for k, col in zip(keys, host.double().sum(dim=0).tolist()):
-        totals[k] += col
+    host = torch.cat([torch.stack([m[k].reshape(-1) for k in keys], dim=1)
+                      for m in pending]).double().tolist()
+    for row in host:
+        for k, v in zip(keys, row):
+            totals[k] += v
     pending.clear()
 
 
 def train_epoch(train_step, dataset, sampler, device, feats_dtype, generator,
-                log_every: int = 500):
+                log_every: int = 500, horizon: Optional[int] = None):
     """One epoch. Metric tensors stay on the device until a log point or
-    the epoch's end, so steps are not synchronised one by one."""
+    the epoch's end, so steps are not synchronised one by one. A grouped
+    step (`train_step.group` > 1) takes stacked groups of batches; `n`
+    counts batches either way, so the means are per batch. `horizon`, when
+    given, is passed to the (phase-2) step. Reports `l2d` and `l_ar` when
+    the step does."""
     timers = PhaseTimers()
     pending: list = []
-    totals = {"loss": 0.0, "l3d": 0.0, "l2d": 0.0, "mpjpe": 0.0}
+    totals = {"loss": 0.0, "l3d": 0.0, "mpjpe": 0.0}
     n = 0
     last_log = 0
+    replays0, eager0 = train_step.graph_replays, train_step.eager_steps
     epoch_start = time.perf_counter()
+    extra = () if horizon is None else (horizon,)
+    stack = train_step.group
 
     timers.start("data")
-    for batch in _batches(dataset, sampler, device, feats_dtype):
+    for batch in _batches(dataset, sampler, device, feats_dtype, stack=stack):
         timers.stop("data")
         timers.start("step")
-        pending.append(train_step(batch, generator))
-        n += 1
+        with step_annotation("train_step"):
+            metrics = train_step(batch, generator, *extra)
+        if not pending and not n:
+            for k in ("l2d", "l_ar"):
+                if k in metrics:
+                    totals[k] = 0.0
+        pending.append(metrics)
+        n += int(batch[0].shape[0]) if stack > 1 else 1
         timers.stop("step")
         if log_every > 0 and n - last_log >= log_every:
             last_log = n
@@ -145,7 +185,8 @@ def train_epoch(train_step, dataset, sampler, device, feats_dtype, generator,
     print("[Train timing]\n" + timers.summary(n), flush=True)
     means = {k: v / max(n, 1) for k, v in totals.items()}
     means["_timing"] = {k: round(v, 4) for k, v in timers.totals.items()}
-    means["_steps"] = n
+    means["_graph_replays"] = train_step.graph_replays - replays0
+    means["_eager_steps"] = train_step.eager_steps - eager0
     return means
 
 
@@ -197,50 +238,89 @@ def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
     another); returns (model, best_val)."""
     check_supported(cfg)
     device = resolve_device(device)
-    phase = cfg.optim.phase
-    model = build_model(cfg, device,
-                        torch.Generator().manual_seed(cfg.optim.seed))
-    optimizer, _ = make_optimizer(model, cfg.optim.lr, cfg.optim.weight_decay,
-                                  freeze_ar=cfg.optim.freeze_ar,
+    o = cfg.optim
+    phase = o.phase
+    model = build_model(cfg, device, torch.Generator().manual_seed(o.seed))
+    optimizer, _ = make_optimizer(model, o.lr, o.weight_decay, freeze_ar=o.freeze_ar,
                                   phase=phase if phase != 1 else None)
     if cfg.init_from:
         model.load_state_dict(ckpt.load_params_only(cfg.init_from, model.state_dict()))
         print(f"Initialized model weights from {cfg.init_from}")
-    train_step = make_train_step(
-        model, optimizer, fused=cfg.optim.fused, lambda_2d=cfg.optim.lambda_2d,
-        scan_steps=cfg.optim.steps_per_dispatch, accum_steps=cfg.optim.grad_accum)
-    eval_step = make_weighted_eval_step(model, use_kernels=cfg.optim.fused)
+    if phase == 2:
+        if o.fused:
+            # no fused phase-2 step exists; training the plain path while the
+            # user believes they chose the kernels would mislead any timing
+            raise ValueError(
+                "--optim.fused only implements the phase-1 step; "
+                "phase 2 (f_AR curriculum) trains on the plain PyTorch path — "
+                "drop the flag")
+        train_step = make_future_train_step(
+            model, optimizer, input_len=o.input_len, pred_len=o.pred_len,
+            lambda_joints=o.lambda_future, scan_steps=o.steps_per_dispatch,
+            accum_steps=o.grad_accum)
+        # score the AR path: the plain eval reads only modules phase 2
+        # freezes, so its metric would be constant and early-stop blindly
+        eval_step = make_weighted_future_eval_step(
+            model, input_len=o.input_len, pred_len=o.pred_len,
+            lambda_joints=o.lambda_future)
+    else:
+        train_step = make_train_step(
+            model, optimizer, fused=o.fused, lambda_2d=o.lambda_2d,
+            scan_steps=o.steps_per_dispatch, accum_steps=o.grad_accum)
+        eval_step = make_weighted_eval_step(model, use_kernels=o.fused)
     feats_dtype = feed_dtype(cfg.data.feed_dtype)
 
+    start_epoch = 0
     best_val = float("inf")
     no_improve = 0
     steps = 0
+    if cfg.resume:
+        manifest = ckpt.load_checkpoint(cfg.resume, "last", model, optimizer)
+        start_epoch = manifest["epoch"] + 1
+        best_val = manifest["best_val"]
+        steps = manifest["step"]
+        # the early-stop patience too: without it a resumed run would
+        # tolerate up to `patience` more non-improving epochs
+        no_improve = int(manifest.get("no_improve", 0))
+        print(f"Resumed from {cfg.resume} (epoch={start_epoch}, "
+              f"best={best_val:.4f}, no_improve={no_improve})")
     cfg_json = dataclasses.asdict(cfg)
+    # dropout masks of an epoch come from this generator reseeded by (seed,
+    # epoch), not a stream carried across epochs: a resumed run draws what
+    # the uninterrupted one drew. One object for the run, as a captured
+    # train step reads the generator it was captured with.
+    gen = torch.Generator(device=device)
 
-    for epoch in range(cfg.optim.epochs):
+    for epoch in range(start_epoch, o.epochs):
         train_sampler.set_epoch(epoch)
-        lr = cosine_lr(epoch, cfg.optim.lr, cfg.optim.epochs)
+        lr = cosine_lr(epoch, o.lr, o.epochs)
         set_learning_rate(optimizer, lr)
-        print(f"\nEpoch {epoch+1}/{cfg.optim.epochs} (lr {lr:.2e})", flush=True)
+        horizon = None
+        if phase == 2:
+            horizon = curriculum_horizon(epoch, o.pred_len, o.curriculum_steps)
+            print(f"\nEpoch {epoch+1}/{o.epochs} (lr {lr:.2e}, AR horizon "
+                  f"{horizon})", flush=True)
+        else:
+            print(f"\nEpoch {epoch+1}/{o.epochs} (lr {lr:.2e})", flush=True)
         t0 = time.perf_counter()
-        # dropout masks of an epoch come from a generator seeded by (seed,
-        # epoch), not a stream carried across epochs
-        gen = torch.Generator(device=device).manual_seed(
-            cfg.optim.seed * 1_000_003 + epoch)
-        tr = train_epoch(train_step, train_set, train_sampler, device,
-                         feats_dtype, gen, log_every=cfg.optim.log_every)
-        steps += tr["_steps"]
+        gen.manual_seed(o.seed * 1_000_003 + epoch)
+        with maybe_trace(cfg.profile_dir if epoch == start_epoch else None, device):
+            tr = train_epoch(train_step, train_set, train_sampler, device,
+                             feats_dtype, gen, log_every=o.log_every,
+                             horizon=horizon)
+        steps += tr["_graph_replays"] * train_step.scan_steps + tr["_eager_steps"]
         va = evaluate(eval_step, val_set, val_sampler, device, feats_dtype)
 
         print(f"Train: loss={tr['loss']:.6f}"
               + (f" (2d {tr['l2d']:.6f})" if tr.get("l2d") else "")
+              + (f" (ar {tr['l_ar']:.6f})" if tr.get("l_ar") else "")
               + f" | mpjpe={tr['mpjpe']:.3f}\n"
               f"Val:   loss={va['loss']:.6f} (3d {va['l3d']:.6f}) | mpjpe={va['mpjpe']:.3f}\n"
               f"Epoch time: {time.perf_counter()-t0:.2f}s", flush=True)
 
         # `best` commits before `last`, so a crash between the two saves
         # never pairs a new best_val with stale best params
-        improved = (best_val - va["mpjpe"]) > cfg.optim.early_stop_min_delta
+        improved = (best_val - va["mpjpe"]) > o.early_stop_min_delta
         if improved:
             best_val = va["mpjpe"]
             no_improve = 0
@@ -266,21 +346,22 @@ def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
             "val_data_s": va["_timing"].get("data"),
             "val_step_s": va["_timing"].get("step"),
             "val_drain_s": va["_timing"].get("drain"),
+            "graph_replays": tr["_graph_replays"],
+            "eager_steps": tr["_eager_steps"],
         })
 
         if improved:
             print(f"New best val MPJPE: {best_val:.3f} (saved best)")
         else:
-            print(f"No improvement for {no_improve}/{cfg.optim.early_stop_patience} "
+            print(f"No improvement for {no_improve}/{o.early_stop_patience} "
                   f"epochs (best {best_val:.3f}, current {va['mpjpe']:.3f})")
-        if cfg.optim.early_stop_patience > 0 and no_improve >= cfg.optim.early_stop_patience:
+        if o.early_stop_patience > 0 and no_improve >= o.early_stop_patience:
             print(f"Early stopping at epoch {epoch+1}. Best val MPJPE: {best_val:.3f}")
             break
-        stop_after = cfg.optim.stop_after_epochs
-        if stop_after > 0 and epoch + 1 >= stop_after:
-            print(f"Stopping after {stop_after} epoch(s) this run "
-                  f"(--optim.stop-after-epochs; schedule targets "
-                  f"{cfg.optim.epochs})")
+        if o.stop_after_epochs > 0 and epoch - start_epoch + 1 >= o.stop_after_epochs:
+            print(f"Stopping after {o.stop_after_epochs} epoch(s) this run "
+                  f"(--optim.stop-after-epochs; schedule targets {o.epochs} — "
+                  "resume with --resume to continue the exact trajectory)")
             break
 
     print(f"\nDone. Best val MPJPE: {best_val:.3f}")

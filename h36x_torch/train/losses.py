@@ -12,6 +12,8 @@ rows can be weighted out of dataset means exactly.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from h36x_torch.geometry.camera import project_with_K
@@ -50,10 +52,17 @@ def mpjpe_per_row(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.linalg.vector_norm(pred - gt, dim=-1), dim=(1, 2))
 
 
+@functools.lru_cache(maxsize=None)
+def _edges(device: torch.device) -> tuple:
+    """The edges' (src, dst) joint indices on `device`, copied there once: a
+    copy from host memory inside a CUDA graph capture would fail it."""
+    return (torch.as_tensor(_EDGE_SRC, dtype=torch.long, device=device),
+            torch.as_tensor(_EDGE_DST, dtype=torch.long, device=device))
+
+
 def bone_lengths(joints: torch.Tensor) -> torch.Tensor:
     """(..., J, 3) -> (..., E) H36M bone lengths."""
-    src = torch.as_tensor(_EDGE_SRC, dtype=torch.long, device=joints.device)
-    dst = torch.as_tensor(_EDGE_DST, dtype=torch.long, device=joints.device)
+    src, dst = _edges(joints.device)
     return torch.linalg.vector_norm(
         joints.index_select(-2, dst) - joints.index_select(-2, src), dim=-1)
 

@@ -6,7 +6,8 @@ trainable parameter, as optax's unmasked `adamw`, in optax's float32
 arithmetic), a cosine learning rate stepped once per epoch, and per-phase
 module freezing: a frozen module's parameters get no gradient
 (`requires_grad` off), no update and no Adam state, as with optax's
-`set_to_zero` branch.
+`set_to_zero` branch. The state sits on the device, where a CUDA graph of
+the train step can replay it (:class:`AdamW`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ PHASE_FROZEN = {
     2: ("f_movie", "f_3D", "input_proj"),
     0: (),  # train everything
 }
+HYPER = ("lr", "b1", "b2", "eps", "weight_decay")  # AdamW's hyper-parameters
 
 
 def cosine_lr(epoch: int, base_lr: float, total_epochs: int, min_lr: float = 0.0) -> float:
@@ -42,40 +44,51 @@ class AdamW(torch.optim.Optimizer):
     corrections are float32 `pow`s, as XLA computes them: `1 - b2^count`
     cancels, and torch.optim.AdamW's float64 corrections differ from
     optax's by up to 1e-5 relative. A parameter without a gradient is
-    skipped. State per parameter: "count", "mu", "nu"."""
+    skipped.
+
+    The state lives on the params' device, so that a CUDA graph of the
+    step replays it: `count` (int32, one for the optimizer, as optax keeps
+    it), the hyper-parameters `hyper` (float32 0-d tensors; the learning
+    rate changes in place, :func:`set_learning_rate`), and per trainable
+    parameter "mu" and "nu", made at construction. The eager step and a
+    replayed one run the same operations, so they give the same bits."""
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 1e-2):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
                                       weight_decay=weight_decay))
+        if len(self.param_groups) != 1:
+            raise ValueError("AdamW takes one parameter group")
+        group = self.param_groups[0]
+        dev = group["params"][0].device
+        self.hyper = {k: torch.tensor(group[k], dtype=torch.float32, device=dev)
+                      for k in HYPER}
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        for p in group["params"]:
+            self.state[p]["mu"] = torch.zeros_like(p)
+            self.state[p]["nu"] = torch.zeros_like(p)
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("AdamW.step takes no closure")
-
-        def f32(v):
-            return torch.tensor(v, dtype=torch.float32)
-
-        for group in self.param_groups:
-            b1, b2, eps = f32(group["b1"]), f32(group["b2"]), f32(group["eps"])
-            wd, neg_lr = f32(group["weight_decay"]), -f32(group["lr"])
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                g = p.grad
-                st = self.state[p]
-                if not st:
-                    st["count"] = 0
-                    st["mu"] = torch.zeros_like(p)
-                    st["nu"] = torch.zeros_like(p)
-                mu, nu = st["mu"], st["nu"]
-                mu.mul_(b1).add_(g * (1 - b1))
-                nu.mul_(b2).add_(g * g * (1 - b2))
-                st["count"] += 1
-                count = f32(float(st["count"]))
-                u = (mu / (1 - b1 ** count)) / (torch.sqrt(nu / (1 - b2 ** count)) + eps)
-                p.add_((u + wd * p) * neg_lr)
+        h = self.hyper
+        b1, b2, eps, wd = h["b1"], h["b2"], h["eps"], h["weight_decay"]
+        neg_lr = -h["lr"]
+        self.count.add_(1)
+        count = self.count.float()
+        bc1, bc2 = 1 - b1 ** count, 1 - b2 ** count
+        c1, c2 = 1 - b1, 1 - b2
+        for p in self.param_groups[0]["params"]:
+            if p.grad is None:
+                continue
+            g = p.grad
+            st = self.state[p]
+            mu, nu = st["mu"], st["nu"]
+            mu.mul_(b1).add_(g * c1)
+            nu.mul_(b2).add_(g * g * c2)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            p.add_((u + wd * p) * neg_lr)
         return None
 
 
@@ -113,6 +126,19 @@ def make_optimizer(model: torch.nn.Module, lr: float, weight_decay: float = 1e-2
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    """Set the learning rate of every parameter group, in place."""
+    """Set the learning rate of every parameter group, in place: for
+    :class:`AdamW` also its device scalar, which a captured step reads."""
     for group in optimizer.param_groups:
         group["lr"] = lr
+    if isinstance(optimizer, AdamW):
+        optimizer.hyper["lr"].fill_(lr)
+
+
+def optimizer_tensors(optimizer: AdamW) -> list:
+    """Every tensor of an :class:`AdamW`'s state, in a fixed order: count,
+    the hyper-parameters, then mu and nu of each trainable parameter (to
+    snapshot and restore it in place)."""
+    out = [optimizer.count, *(optimizer.hyper[k] for k in HYPER)]
+    for p in optimizer.param_groups[0]["params"]:
+        out += [optimizer.state[p]["mu"], optimizer.state[p]["nu"]]
+    return out

@@ -154,7 +154,9 @@ def _encode(obj, out: list) -> None:
         _header(out, len(raw), 0, -1, (0xC4, 0xC5, 0xC6))
         out.append(raw)
     elif isinstance(obj, (np.ndarray, np.generic)):
-        arr = np.ascontiguousarray(obj)
+        arr = np.asarray(obj)  # np.ascontiguousarray would make 0-d arrays 1-d
+        if not arr.flags.c_contiguous:
+            arr = arr.copy(order="C")
         payload = packb((list(arr.shape), arr.dtype.name, arr.tobytes()))
         code = EXT_NDARRAY if isinstance(obj, np.ndarray) else EXT_NPSCALAR
         n = len(payload)

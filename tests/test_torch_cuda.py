@@ -832,3 +832,128 @@ def test_matmul_probe_wrapper_refuses_what_the_kernel_does_not_take(dev):
     before = probe_matmul.launches
     assert probe_matmul(x, y).shape == (128, 256)
     assert probe_matmul.launches == before + 1
+
+
+# -- the graphed train step ---------------------------------------------------------------
+
+
+def _graph_trainer(dev, dropout, phase=1, k=3, seed=0):
+    """A small model (widths multiples of 64, so B2 and B4 take the hopper
+    route), its AdamW, a grouped step of k (scan_steps) and stacked groups of
+    k batches (B 4, T 8)."""
+    from h36x_torch.models.phd import PHDFor3DJoints
+    from h36x_torch.train.state import make_optimizer
+    from h36x_torch.train.step import make_future_train_step, make_train_step
+
+    model = PHDFor3DJoints(latent_dim=128, feature_dim=64, number_blocks=2, ar_blocks=1,
+                           groups=8, regressor_hidden=128, dropout=dropout,
+                           generator=torch.Generator().manual_seed(seed), device=dev)
+    opt, _ = make_optimizer(model, 1e-3, phase=None if phase == 1 else phase)
+    if phase == 2:
+        step = make_future_train_step(model, opt, input_len=3, scan_steps=k)
+    else:
+        step = make_train_step(model, opt, fused=True, scan_steps=k)
+    g = torch.Generator().manual_seed(seed + 1)
+
+    def group():
+        return (torch.randn(k, 4, 8, 64, generator=g).to(dev),
+                (0.3 * torch.randn(k, 4, 8, 17, 3, generator=g)).to(dev),
+                torch.randn(k, 4, 8, 17, 2, generator=g).to(dev),
+                (1000 * torch.eye(3)).expand(k, 4, 3, 3).contiguous().to(dev))
+
+    return model, opt, step, group
+
+
+def _state(model, opt) -> list:
+    from h36x_torch.train.state import optimizer_tensors
+
+    return [*model.parameters(), *optimizer_tensors(opt)]
+
+
+def _snapshot(model, opt) -> list:
+    return [t.detach().clone() for t in _state(model, opt)]
+
+
+def _restore(model, opt, snap) -> None:
+    with torch.no_grad():
+        for t, s in zip(_state(model, opt), snap):
+            t.copy_(s)
+
+
+@pytest.mark.parametrize("phase", [1, 2])
+def test_graphed_train_step_equals_eager_steps(dev, phase):
+    """k = 3 steps as one replay against the same 3 steps run eagerly from
+    the same params and optimizer state: params, mu, nu, count and metrics
+    bit for bit (B2 and B4 use no atomics); the first group runs eagerly
+    and captures, later ones replay, and no wrapper counts a replay."""
+    model, opt, step, group = _graph_trainer(dev, 0.0, phase)
+    extra = (4,) if phase == 2 else ()
+    first = step(group(), None, *extra)
+    assert (step.eager_steps, step.graph_replays) == (3, 0)
+    assert all(v.shape == (3,) and torch.isfinite(v).all() for v in first.values())
+    batch = group()
+    snap = _snapshot(model, opt)
+    counts = (fused_gn_relu_cconv.launches, gn_relu_cconv_bwd.launches,
+              fused_joint_regressor.launches, joint_regressor_bwd.launches)
+    replayed = step(batch, None, *extra)
+    torch.cuda.synchronize()
+    assert step.graph_replays == 1 and step.eager_steps == 3
+    assert counts == (fused_gn_relu_cconv.launches, gn_relu_cconv_bwd.launches,
+                      fused_joint_regressor.launches, joint_regressor_bwd.launches)
+    after_replay = _snapshot(model, opt)
+    _restore(model, opt, snap)
+    eager = step.run_eager(batch, None)
+    for a, b in zip(after_replay, _state(model, opt)):
+        assert torch.equal(a, b)
+    for key in eager:
+        assert torch.equal(replayed[key], eager[key]), key
+    assert int(opt.count) == 6
+
+
+def test_learning_rate_reaches_a_replay(dev):
+    """set_learning_rate between two replays: the second replay's update
+    equals eager steps at the new rate (and differs from the old rate's)."""
+    from h36x_torch.train.state import set_learning_rate
+
+    model, opt, step, group = _graph_trainer(dev, 0.0)
+    step(group(), None)
+    step(group(), None)
+    batch = group()
+    snap = _snapshot(model, opt)
+    set_learning_rate(opt, 3e-4)
+    step(batch, None)
+    assert step.graph_replays == 2
+    replayed = _snapshot(model, opt)
+    _restore(model, opt, snap)
+    set_learning_rate(opt, 3e-4)
+    step.run_eager(batch, None)
+    assert all(torch.equal(a, b) for a, b in zip(replayed, _state(model, opt)))
+    _restore(model, opt, snap)
+    set_learning_rate(opt, 1e-3)
+    step.run_eager(batch, None)
+    assert not all(torch.equal(a, b) for a, b in zip(replayed, _state(model, opt)))
+
+
+def test_dropout_masks_differ_between_replays(dev):
+    """At dropout 0.5 the generator is registered with the graph: two
+    replays of one batch from the same state draw other masks (other
+    losses), as two eager steps do; a mask baked in at capture would give
+    the same loss twice."""
+    model, opt, step, group = _graph_trainer(dev, 0.5)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    step(group(), gen)
+    batch = group()
+    snap = _snapshot(model, opt)
+    losses = []
+    for _ in range(2):
+        _restore(model, opt, snap)
+        losses.append(step(batch, gen)["loss"])
+    assert step.graph_replays == 2
+    assert not torch.equal(losses[0], losses[1])
+    eager = []
+    for _ in range(2):
+        _restore(model, opt, snap)
+        eager.append(step.run_eager(batch, gen)["loss"])
+    assert not torch.equal(eager[0], eager[1])
+    with pytest.raises(ValueError, match="captured with"):
+        step(batch, torch.Generator(device=dev))

@@ -100,17 +100,18 @@ def test_mse2d_reproj_matches_h36x(rng):
 # -- AdamW and the freeze ---------------------------------------------------------
 
 
-@pytest.mark.parametrize("phase", [None, 0])
+@pytest.mark.parametrize("phase", [None, 0, 2])
 def test_adamw_and_freeze_match_optax(flax_small, rng, phase):
     """Five updates fed the SAME grads (a learning-rate change after the
-    third): params at rtol 1e-6, f_AR untouched in phase 1."""
+    third): params at rtol 1e-6, f_AR untouched in phase 1, the other
+    modules in phase 2."""
     _, params = flax_small
     tx, _ = jax_make_optimizer(1e-3, 1e-2, freeze_ar=True, phase=phase)
     jparams = jax.tree.map(jnp.asarray, params)
     opt_state = tx.init(jparams)
     model = _port(params)
     opt, frozen = make_optimizer(model, 1e-3, 1e-2, freeze_ar=True, phase=phase)
-    assert frozen == (("f_AR",) if phase is None else ())
+    assert frozen == {None: ("f_AR",), 0: (), 2: ("f_movie", "f_3D", "input_proj")}[phase]
     named = dict(model.named_parameters())
     for step in range(5):
         if step == 3:
@@ -134,6 +135,11 @@ def test_adamw_and_freeze_match_optax(flax_small, rng, phase):
     if phase is None:
         assert torch.equal(named["f_AR.block0.conv1.kernel"],
                            params_from_flax(params)["f_AR.block0.conv1.kernel"])
+    if phase == 2:
+        for name in ("f_movie.block0.conv1.kernel", "f_3D.fc1.kernel",
+                     "input_proj.kernel"):
+            assert torch.equal(named[name], params_from_flax(params)[name])
+    assert int(opt.count) == 5
 
 
 def test_unknown_frozen_module_raises(flax_small, monkeypatch):
@@ -305,6 +311,9 @@ def test_feed_casts_features_and_raises_producer_errors(rng):
 
 
 def test_checkpoint_params_read_by_h36x(flax_small, tmp_path):
+    """A full checkpoint of the port: params read by h36x bit for bit, and
+    the optimizer state in optax's layout, which h36x's load_checkpoint
+    restores into its own TrainState with equal values."""
     model = _port(flax_small[1], dropout=0.0)
     opt, _ = make_optimizer(model, 1e-3)
     model(torch.zeros(2, 6, 32), train=True)[1].sum().backward()
@@ -324,16 +333,31 @@ def test_checkpoint_params_read_by_h36x(flax_small, tmp_path):
     assert jax.tree.structure(restored) == jax.tree.structure(flax_small[1])
     blob = serialization.msgpack_restore(path.read_bytes())
     assert set(blob) == {"params", "opt_state", "step"}
-    assert blob["opt_state"]["count"] == 1
-    assert "f_AR" not in blob["opt_state"]["mu"]  # frozen: no Adam state
+    assert blob["opt_state"]["inner_states"]["frozen"] == {"inner_state": {}}
+    inner = blob["opt_state"]["inner_states"]["trainable"]["inner_state"]
+    adam = inner["inner_state"]["0"]
+    assert int(inner["count"]) == int(adam["count"]) == 1
+    assert adam["mu"]["f_AR"]["block0"]["conv1"]["kernel"] == {}  # frozen: MaskedNode
+
+    tx, _ = jax_make_optimizer(1e-3)
+    template = create_train_state(flax_small[0], tx, jax.random.key(1),
+                                  jnp.zeros((2, 6, 32)))
+    state, jmanifest = jax_ckpt.load_checkpoint(tmp_path, "best", template)
+    assert int(state.step) == 7 and jmanifest["epoch"] == 3
+    jinner = state.opt_state.inner_states["trainable"].inner_state
+    assert int(jinner.count) == 1
+    np.testing.assert_array_equal(jinner.hyperparams["learning_rate"], np.float32(1e-3))
+    jmu = params_from_flax(jax.tree.map(np.asarray, jinner.inner_state[0].mu))
+    for name, p in model.named_parameters():
+        if p.requires_grad:
+            assert torch.equal(jmu[name], opt.state[p]["mu"]), name
 
 
 # -- the trainer --------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("field, value", [
-    ("optim.phase", 2), ("resume", "runs"), ("ckpt_backend", "orbax"),
-    ("model.dtype", "bfloat16"), ("profile_dir", "trace"), ("mesh.data", 2),
+    ("ckpt_backend", "orbax"), ("model.dtype", "bfloat16"), ("mesh.data", 2),
     ("mesh.model", 2), ("dist.num_processes", 2),
 ])
 def test_trainer_refuses_what_this_slice_does_not_run(field, value):
@@ -342,17 +366,6 @@ def test_trainer_refuses_what_this_slice_does_not_run(field, value):
     setattr(getattr(cfg, head) if head else cfg, leaf, value)
     with pytest.raises(NotImplementedError, match="later slice"):
         check_supported(cfg)
-
-
-@pytest.mark.parametrize("flag", ["--optim.steps-per-dispatch", "--optim.grad-accum"])
-def test_grouped_steps_raise(flag, tmp_path):
-    make_synthetic_store(tmp_path, n_shards=1, clips_per_shard=4, n_vars=1,
-                         seq_len=6, feat_dim=32, subjects=(1, 5))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        train_main(["--train-root", str(tmp_path), "--device", "cpu",
-                    "--train-subjects", "1", "--val-subjects", "5", flag, "2",
-                    "--model.latent-dim", "64", "--model.feature-dim", "32",
-                    "--optim.batch-size", "4", "--outdir", str(tmp_path / "r")])
 
 
 def test_train_cli_without_device_needs_cuda(tmp_path, monkeypatch):
@@ -433,12 +446,12 @@ def test_train_config_has_h36x_fields_and_defaults():
 
 
 @pytest.mark.parametrize("flag, value", [
-    ("--optim.input-len", "10"), ("--optim.lambda-future", "0.5"),
+    ("--dist.platform", "cpu"), ("--dist.local-devices", "2"),
     ("--dist.coordinator", "localhost:1234"), ("--dist.process-id", "0"),
 ])
 def test_train_cli_has_no_flag_it_does_not_read(flag, value):
-    """Phase-2 and multi-process fields are not carried over until a slice
-    reads them, so their flags are refused rather than ignored."""
+    """Multi-process fields are not carried over until a slice reads them,
+    so their flags are refused rather than ignored."""
     from h36x_torch.config import parse_into
 
     with pytest.raises(SystemExit):
