@@ -73,6 +73,19 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
    regressor launches per device batch. phd_forward_fused(predict_future=
    True) with kernels is held against its plain version too (f_AR and the
    second regressor pass), in both modes.
+   Export and the daemon's artifact mode at the same width: h36x_torch.cli.
+   export writes the forward at float32 (with --check) and bfloat16 and the
+   25-step rollout from one seeded checkpoint (each one's seconds and file
+   size); each artifact is loaded onto the card (every constant there) and
+   called at batch 1, 5, 16 and 32: the f32 forward against the float32
+   plain engine and the precise kernel engine (E2E_TOL), the bf16 one within
+   2e-2 of it, the rollout against make_rollout_fn(use_kernels=False); each
+   is served by BatchingServer in artifact mode (bucket padding; 8 bursts of
+   16 concurrent requests, 3 sequential ones, a stats query; the rollout's
+   replies split) against the artifact called directly, with no kernel
+   launched; checkpoint mode, precise and fast, serves the same requests,
+   and the five modes' device ms per batch (p50/p99) are logged side by
+   side with the card's name and power limit.
 5. The training path: a full-width 192-clip store (T 40, feature 2048;
    128 train clips, 4 batches an epoch, 64 val) written with the port's
    ShardWriter, trained for 2 epochs by h36x_torch.cli.train.main with
@@ -87,7 +100,14 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
    (rows equal to the uninterrupted run's); phase 2 --init-from the
    phase-1 best for 2 epochs, --optim.curriculum-steps 2 (finite,
    input_proj, f_movie and f_3D bit for bit unchanged, f_AR moved; plain
-   ops, no launch).
+   ops, no launch). Then --model.dtype bfloat16: one plain step of a bf16
+   and an f32 model from one seed on the store's first 32 clips (the bf16
+   loss float32, within 2e-2 of f32's), ms per full train step plain bf16,
+   plain f32 and fused f32 at batch 32; cli.train --model.dtype bfloat16
+   plain for one epoch (finite, no launch); and with --optim.fused true for
+   2 epochs: its steps launch B1-B4 as the f32 fused run's and give its
+   train losses exactly (the kernels compute in float32 whatever the dtype,
+   as h36x's fused step), its eval in bf16 plain ops (as h36x's model.apply).
 6. The extraction path: h36x_torch.extract.pipeline.run_extract (what
    h36x_torch.cli.extract calls) over an in-memory video source made from a
    seed (SyntheticVideos: the machine has no OpenCV to decode mp4), at the
@@ -854,7 +874,10 @@ def check_regressor_bwd(dev, g):
             "tol": KERNEL_TOL, "rel_norm_tol": REL_NORM_TOL}
 
 
-async def drive_daemon(server, feats_conc, feats_seq, sock_dir):
+async def drive_daemon(server, feats_conc, feats_seq, sock_dir, rounds: int = 1):
+    """len(feats_conc) concurrent requests (`rounds` bursts of them), then
+    feats_seq one by one, then a stats query: (the first burst's replies +
+    the sequential ones, stats)."""
     from h36x_torch.serve_daemon import request_async, stats_async
 
     path = os.path.join(sock_dir, "serve.sock")
@@ -867,6 +890,9 @@ async def drive_daemon(server, feats_conc, feats_seq, sock_dir):
     try:
         conc = await asyncio.gather(*[request_async(f, timeout_s=120, **bind)
                                       for f in feats_conc])
+        for _ in range(rounds - 1):
+            await asyncio.gather(*[request_async(f, timeout_s=120, **bind)
+                                   for f in feats_conc])
         seq = [await request_async(f, timeout_s=120, **bind) for f in feats_seq]
         stats = await stats_async(timeout_s=30, **bind)
     finally:
@@ -920,8 +946,8 @@ def drive_main_path(dev, g, sock_dir):
     for precise in (True, False):
         mode = "precise" if precise else "fast"
         t0 = time.perf_counter()
-        predict_fn = build_predict_fn(model_path=str(path), max_batch=16, warm=True,
-                                      precise=precise)
+        predict_fn, _ = build_predict_fn(model_path=str(path), max_batch=16, warm=True,
+                                         precise=precise)
         log({"phase": f"daemon_ready {mode}", "seconds": time.perf_counter() - t0,
              "checkpoint_bytes": os.path.getsize(path)})
         server = BatchingServer(predict_fn, seq_len=SEQ_LEN,
@@ -1554,6 +1580,243 @@ def drive_grouped_train_paths(tmp, base_rows):
     if paths["train_phase2"] != expect_counts():
         raise AssertionError(f"phase 2 launched kernels: {paths['train_phase2']}")
     return paths
+
+# the artifact phase: the batch sizes each artifact is called at on the card,
+# the bf16 artifact's bound against the f32 one (h36x's `--check` tolerance
+# for a bf16 artifact, tests/test_export.py), the rollout's horizon, and the
+# bursts of 16 concurrent requests each daemon mode is timed over
+ART_BATCHES = (1, 5, 16, 32)
+BF16_ARTIFACT_TOL = 2e-2
+FORECAST = 25
+DAEMON_ROUNDS = 8
+BF16_LOSS_RTOL = 2e-2  # a bf16 step's loss against f32's (h36x's bound)
+
+
+def serve_mode(predict_fn, feats, sock_dir, **server_kw):
+    """One daemon run over `feats` (19 requests: DAEMON_ROUNDS bursts of the
+    first 16 concurrently, then the last 3 one by one, then a stats query):
+    (replies, stats)."""
+    from h36x_torch.config import SEQ_LEN, ModelConfig
+    from h36x_torch.serve_daemon import BatchingServer
+
+    server = BatchingServer(predict_fn, seq_len=SEQ_LEN,
+                            feature_dim=ModelConfig().feature_dim, max_batch=16,
+                            max_wait_ms=5.0, **server_kw)
+    return asyncio.run(drive_daemon(server, list(feats[:16]), list(feats[16:]),
+                                    sock_dir, rounds=DAEMON_ROUNDS))
+
+
+def drive_artifact_path(dev, g, tmp, card):
+    """Export and the daemon's artifact mode at full width (the flagship
+    ModelConfig, T 40; TF32 off):
+
+    - h36x_torch.cli.export writes, from one seeded checkpoint, the forward
+      at float32 (with --check on the card) and at bfloat16, and the
+      25-step rollout: each one's seconds and file size;
+    - each is loaded onto the card (load_artifact), every constant there,
+      and called at batch 1, 5, 16 and 32: the f32 forward against the
+      float32 plain engine and against the precise kernel engine (E2E_TOL),
+      the bf16 one within BF16_ARTIFACT_TOL of the f32 one, the rollout
+      against make_rollout_fn(use_kernels=False) (E2E_TOL);
+    - each is served by BatchingServer in artifact mode (build_predict_fn
+      (artifact=), bucket padding) with the counts set to 0 before and read
+      after (the artifacts run plain ops: no launch): DAEMON_ROUNDS bursts
+      of 16 concurrent requests, 3 sequential ones and a stats query, the
+      rollout's replies split into (ctx, future); replies against the
+      artifact called directly (f32 E2E_TOL, bf16 BF16_ARTIFACT_TOL);
+    - checkpoint mode, precise and fast, serves the same requests: device
+      ms per batch p50/p99 of all five beside each other.
+    Returns the artifact serving's launch counts."""
+    from h36x_torch.cli.export import main as export_main
+    from h36x_torch.config import SEQ_LEN, ModelConfig
+    from h36x_torch.export import load_artifact
+    from h36x_torch.infer import make_fused_forward
+    from h36x_torch.models.phd import PHDFor3DJoints, param_tree
+    from h36x_torch.serve import make_rollout_fn
+    from h36x_torch.serve_daemon import build_predict_fn
+    from h36x_torch.train.checkpoint import save_params
+
+    mc = ModelConfig()
+    model = PHDFor3DJoints(generator=torch.Generator().manual_seed(2), device="cpu")
+    ckpt = save_params(tmp, "best", model.state_dict(),
+                       config={"model": dataclasses.asdict(mc),
+                               "data": {"seq_len": SEQ_LEN}})
+    params = param_tree(model.to(dev))
+    arts, rec = {}, {"phase": "artifact", "card": card}
+    for name, flags in (("f32", ["--check"]), ("bf16", ["--dtype", "bfloat16"]),
+                        ("rollout", ["--kind", "rollout", "--forecast", str(FORECAST)])):
+        path = os.path.join(tmp, f"{name}.pt2")
+        t0 = time.perf_counter()
+        export_main(["--model-path", str(ckpt), "--out", path, *flags])
+        rec[f"{name}_cli_export_s"] = time.perf_counter() - t0
+        with open(path + ".json") as f:
+            rec[f"{name}_sidecar"] = json.load(f)
+        rec[f"{name}_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        arts[name] = load_artifact(path)
+        rec[f"{name}_load_s"] = time.perf_counter() - t0
+        off = [str(t.device) for t in arts[name].tensors() if t.device.type != "cuda"]
+        if off or not arts[name].tensors():
+            raise AssertionError(f"{name} artifact: constants off the card: {off}")
+    rec["bf16_over_f32_bytes"] = rec["bf16_bytes"] / rec["f32_bytes"]
+    if not rec["bf16_over_f32_bytes"] < 0.6:
+        raise AssertionError(f"bf16 artifact {rec['bf16_over_f32_bytes']:.3f}x the f32 one")
+
+    plain = make_fused_forward(params, use_kernels=False, precise=True)
+    kernels = make_fused_forward(params, use_kernels=True, precise=True)
+    roll = make_rollout_fn(params, FORECAST, use_kernels=False, device=dev, precise=True)
+    for b in ART_BATCHES:
+        x = torch.randn(b, SEQ_LEN, mc.feature_dim, generator=g).to(dev)
+        f32 = arts["f32"](x)
+        compare(f"artifact f32 B={b} vs plain engine", f32, plain(x), E2E_TOL)
+        compare(f"artifact f32 B={b} vs precise kernels", f32, kernels(x), E2E_TOL)
+        bf16 = arts["bf16"](x)
+        err = float((bf16 - f32).abs().max())
+        log({"check": f"artifact bf16 B={b} vs f32", "max_abs_err": err,
+             "tol": BF16_ARTIFACT_TOL, "dtype": str(bf16.dtype)})
+        if not (bf16.dtype == torch.float32 and err <= BF16_ARTIFACT_TOL):
+            raise AssertionError(f"bf16 artifact at B={b}: {err} from f32")
+        ctx, fut = arts["rollout"](x)
+        want_ctx, want_fut = roll(x)
+        compare(f"artifact rollout B={b} ctx", ctx, want_ctx, E2E_TOL)
+        compare(f"artifact rollout B={b} future", fut, want_fut, E2E_TOL)
+
+    feats = torch.randn(19, SEQ_LEN, mc.feature_dim, generator=g).numpy()
+    x = torch.from_numpy(feats).to(dev)
+    total = dict.fromkeys(counted(), 0)
+    for name in ("f32", "bf16", "rollout"):
+        t0 = time.perf_counter()
+        predict_fn, pad_to = build_predict_fn(artifact=os.path.join(tmp, f"{name}.pt2"),
+                                              max_batch=16, warm=True)
+        rec[f"{name}_daemon_ready_s"] = time.perf_counter() - t0
+        zero_counts()
+        replies, stats = serve_mode(predict_fn, feats, tmp, pad_to=pad_to,
+                                    bucket_pad=True)
+        launches = read_counts()
+        if launches != expect_counts():
+            raise AssertionError(f"artifact daemon {name} launched kernels: {launches}")
+        for k, v in launches.items():
+            total[k] += v
+        direct = arts[name](x)
+        tol = BF16_ARTIFACT_TOL if name == "bf16" else None
+        if name == "rollout":
+            got = [torch.from_numpy(np.stack([np.array(r[i]) for r in replies])).to(dev)
+                   for i in (0, 1)]
+            pairs = (("ctx", got[0], direct[0]), ("future", got[1], direct[1]))
+        else:
+            got = torch.from_numpy(np.stack([np.array(r) for r in replies])).to(dev)
+            pairs = (("joints", got, direct),)
+        for part, a, b in pairs:
+            if tol is None:
+                compare(f"artifact daemon {name} {part} vs artifact", a, b, E2E_TOL)
+            else:
+                err = float((a - b).abs().max())
+                log({"check": f"artifact daemon {name} {part} vs artifact",
+                     "max_abs_err": err, "tol": tol})
+                if not err <= tol:
+                    raise AssertionError(f"artifact daemon {name}: {err} from the artifact")
+        if stats["requests"] != 16 * DAEMON_ROUNDS + 3:
+            raise AssertionError(f"artifact daemon {name}: stats {stats}")
+        rec[f"{name}_device_ms"] = stats["batch_device_ms"]
+        rec[f"{name}_request_ms"] = stats["request_ms"]
+        rec[f"{name}_mean_batch_rows"] = stats["mean_batch_rows"]
+    for precise in (True, False):
+        mode = "checkpoint_" + ("precise" if precise else "fast")
+        predict_fn, _ = build_predict_fn(model_path=str(ckpt), max_batch=16, warm=True,
+                                         precise=precise)
+        _, stats = serve_mode(predict_fn, feats, tmp)
+        rec[f"{mode}_device_ms"] = stats["batch_device_ms"]
+        rec[f"{mode}_request_ms"] = stats["request_ms"]
+        rec[f"{mode}_mean_batch_rows"] = stats["mean_batch_rows"]
+    log(rec)
+    return total
+
+
+def drive_bf16_train_paths(dev, tmp, card):
+    """--model.dtype bfloat16 on the store of drive_train_path (in tmp):
+
+    - one phase-1 step (plain) of a bf16 and an f32 model from one seed on
+      the store's first 32 train clips: the bf16 loss float32 and within
+      BF16_LOSS_RTOL of f32's; ms per train step (forward, backward, AdamW;
+      CUDA events) plain bf16, plain f32 and fused f32 at batch 32;
+    - train_bf16: cli.train --model.dtype bfloat16 --optim.fused false for
+      one epoch: finite; plain ops, no launch;
+    - train_bf16_fused: --optim.fused true --model.dtype bfloat16 for
+      TRAIN's epochs: its train steps launch B1-B4 exactly as the f32 fused
+      run's (4 B1 + 4 B2 + 1 B3 + 1 B4 a step) and its train losses equal
+      that run's (the kernels compute in float32 whatever the dtype, as
+      h36x's fused step); its eval runs in bfloat16 on plain ops, as h36x's
+      model.apply, so no eval batch launches.
+    Returns {path: launch counts}."""
+    import math
+
+    from h36x_torch.cli.train import main as train_main
+    from h36x_torch.config import TrainConfig
+    from h36x_torch.data.features import FeatureClipDataset
+    from h36x_torch.train.loop import build_model
+    from h36x_torch.train.state import make_optimizer
+    from h36x_torch.train.step import grads_and_metrics, make_train_step
+
+    store = os.path.join(tmp, "store")
+    steps = TRAIN["train_clips"] // TRAIN["batch"]
+    batch = tuple(torch.from_numpy(np.asarray(a)).to(dev) for a in FeatureClipDataset(
+        store, subjects=[1]).get_batch(list(range(TRAIN["batch"])))[:4])
+    rec = {"phase": "bf16_train", "card": card, "batch": TRAIN["batch"]}
+    models = {}
+    for name, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        cfg = TrainConfig()
+        cfg.model.dtype = dtype
+        cfg.model.dropout = 0.0
+        models[name] = build_model(cfg, dev, torch.Generator().manual_seed(0))
+        make_optimizer(models[name], 1e-4)
+        m = grads_and_metrics(models[name], batch)
+        rec[f"{name}_first_loss"] = float(m["loss"])
+        rec[f"{name}_loss_dtype"] = str(m["loss"].dtype)
+    rel = abs(rec["bf16_first_loss"] - rec["f32_first_loss"]) / abs(rec["f32_first_loss"])
+    rec["first_loss_rel_diff"], rec["first_loss_rtol"] = rel, BF16_LOSS_RTOL
+    if not (rel <= BF16_LOSS_RTOL and rec["bf16_loss_dtype"] == "torch.float32"):
+        raise AssertionError(f"bf16 first step: {rec}")
+    for name, fused in (("plain_bf16", False), ("plain_f32", False), ("fused_f32", True)):
+        model = models[name.rsplit("_", 1)[1]]
+        optimizer, _ = make_optimizer(model, 1e-4)
+        step = make_train_step(model, optimizer, fused=fused)
+        rec[f"step_ms_{name}"] = time_ms(lambda: step(batch), reps=10)
+    log(rec)
+
+    paths = {}
+    base = read_rows(os.path.join(tmp, "runs"))
+    zero_counts()
+    t0 = time.perf_counter()
+    train_main(train_argv(store, os.path.join(tmp, "bf16"), "--model.dtype", "bfloat16",
+                          "--optim.fused", "false", "--optim.epochs", "1"))
+    torch.cuda.synchronize()
+    paths["train_bf16"] = read_counts()
+    rows = read_rows(os.path.join(tmp, "bf16"))
+    log({"phase": "train_bf16", "seconds": time.perf_counter() - t0,
+         "launches": paths["train_bf16"], "metrics": rows})
+    if paths["train_bf16"] != expect_counts() or len(rows) != 1 or not all(
+            math.isfinite(rows[0][k]) for k in ("train_loss", "val_loss", "val_mpjpe")):
+        raise AssertionError("the bf16 plain run failed its checks")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    train_main(train_argv(store, os.path.join(tmp, "bf16_fused"), "--model.dtype",
+                          "bfloat16"))
+    torch.cuda.synchronize()
+    paths["train_bf16_fused"] = read_counts()
+    rows = read_rows(os.path.join(tmp, "bf16_fused"))
+    n = TRAIN["epochs"] * steps
+    want = expect_counts(gn_relu_cconv=4 * n, gn_relu_cconv_bwd=4 * n,
+                         joint_regressor=n, joint_regressor_bwd=n)
+    same = [r["train_loss"] == b["train_loss"] for r, b in zip(rows, base)]
+    log({"phase": "train_bf16_fused", "seconds": time.perf_counter() - t0,
+         "launches": paths["train_bf16_fused"], "train_loss_equal_to_f32_fused": same,
+         "metrics": rows})
+    if paths["train_bf16_fused"] != want or len(rows) != len(base) or not all(same):
+        raise AssertionError(f"the bf16 fused run: launches {paths['train_bf16_fused']} "
+                             f"(want {want}), train losses equal to f32's {same}")
+    return paths
+
 
 
 def check_matmul_probe(dev):
@@ -2278,8 +2541,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         paths["serve"] = drive_main_path(dev, g, tmp)
     with tempfile.TemporaryDirectory() as tmp:
+        paths["serve_artifact"] = drive_artifact_path(dev, g, tmp, smi.splitlines()[0])
+    with tempfile.TemporaryDirectory() as tmp:
         paths["train"] = drive_train_path(g, tmp)
         paths.update(drive_grouped_train_paths(tmp, read_rows(os.path.join(tmp, "runs"))))
+        paths.update(drive_bf16_train_paths(dev, tmp, smi.splitlines()[0]))
     t0 = time.perf_counter()
     e = EXTRACT
     videos = SyntheticVideos(0, e["videos"], e["frames"], e["raw"], e["seq_len"], e["stride"])

@@ -66,7 +66,9 @@ class ModelConfig:
     dropout: float = 0.5
     groups: int = 32
     kernel_size: int = 3
-    dtype: str = "float32"  # compute dtype; only float32 in this slice
+    # compute dtype: 'float32', 'bfloat16' or 'bf16' (mixed precision: bf16
+    # matmuls and activations, f32 params/optimizer/GroupNorm statistics)
+    dtype: str = "float32"
 
 
 @dataclass

@@ -44,6 +44,8 @@ def project_with_K(P_cam: torch.Tensor, K: torch.Tensor,
     # with P's leading dims
     while K.ndim < P_cam.ndim + 1:
         K = K[..., None, :, :] if K.ndim > 2 else K[None]
-    P_h = torch.einsum("...ij,...j->...i", K, P_cam)
+    # promoted as jnp.einsum does (bfloat16 joints through float32 K)
+    dtype = torch.promote_types(K.dtype, P_cam.dtype)
+    P_h = torch.einsum("...ij,...j->...i", K.to(dtype), P_cam.to(dtype))
     z = torch.clamp(P_h[..., 2:3], min=eps)
     return P_h[..., 0:2] / z

@@ -31,6 +31,16 @@ copies of the weights, which the engines (:func:`make_fused_forward`,
 :func:`h36x_torch.serve.make_rollout_fn`, the streaming predictor, the
 daemon) make once, where they take the params, by
 :func:`serving_params`; a tree without them costs a cast per call.
+
+Compute dtype: `dtype` (h36x's `PHDFor3DJoints.dtype`; None is float32)
+applies to the plain path, with the semantics of h36x's flax model
+(`h36x/models/phd.py:48-101, 128-158`): every Dense and causal conv casts
+its input, kernel and bias to `dtype`; GroupNorm takes float32 statistics
+and gives a float32 output when `dtype` is narrower than 4 bytes; the
+residual is cast to the conv's dtype; the regressor's iterate starts in
+phi's dtype. The params stay as they are (float32). The kernels compute in
+float32 whatever `dtype` is, as h36x's fused Pallas step does
+(`h36x/train/step.py:79-88` passes no dtype).
 """
 
 from __future__ import annotations
@@ -74,12 +84,21 @@ def serving_params(params: dict, use_kernels: bool = True,
     return out
 
 
+def _dense(x, p, dtype=None):
+    """x @ kernel + bias, with x, kernel and bias cast to the compute
+    `dtype` first when one is given (flax's `Dense(dtype=...)`)."""
+    w, b = p["kernel"], p["bias"]
+    if dtype is not None:
+        x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+    return x @ w + b
+
+
 def _plain_block(x, p, groups, valid_len=None, dropout_mask=None,
-                 precise: bool = True):
+                 precise: bool = True, dtype=None):
     h = reference_gn_relu_cconv(
         x, p["gn1"]["scale"], p["gn1"]["bias"],
         p["conv1"]["kernel"], p["conv1"]["bias"], groups=groups,
-        valid_len=valid_len, precise=precise,
+        valid_len=valid_len, precise=precise, dtype=dtype,
     )
     if dropout_mask is not None:
         h = h * dropout_mask
@@ -87,16 +106,18 @@ def _plain_block(x, p, groups, valid_len=None, dropout_mask=None,
         h, p["gn2"]["scale"], p["gn2"]["bias"],
         p["conv2"]["kernel"], p["conv2"]["bias"],
         residual=x, groups=groups, valid_len=valid_len, precise=precise,
+        dtype=dtype,
     )
 
 
-def _temporal_net(x, net_params, groups, use_kernels, precise: bool = True):
+def _temporal_net(x, net_params, groups, use_kernels, precise: bool = True,
+                  dtype=None):
     for name in sorted_blocks(net_params):
         p = net_params[name]
         if use_kernels:
             x = fused_residual_block(x, p, groups=groups, precise=precise)
         else:
-            x = _plain_block(x, p, groups, precise=precise)
+            x = _plain_block(x, p, groups, precise=precise, dtype=dtype)
     return x
 
 
@@ -110,26 +131,38 @@ def _temporal_net_masked(x, net_params, groups, valid_len, precise: bool = True)
     return x
 
 
-def _regressor(phi, reg_params, joints_num, use_kernels, iters=3,
-               precise: bool = True):
-    b, t, d = phi.shape
-    out_dim = joints_num * 3
-    args = (phi.reshape(b * t, d),
-            reg_params["fc1"]["kernel"], reg_params["fc1"]["bias"],
+def _regressor_args(phi2d, reg_params, dtype=None):
+    """(phi2d, w1, b1, w2, b2, w3, b3), cast to the compute `dtype` when one
+    is given (phi is in it already under a model dtype, so the iterate,
+    which starts in phi's dtype, is too)."""
+    args = (phi2d, reg_params["fc1"]["kernel"], reg_params["fc1"]["bias"],
             reg_params["fc2"]["kernel"], reg_params["fc2"]["bias"],
             reg_params["fc3"]["kernel"], reg_params["fc3"]["bias"])
+    return args if dtype is None else tuple(a.to(dtype) for a in args)
+
+
+def _regressor(phi, reg_params, joints_num, use_kernels, iters=3,
+               precise: bool = True, dtype=None):
+    b, t, d = phi.shape
+    out_dim = joints_num * 3
     if use_kernels:
+        args = _regressor_args(phi.reshape(b * t, d), reg_params)
         y = fused_joint_regressor(*args, iters, out_dim, precise=precise,
                                   weights_bf16=reg_params.get("bf16"))
     else:
+        args = _regressor_args(phi.reshape(b * t, d), reg_params, dtype)
         y = _reference_forward(*args, iters, out_dim, precise)
     return y.reshape(b, t, joints_num, 3)
 
 
-def _movie(params, feats, groups, use_kernels, precise: bool = True):
+def _movie(params, feats, groups, use_kernels, precise: bool = True,
+           dtype=None):
     """input_proj -> f_movie: the movie strips phi (B, T, latent)."""
-    x = feats @ params["input_proj"]["kernel"] + params["input_proj"]["bias"]
-    return _temporal_net(x, params["f_movie"], groups, use_kernels, precise)
+    if use_kernels:
+        dtype = None
+    x = _dense(feats, params["input_proj"], dtype)
+    return _temporal_net(x, params["f_movie"], groups, use_kernels, precise,
+                         dtype)
 
 
 def phd_forward_fused(
@@ -142,6 +175,7 @@ def phd_forward_fused(
     use_kernels: bool = True,
     regressor_iters: int = 3,
     precise: bool = False,
+    dtype: Optional[torch.dtype] = None,
 ):
     """Eval-mode PHD forward over precomputed features (B, T, F).
 
@@ -150,27 +184,30 @@ def phd_forward_fused(
     (phi, phi_hat, joints_phi, joints_hat|None) like the model; phi_hat is
     the f_AR output shifted right one step, zeros at t=0.
     regressor_iters must match the checkpoint's training config — a
-    mismatch runs silently with systematically wrong joints. `precise` as
-    in the module docstring.
+    mismatch runs silently with systematically wrong joints. `precise` and
+    `dtype` as in the module docstring.
     """
-    phi = _movie(params, feats, groups, use_kernels, precise)
-    ar_out = _temporal_net(phi, params["f_AR"], groups, use_kernels, precise)
+    phi = _movie(params, feats, groups, use_kernels, precise, dtype)
+    ar_out = _temporal_net(phi, params["f_AR"], groups, use_kernels, precise,
+                           dtype)
     phi_hat = torch.cat([torch.zeros_like(ar_out[:, :1]), ar_out[:, :-1]], dim=1)
     joints_phi = _regressor(phi, params["f_3D"], joints_num, use_kernels,
-                            regressor_iters, precise)
+                            regressor_iters, precise, dtype)
     joints_hat: Optional[torch.Tensor] = None
     if predict_future:
         joints_hat = _regressor(phi_hat, params["f_3D"], joints_num, use_kernels,
-                                regressor_iters, precise)
+                                regressor_iters, precise, dtype)
     return phi, phi_hat, joints_phi, joints_hat
 
 
 def make_fused_forward(params: dict, joints_num: int = 17, groups: int = 32,
                        use_kernels: bool = True, regressor_iters: int = 3,
-                       precise: bool = False):
+                       precise: bool = False,
+                       dtype: Optional[torch.dtype] = None):
     """feats -> joints (B, T, J, 3): input_proj -> f_movie -> f_3D over
     `params` (the flax-layout tree, on the feats' device), whose fast-mode
-    copies (:func:`serving_params`) are made here, once.
+    copies (:func:`serving_params`) are made here, once. `dtype` as in the
+    module docstring.
 
     f_AR is not run: joints do not depend on it (the JAX engine's jit drops
     it as dead code from the same computation)."""
@@ -178,38 +215,37 @@ def make_fused_forward(params: dict, joints_num: int = 17, groups: int = 32,
 
     @torch.inference_mode()
     def forward(feats):
-        phi = _movie(params, feats, groups, use_kernels, precise)
+        phi = _movie(params, feats, groups, use_kernels, precise, dtype)
         return _regressor(phi, params["f_3D"], joints_num, use_kernels,
-                          regressor_iters, precise)
+                          regressor_iters, precise, dtype)
 
     return forward
 
 
 def dropout_mask(shape, keep: float, generator: torch.Generator, like: torch.Tensor):
-    """Inverted-dropout mask (Bernoulli(keep) / keep) drawn from `generator`,
-    which lives on the tensors' device."""
-    u = torch.rand(shape, generator=generator, device=like.device, dtype=like.dtype)
+    """Inverted-dropout mask (Bernoulli(keep) / keep) in `like`'s dtype,
+    drawn in float32 from `generator`, which lives on the tensors' device."""
+    u = torch.rand(shape, generator=generator, device=like.device,
+                   dtype=torch.float32)
     return (u < keep).to(like.dtype) / keep
 
 
 def _regressor_train(phi, reg_params, generator, dropout, iters, joints_num,
-                     use_kernels, precise: bool = True):
+                     use_kernels, precise: bool = True, dtype=None):
     """Training-mode regressor. At dropout 0 it is the eval regressor (with
     `use_kernels`, the fused one: B3 forward, B4 backward on CUDA tensors);
     with dropout the per-round masks of the flax JointRegressor sit inside
     the loop, which the kernel cannot take, so it runs as plain torch with
-    autograd."""
+    autograd (in the compute `dtype`, when one is given)."""
     if dropout == 0.0:
         return _regressor(phi, reg_params, joints_num, use_kernels, iters=iters,
-                          precise=precise)
+                          precise=precise, dtype=dtype)
     b, t, d = phi.shape
     out_dim = joints_num * 3
-    w1, b1 = reg_params["fc1"]["kernel"], reg_params["fc1"]["bias"]
-    w2, b2 = reg_params["fc2"]["kernel"], reg_params["fc2"]["bias"]
-    w3, b3 = reg_params["fc3"]["kernel"], reg_params["fc3"]["bias"]
-    phi2d = phi.reshape(b * t, d)
+    phi2d, w1, b1, w2, b2, w3, b3 = _regressor_args(phi.reshape(b * t, d),
+                                                    reg_params, dtype)
     keep = 1.0 - dropout
-    y = torch.zeros((b * t, out_dim), dtype=phi.dtype, device=phi.device)
+    y = torch.zeros((b * t, out_dim), dtype=phi2d.dtype, device=phi.device)
     for _ in range(iters):
         h = torch.relu(torch.cat([phi2d, y], dim=-1) @ w1 + b1)
         h = h * dropout_mask(h.shape, keep, generator, h)
@@ -229,6 +265,7 @@ def phd_forward_train_fused(
     regressor_iters: int = 3,
     use_kernels: bool = True,
     precise: bool = True,
+    dtype: Optional[torch.dtype] = None,
 ):
     """Training forward of the phase-1 loss path (feats -> input_proj ->
     f_movie -> f_3D), with gradients. With `use_kernels` every residual block
@@ -239,21 +276,26 @@ def phd_forward_train_fused(
     Masks are drawn from `generator` (needed when dropout > 0): one per
     block, then one per regressor round, in that order on both paths. f_AR is
     not run: the phase-1 loss never reads it. `precise` defaults to True, as
-    h36x trains fused (h36x/infer.py::phd_forward_train_fused).
+    h36x trains fused (h36x/infer.py::phd_forward_train_fused). `dtype` is
+    the plain path's compute dtype (module docstring): with the kernels the
+    step runs in float32 whatever it is, as h36x's fused step does.
 
     Returns (phi, joints)."""
     if dropout > 0.0 and generator is None:
         raise ValueError("dropout > 0 needs a torch.Generator for its masks")
-    x = feats @ params["input_proj"]["kernel"] + params["input_proj"]["bias"]
+    if use_kernels:
+        dtype = None
+    x = _dense(feats, params["input_proj"], dtype)
     x = _temporal_net_train(x, params["f_movie"], generator, dropout, groups,
-                            use_kernels, precise)
+                            use_kernels, precise, dtype)
     joints = _regressor_train(x, params["f_3D"], generator, dropout,
-                              regressor_iters, joints_num, use_kernels, precise)
+                              regressor_iters, joints_num, use_kernels, precise,
+                              dtype)
     return x, joints
 
 
 def _temporal_net_train(x, net_params, generator, dropout, groups, use_kernels,
-                        precise):
+                        precise, dtype=None):
     """Training-mode temporal net: one dropout mask per block, between its
     two convs, drawn in block order."""
     keep = 1.0 - dropout
@@ -267,7 +309,8 @@ def _temporal_net_train(x, net_params, generator, dropout, groups, use_kernels,
             x = fused_residual_block(x, p, groups=groups, dropout_mask=mask,
                                      precise=precise)
         else:
-            x = _plain_block(x, p, groups, dropout_mask=mask, precise=precise)
+            x = _plain_block(x, p, groups, dropout_mask=mask, precise=precise,
+                             dtype=dtype)
     return x
 
 
@@ -280,6 +323,7 @@ def phd_forward_train_future(
     joints_num: int = 17,
     groups: int = 32,
     regressor_iters: int = 3,
+    dtype: Optional[torch.dtype] = None,
 ):
     """Training forward of the phase-2 loss path, plain ops with autograd
     (the counterpart of h36x's `model.apply(predict_future=True,
@@ -288,15 +332,16 @@ def phd_forward_train_future(
     `generator` in the order f_movie's blocks, f_AR's blocks, the
     regressor's rounds. f_3D(phi) is not run: no phase-2 loss reads it.
     Gradients reach the modules whose params require them (phase 2 freezes
-    all but f_AR). Returns (phi, phi_hat, joints_hat)."""
+    all but f_AR). `dtype` as in the module docstring. Returns (phi,
+    phi_hat, joints_hat)."""
     if dropout > 0.0 and generator is None:
         raise ValueError("dropout > 0 needs a torch.Generator for its masks")
-    x = feats @ params["input_proj"]["kernel"] + params["input_proj"]["bias"]
+    x = _dense(feats, params["input_proj"], dtype)
     phi = _temporal_net_train(x, params["f_movie"], generator, dropout, groups,
-                              False, True)
+                              False, True, dtype)
     ar_out = _temporal_net_train(phi, params["f_AR"], generator, dropout, groups,
-                                 False, True)
+                                 False, True, dtype)
     phi_hat = torch.cat([torch.zeros_like(ar_out[:, :1]), ar_out[:, :-1]], dim=1)
     joints_hat = _regressor_train(phi_hat, params["f_3D"], generator, dropout,
-                                  regressor_iters, joints_num, False, True)
+                                  regressor_iters, joints_num, False, True, dtype)
     return phi, phi_hat, joints_hat

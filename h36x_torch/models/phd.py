@@ -122,6 +122,12 @@ class PHDFor3DJoints(nn.Module):
     phi_hat, joints_hat) (:func:`h36x_torch.infer.phd_forward_train_future`):
     plain ops only, so it needs `use_kernels=False` (h36x has no fused
     phase-2 forward).
+
+    `dtype` is the compute dtype (h36x's `PHDFor3DJoints.dtype`: None is
+    float32, torch.bfloat16 mixed precision), passed to the engine when
+    `use_kernels` is False (:mod:`h36x_torch.infer` says what it casts).
+    The parameters stay float32; the kernels compute in float32 whatever
+    it is, as h36x's fused step does.
     """
 
     def __init__(self, latent_dim: int = 1024, feature_dim: int = 2048,
@@ -129,9 +135,11 @@ class PHDFor3DJoints(nn.Module):
                  ar_blocks: int = 3, groups: int = 32, kernel_size: int = 3,
                  regressor_iters: int = 3, regressor_hidden: int = 1024,
                  dropout: float = 0.5, *,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         device = resolve_device(device)
+        self.dtype = dtype
         self.joints_num = joints_num
         self.groups = groups
         self.dropout = dropout
@@ -158,20 +166,21 @@ class PHDFor3DJoints(nn.Module):
             return phd_forward_train_future(
                 param_tree(self), feats, dropout_generator,
                 dropout=self.dropout, joints_num=self.joints_num,
-                groups=self.groups, regressor_iters=self.regressor_iters)
+                groups=self.groups, regressor_iters=self.regressor_iters,
+                dtype=self.dtype)
         if train:
             return phd_forward_train_fused(
                 param_tree(self), feats, dropout_generator,
                 dropout=self.dropout, joints_num=self.joints_num,
                 groups=self.groups, regressor_iters=self.regressor_iters,
-                use_kernels=use_kernels,
+                use_kernels=use_kernels, dtype=self.dtype,
             )
         with torch.inference_mode():
             return phd_forward_fused(
                 param_tree(self), feats, predict_future,
                 joints_num=self.joints_num, groups=self.groups,
                 use_kernels=use_kernels, regressor_iters=self.regressor_iters,
-                precise=True,
+                precise=True, dtype=self.dtype,
             )
 
 

@@ -108,7 +108,8 @@ def bf16_kernel(kernel: torch.Tensor) -> torch.Tensor:
 
 def reference_gn_relu_cconv(x, scale, bias, kernel, conv_bias, residual=None,
                             groups: int = 32, eps: float = 1e-5,
-                            valid_len=None, precise: bool = True):
+                            valid_len=None, precise: bool = True,
+                            dtype: Optional[torch.dtype] = None):
     """Plain version: GN -> ReLU -> causal conv [+ residual].
 
     x (B, T, D), scale/bias (D,), kernel (K, D, O), conv_bias (O,),
@@ -118,7 +119,15 @@ def reference_gn_relu_cconv(x, scale, bias, kernel, conv_bias, residual=None,
     and must not be read). `precise=False` is the fast mode's plain
     version: the activation rounded to a bfloat16 pair (:func:`bf16_pair`)
     and the kernel to bfloat16 before the float32 conv, as the kernel's
-    fast route computes them."""
+    fast route computes them.
+
+    `dtype` is a compute dtype as h36x's flax ResidualBlock takes it
+    (`h36x/models/phd.py:85-101`): narrower than 4 bytes, the GroupNorm
+    takes float32 statistics and gives a float32 output; the conv casts its
+    input, kernel and bias to `dtype`; the residual is cast to the conv's
+    dtype. None computes in the operands' own dtypes."""
+    if dtype is not None and dtype.itemsize < 4:
+        x = x.float()
     b, t_len, d = x.shape
     xg = x.reshape(b, t_len, groups, d // groups)
     if valid_len is None:
@@ -134,9 +143,11 @@ def reference_gn_relu_cconv(x, scale, bias, kernel, conv_bias, residual=None,
     xn = torch.relu(xn * scale + bias)
     if not precise:
         xn, kernel = bf16_pair(xn), _bf16_round(kernel)
+    if dtype is not None:
+        xn, kernel, conv_bias = xn.to(dtype), kernel.to(dtype), conv_bias.to(dtype)
     out = causal_conv1d(xn, kernel, conv_bias)
     if residual is not None:
-        out = out + residual
+        out = out + residual.to(out.dtype)
     return out
 
 

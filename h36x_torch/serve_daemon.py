@@ -6,12 +6,17 @@ coalesces concurrent requests into one device batch (dynamic batching up to
 `max_batch` with a `max_wait_ms` deadline), runs the forward once, and fans
 the rows back out. The server, the wire protocol and the client are the JAX
 daemon's, so clients of either daemon talk to both; only the model source
-differs (:func:`build_predict_fn`).
+differs (:func:`build_predict_fn`): an artifact of h36x_torch.export
+(batches padded to power-of-two buckets) or a checkpoint (the kernels,
+batches at their exact size).
 
 Wire protocol (both directions):
   8-byte big-endian header length | JSON header | raw payload bytes
   request header:  {"shape": [T, F], "dtype": "float32"}
-  response header: {"shape": [T, J, 3], "dtype": "float32"} or {"error": m}
+  response header: {"shape": [T, J, 3], "dtype": "float32"} or {"error": m};
+                   a rollout artifact replies [T + steps, J, 3] with
+                   "split": T (context rows | forecast rows), which the
+                   client splits back into (ctx, future)
   Observability: {"op": "stats"} (no payload) returns {"stats": {...}} —
   request/batch/row counts, uptime, queue depth, mean coalesced batch
   size, and p50/p90/p99 latency for the device call and for the full
@@ -73,12 +78,22 @@ def _write_msg(writer: asyncio.StreamWriter, header: dict,
 # ---------------------------------------------------------------------------
 
 
+def bucket_size(n: int) -> int:
+    """Smallest power of two >= n (the batch-size buckets artifact mode
+    pads to, bounding the number of distinct shapes it serves)."""
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
 class BatchingServer:
     """Coalesce concurrent (T, F) requests into one (B, T, F) device call.
 
-    predict_fn: (B, T, F) f32 numpy -> (B, T, J, 3) numpy-convertible.
-    PyTorch runs eagerly, so no batch shape is compiled ahead: each batch
-    runs at its coalesced size, with no padding rows.
+    predict_fn: (B, T, F) f32 numpy -> (B, T, J, 3) numpy-convertible, or a
+    tuple of such arrays concatenated on time for the reply (a rollout's
+    (ctx, future): the reply carries "split"). pad_to > 0 pads every batch
+    to that many rows. pad_to == 0 with bucket_pad=True pads each batch up
+    to the next power of two, clamped at max_batch (artifact mode: a few
+    sizes, all warmed at startup). pad_to == 0 with bucket_pad=False runs
+    batches at their exact size (checkpoint mode: PyTorch runs eagerly).
 
     max_queue bounds the request queue: past that depth new requests get
     an explicit "server overloaded" error instead of queueing without
@@ -88,12 +103,15 @@ class BatchingServer:
 
     def __init__(self, predict_fn: Callable, seq_len: int, feature_dim: int,
                  max_batch: int = 16, max_wait_ms: float = 5.0,
+                 pad_to: int = 0, bucket_pad: bool = False,
                  max_queue: int = 1024):
         self.predict_fn = predict_fn
         self.seq_len = int(seq_len)
         self.feature_dim = int(feature_dim)
         self.max_batch = int(max_batch)
         self.max_wait = max_wait_ms / 1000.0
+        self.pad_to = int(pad_to)
+        self.bucket_pad = bool(bucket_pad)
         # backpressure bound: past this depth new requests are REJECTED
         # with an explicit overload error instead of queueing without
         # bound (each queued row pins a (T, F) f32 buffer — an unbounded
@@ -165,14 +183,16 @@ class BatchingServer:
                 # _closed check above cannot race stop()'s drain
                 await self._queue.put((feats, fut, loop.time()))
                 try:
-                    joints = await fut
+                    joints, split = await fut
                 except Exception as e:  # batch failed; report, keep serving
                     _write_msg(writer, {"error": f"inference failed: {e}"})
                     await writer.drain()
                     continue
                 out = np.ascontiguousarray(joints, dtype=np.float32)
-                _write_msg(writer, {"shape": list(out.shape), "dtype": "float32"},
-                           out.tobytes())
+                header = {"shape": list(out.shape), "dtype": "float32"}
+                if split is not None:  # rollout: ctx rows | forecast rows
+                    header["split"] = split
+                _write_msg(writer, header, out.tobytes())
                 await writer.drain()
         finally:
             self._writers.discard(writer)
@@ -195,9 +215,15 @@ class BatchingServer:
 
     # -- batcher ------------------------------------------------------------
 
-    def _run_batch(self, feats: np.ndarray) -> np.ndarray:
-        """Device call (worker thread)."""
-        return np.asarray(self.predict_fn(feats))
+    def _run_batch(self, feats: np.ndarray):
+        """Device call (worker thread) -> (rows, split). A tuple output
+        (a rollout's (ctx, future)) is concatenated on time into one array,
+        split the context length, so one wire payload carries both."""
+        out = self.predict_fn(feats)
+        if isinstance(out, (tuple, list)):
+            parts = [np.asarray(p) for p in out]
+            return np.concatenate(parts, axis=1), int(parts[0].shape[1])
+        return np.asarray(out), None
 
     async def _batch_loop(self) -> None:
         loop = asyncio.get_running_loop()
@@ -215,7 +241,7 @@ class BatchingServer:
                             await asyncio.wait_for(self._queue.get(), timeout))
                     except asyncio.TimeoutError:
                         break
-                # ANY failure in predict/fan-out must fail this batch's
+                # ANY failure in pad/predict/fan-out must fail this batch's
                 # futures and keep the loop alive: an escaped exception kills
                 # the batcher task silently (nothing awaits it) and every
                 # later request would queue into a consumer-less queue
@@ -223,17 +249,27 @@ class BatchingServer:
                 try:
                     feats = np.stack([f for f, _, _ in items])
                     n = feats.shape[0]
+                    # bucket padding clamps at max_batch: a non-power-of-two
+                    # cap must not round past itself into an unwarmed,
+                    # oversized shape
+                    target = self.pad_to or (
+                        min(bucket_size(n), self.max_batch) if self.bucket_pad
+                        else n)
+                    if n < target:
+                        pad = np.zeros((target - n,) + feats.shape[1:],
+                                       np.float32)
+                        feats = np.concatenate([feats, pad])
                     # the device wait runs in a worker thread so the event
                     # loop keeps accepting (queueing) the next batch
                     t_dev = loop.time()
-                    joints = await loop.run_in_executor(
+                    joints, split = await loop.run_in_executor(
                         None, self._run_batch, feats)
                     dev_ms = (loop.time() - t_dev) * 1e3
-                    if joints.shape[0] != n:
+                    if joints.shape[0] != feats.shape[0]:
                         raise RuntimeError(
                             f"predict_fn returned {joints.shape[0]} rows "
-                            f"for a batch of {n}")
-                    results = list(joints)
+                            f"for a batch of {feats.shape[0]}")
+                    results = [(joints[i], split) for i in range(n)]
                 except Exception as e:
                     for _, fut, _ in items:
                         if not fut.done():
@@ -341,7 +377,8 @@ async def request_async(feats: np.ndarray, host: Optional[str] = None,
                         port: Optional[int] = None,
                         unix_path: Optional[str] = None,
                         timeout_s: Optional[float] = None):
-    """One (T, F) request -> (T, J, 3) prediction.
+    """One (T, F) request -> (T, J, 3) prediction, or (ctx, future) from a
+    daemon serving a rollout artifact (the reply's "split").
 
     timeout_s bounds the WHOLE round trip (connect + upload + inference +
     download); a hung daemon then raises asyncio.TimeoutError instead of
@@ -365,7 +402,11 @@ async def request_async(feats: np.ndarray, host: Optional[str] = None,
         writer.close()
     if "error" in header:
         raise RuntimeError(header["error"])
-    return np.frombuffer(payload, np.float32).reshape(header["shape"])
+    out = np.frombuffer(payload, np.float32).reshape(header["shape"])
+    split = header.get("split")
+    if split is not None:
+        return out[:split], out[split:]
+    return out
 
 
 def request(feats: np.ndarray, **kw):
@@ -417,59 +458,89 @@ def build_predict_fn(artifact: str = "", model_path: str = "",
                      ar_blocks: int = 3, kernel_size: int = 3,
                      regressor_hidden: int = 1024, joints_num: int = 17,
                      device=None, precise: bool = False):
-    """Returns predict_fn for a checkpoint.
+    """Returns (predict_fn, pad_to) from an artifact or a checkpoint, on
+    `device` (cuda unless the caller asks for another).
 
-    Checkpoint mode loads the params (held against the model's shapes) onto
-    `device` (cuda unless the caller asks for another) and serves
-    :func:`h36x_torch.infer.make_fused_forward` with the kernels on, at
-    `precise` (False, the serving default: bfloat16 weights and
+    Artifact mode loads an h36x_torch.export artifact (its architecture,
+    dtype and window baked in; the model arguments and seq_len/feature_dim
+    are not read) onto the device. A symbolic batch serves every size: it
+    returns pad_to=0, to pair with bucket_pad=True, and warm=True runs every
+    power-of-two bucket up to max_batch (and max_batch itself) once at
+    startup, so the first request of a size pays no first-call cost. A
+    fixed batch (export's `batch=`) serves that size only: it returns
+    pad_to=that batch (every batch padded to it), refuses a max_batch above
+    it with ValueError, and warm=True runs that size. A rollout artifact's
+    predict_fn returns (ctx, future).
+
+    Checkpoint mode loads the params (held against the model's shapes) and
+    serves :func:`h36x_torch.infer.make_fused_forward` with the kernels on,
+    at `precise` (False, the serving default: bfloat16 weights and
     activations as bfloat16 pairs with float32 sums, the bfloat16 weight
-    copies made once by the engine).
+    copies made once by the engine). It returns pad_to=0 for
+    bucket_pad=False: PyTorch runs each batch eagerly at its own size.
+    warm=True runs one max_batch forward at startup.
 
-    Every forward runs on one dedicated device thread, and warm=True runs
-    one max_batch forward there at startup: the kernels' first build and
-    load, and the per-thread CUDA and cuBLAS set-up, are then paid before
-    the first request instead of inside it.
+    Every forward runs on one dedicated device thread: the kernels' first
+    build and load, and the per-thread CUDA and cuBLAS set-up, are paid by
+    the warm-up on that thread instead of inside the first request.
     """
-    if artifact:
-        raise NotImplementedError(
-            "AOT artifacts come with the export slice of h36x_torch; serve a "
-            "checkpoint with model_path= (--model-path)")
-
     import torch
 
-    from h36x_torch.cli.common import build_model_from_arch
-    from h36x_torch.infer import make_fused_forward
-    from h36x_torch.models.phd import param_tree
-    from h36x_torch.train import checkpoint as ckpt
     from h36x_torch.utils.runtime import resolve_device
 
     device = resolve_device(device)
-    model = build_model_from_arch(dict(
-        latent_dim=latent_dim, feature_dim=feature_dim, joints_num=joints_num,
-        num_blocks=num_blocks, ar_num_blocks=ar_blocks, groups=groups,
-        kernel_size=kernel_size, regressor_iters=regressor_iters,
-        regressor_hidden=regressor_hidden), device="cpu")
-    model.load_state_dict(ckpt.load_params_only(model_path, model.state_dict()))
-    model.to(device)
-    forward = make_fused_forward(param_tree(model), joints_num=joints_num,
-                                 groups=groups,
-                                 use_kernels=True,
-                                 regressor_iters=regressor_iters, precise=precise)
+    if artifact:
+        from h36x_torch.export import load_artifact
+
+        forward = load_artifact(artifact, device=device)
+        fixed, seq_len, feature_dim = forward.input_shape
+        if fixed is None:
+            pad_to = 0
+            warm_sizes = sorted({1 << i for i in range(max(1, max_batch).bit_length())
+                                 if 1 << i < max_batch} | {max_batch})
+        elif max_batch > fixed:
+            raise ValueError(
+                f"max_batch {max_batch} exceeds the artifact's fixed batch "
+                f"{fixed}: serve it with max_batch <= {fixed}, or export "
+                "without --batch (a symbolic batch)")
+        else:
+            pad_to, warm_sizes = fixed, [fixed]
+    else:
+        from h36x_torch.cli.common import build_model_from_arch
+        from h36x_torch.infer import make_fused_forward
+        from h36x_torch.models.phd import param_tree
+        from h36x_torch.train import checkpoint as ckpt
+
+        model = build_model_from_arch(dict(
+            latent_dim=latent_dim, feature_dim=feature_dim, joints_num=joints_num,
+            num_blocks=num_blocks, ar_num_blocks=ar_blocks, groups=groups,
+            kernel_size=kernel_size, regressor_iters=regressor_iters,
+            regressor_hidden=regressor_hidden), device="cpu")
+        model.load_state_dict(ckpt.load_params_only(model_path, model.state_dict()))
+        model.to(device)
+        forward = make_fused_forward(param_tree(model), joints_num=joints_num,
+                                     groups=groups, use_kernels=True,
+                                     regressor_iters=regressor_iters,
+                                     precise=precise)
+        pad_to, warm_sizes = 0, [max_batch]
 
     device_thread = ThreadPoolExecutor(max_workers=1,
                                        thread_name_prefix="h36x-device")
 
     def run(feats):
         x = torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(device)
-        return forward(x).cpu().numpy()
+        out = forward(x)
+        if isinstance(out, tuple):
+            return tuple(o.cpu().numpy() for o in out)
+        return out.cpu().numpy()
 
     def predict(feats):
         return device_thread.submit(run, feats).result()
 
     if warm:
-        predict(np.zeros((max_batch, seq_len, feature_dim), np.float32))
-    return predict
+        for b in warm_sizes:
+            predict(np.zeros((b, seq_len, feature_dim), np.float32))
+    return predict, pad_to
 
 
 async def serve_forever(server: BatchingServer, drain_s: float = 10.0,

@@ -42,6 +42,10 @@ from h36x_torch.utils.timers import PhaseTimers
 
 _LATER = "is not ported to h36x_torch yet (it comes with a later slice)"
 
+# --model.dtype -> the model's compute dtype (h36x's names: h36x/config.py)
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
+                  "bf16": torch.bfloat16}
+
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise for every setting this slice of the port does not run, rather
@@ -53,10 +57,9 @@ def check_supported(cfg: TrainConfig) -> None:
         raise NotImplementedError(f"--ckpt-backend orbax {_LATER}")
     if cfg.ckpt_backend != "msgpack":
         raise ValueError(f"unknown ckpt_backend {cfg.ckpt_backend!r}")
-    if m.dtype in ("bfloat16", "bf16"):
-        raise NotImplementedError(f"--model.dtype bfloat16 {_LATER}")
-    if m.dtype != "float32":
-        raise ValueError(f"unknown --model.dtype {m.dtype!r}")
+    if m.dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown --model.dtype {m.dtype!r} "
+                         f"({', '.join(COMPUTE_DTYPES)})")
     if (cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1 or cfg.mesh.slices != 1
             or cfg.dist.num_processes != 1):
         raise NotImplementedError(
@@ -80,6 +83,7 @@ def build_model(cfg: TrainConfig, device=None,
         dropout=m.dropout,
         generator=generator,
         device=device,
+        dtype=COMPUTE_DTYPES[m.dtype],
     )
 
 

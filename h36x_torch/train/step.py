@@ -15,6 +15,12 @@ plain autograd through the plain ops. On CPU tensors both are the plain
 path. Phase 2 is plain, as in h36x. Eval steps of phase 1 skip f_AR, as the
 fused forward does: joints do not read it.
 
+Under a model compute dtype (`--model.dtype bfloat16`) the plain step and
+every eval step compute in it, as h36x's `model.apply` does; the losses
+come out float32 (phase 1's promoted by its float32 targets, phase 2's
+taken in float32, as h36x's). `fused=True` runs the kernels in float32
+whatever the dtype, as h36x's fused step does.
+
 Grouped modes (:class:`TrainStep`): `scan_steps = k` makes k updates from a
 stacked group (k, B, ...) of batches; on CUDA each full group is one replay
 of a CUDA graph holding the k steps (forward, backward, AdamW), the
@@ -100,6 +106,8 @@ def future_grads_and_metrics(model, batch, generator: Optional[torch.Generator],
                                          train=True, use_kernels=False,
                                          dropout_generator=generator)
         mask, denom = _window(phi.shape[1], input_len, horizon, phi.device)
+        # float32 even under a bfloat16 model: both operands are the net's
+        # activations, and a bf16 difference would quantize the loss
         target = phi.detach().float()
         l_ar = torch.sum(torch.mean((phi_hat.float() - target) ** 2, dim=(0, 2))
                          * mask) / denom
@@ -324,11 +332,16 @@ def curriculum_horizon(epoch: int, pred_len: int = 25, steps: int = 25) -> int:
 
 def make_forward(model, use_kernels: bool = True) -> Callable:
     """forward(feats) -> joints_pred (B,T,J,3), eval mode, f_AR skipped, at
-    precise=True: the trainer's eval and the results stage keep float32."""
+    precise=True: the trainer's eval and the results stage keep float32.
+    A model with a compute dtype runs the plain engine in it (h36x's eval is
+    `model.apply` at the model's dtype), whatever `use_kernels` says."""
+    use_kernels = use_kernels and model.dtype is None
+
     def forward(feats):
         fwd = make_fused_forward(param_tree(model), joints_num=model.joints_num,
                                  groups=model.groups, use_kernels=use_kernels,
-                                 regressor_iters=model.regressor_iters, precise=True)
+                                 regressor_iters=model.regressor_iters, precise=True,
+                                 dtype=model.dtype)
         return fwd(feats.float())
 
     return forward

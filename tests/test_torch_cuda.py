@@ -957,3 +957,72 @@ def test_dropout_masks_differ_between_replays(dev):
     assert not torch.equal(eager[0], eager[1])
     with pytest.raises(ValueError, match="captured with"):
         step(batch, torch.Generator(device=dev))
+
+
+def test_artifact_exported_on_the_cpu_runs_on_the_card(dev):
+    """An artifact traced from CPU params loads onto the card with every
+    constant there and equals the plain float32 engine on the card, bit for
+    bit (the same aten ops), at batch 1 and 3; its bf16 twin within 2e-2."""
+    from h36x_torch.export import export_forward, load_artifact
+    from h36x_torch.infer import make_fused_forward
+    from h36x_torch.models.phd import PHDFor3DJoints, param_tree
+
+    model = PHDFor3DJoints(latent_dim=64, feature_dim=32, number_blocks=1, groups=8,
+                           device="cpu")
+    kw = dict(seq_len=10, feature_dim=32, groups=8)
+    f32 = load_artifact(export_forward(param_tree(model), **kw))
+    bf16 = load_artifact(export_forward(param_tree(model), compute_dtype=torch.bfloat16,
+                                        **kw))
+    assert all(t.device.type == "cuda" for t in f32.tensors() + bf16.tensors())
+    plain = make_fused_forward(param_tree(model.to(dev)), groups=8, use_kernels=False,
+                               precise=True)
+    for b in (1, 3):
+        x = torch.randn(b, 10, 32, device=dev)
+        got = f32(x)
+        assert got.device.type == "cuda" and torch.equal(got, plain(x))
+        assert float((bf16(x) - got).abs().max()) < 2e-2
+
+
+def test_fixed_batch_artifact_serves_on_the_card(dev, tmp_path, monkeypatch):
+    """cli.serve --artifact of an artifact exported at a fixed batch starts on
+    the card (warmed at that batch, max_batch defaulting to it, pad_to that
+    batch), and its predict_fn replies what the artifact computes."""
+    import h36x_torch.serve_daemon as daemon
+    from h36x_torch.cli import serve as serve_cli
+    from h36x_torch.export import export_forward, load_artifact, save_artifact
+    from h36x_torch.models.phd import PHDFor3DJoints, param_tree
+
+    model = PHDFor3DJoints(latent_dim=64, feature_dim=32, number_blocks=1, groups=8,
+                           device="cpu")
+    path = save_artifact(export_forward(param_tree(model), seq_len=10, feature_dim=32,
+                                        groups=8, batch=4), tmp_path / "b4.pt2")
+    got = {}
+
+    async def fake_serve_forever(server, drain_s=10.0, **bind):
+        got["server"] = server
+
+    monkeypatch.setattr(daemon, "serve_forever", fake_serve_forever)
+    serve_cli.main(["--artifact", str(path)])
+    server = got["server"]
+    assert (server.pad_to, server.max_batch) == (4, 4)
+    feats = np.random.default_rng(0).normal(size=(4, 10, 32)).astype(np.float32)
+    want = load_artifact(path)(torch.from_numpy(feats).to(dev)).cpu().numpy()
+    np.testing.assert_array_equal(server.predict_fn(feats), want)
+
+
+def test_bf16_model_forward_on_the_card(dev):
+    """PHDFor3DJoints(dtype=bfloat16) on the card: bfloat16 out, within 2e-2
+    of the float32 model from the same params; the kernels' forward ignores
+    the dtype (float32, as h36x's fused path)."""
+    from h36x_torch.models.phd import PHDFor3DJoints
+
+    bf = PHDFor3DJoints(latent_dim=64, feature_dim=32, number_blocks=1, groups=8,
+                        device=dev, dtype=torch.bfloat16)
+    f32 = PHDFor3DJoints(latent_dim=64, feature_dim=32, number_blocks=1, groups=8,
+                         device=dev)
+    x = torch.randn(2, 10, 32, device=dev)
+    got = bf(x, use_kernels=False)[2]
+    want = f32(x, use_kernels=False)[2]
+    assert got.dtype == torch.bfloat16
+    assert float((got.float() - want).abs().max()) < 2e-2
+    assert torch.equal(bf(x)[2], f32(x)[2])

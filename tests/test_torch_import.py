@@ -41,7 +41,8 @@ def test_importing_the_port_loads_no_jax_flax_msgpack_or_h36x():
               "h36x_torch.native", "h36x_torch.serve", "h36x_torch.cli.predict",
               "h36x_torch.cli.results", "h36x_torch.cli.debug_batch",
               "h36x_torch.train.results", "h36x_torch.ops.matmul_probe",
-              "h36x_torch.benchmarks.int8_kernel_probe"):
+              "h36x_torch.benchmarks.int8_kernel_probe", "h36x_torch.export",
+              "h36x_torch.cli.export"):
         assert m in loaded, m
 
 

@@ -173,9 +173,10 @@ def test_serving_entry_points_default_to_the_fast_mode(recorded, tmp_path):
     sp.push(feats[0, 1].numpy())
     sp.forecast(2)
     ckpt.save_params(tmp_path, "best", model.state_dict())
-    build_predict_fn(model_path=str(tmp_path / "best.msgpack"), seq_len=6,
-                     feature_dim=32, latent_dim=64, num_blocks=1, groups=8,
-                     device="cpu")(feats.numpy())
+    predict_fn, _ = build_predict_fn(
+        model_path=str(tmp_path / "best.msgpack"), seq_len=6, feature_dim=32,
+        latent_dim=64, num_blocks=1, groups=8, device="cpu")
+    predict_fn(feats.numpy())
     assert _modes(recorded) == {"b1": {False}, "b3": {False}}
     # and each takes precise=True when asked
     recorded["b1"].clear()

@@ -22,7 +22,14 @@ from h36x.train.state import create_train_state, make_optimizer
 from h36x_torch.cli import serve as serve_cli
 from h36x_torch.infer import make_fused_forward
 from h36x_torch.models.phd import PHDFor3DJoints, param_tree, params_from_flax
-from h36x_torch.serve_daemon import BatchingServer, build_predict_fn, request_async
+from h36x_torch import export
+from h36x_torch.serve_daemon import (
+    BatchingServer,
+    bucket_size,
+    build_predict_fn,
+    request_async,
+    stats_async,
+)
 from h36x_torch.train import checkpoint as ckpt
 from h36x_torch.utils import msgpack_lite
 
@@ -127,9 +134,10 @@ def served_ckpt(tmp_path_factory):
 
 def test_daemon_concurrent_requests_match_port_forward(served_ckpt):
     path, model = served_ckpt
-    predict_fn = build_predict_fn(
+    predict_fn, pad_to = build_predict_fn(
         model_path=str(path), seq_len=T, feature_dim=F, latent_dim=64,
         num_blocks=1, max_batch=8, warm=True, device="cpu")
+    assert pad_to == 0  # checkpoint mode: batches at their exact size
     server = BatchingServer(predict_fn, seq_len=T, feature_dim=F, max_batch=8,
                             max_wait_ms=200.0)
     rng = np.random.default_rng(0)
@@ -165,17 +173,190 @@ def test_default_device_without_cuda_raises(served_ckpt, monkeypatch):
         PHDFor3DJoints(**ARCH)
 
 
-def test_artifact_raises():
-    with pytest.raises(NotImplementedError, match="export slice"):
-        build_predict_fn(artifact="model.fwd.hlo")
-    with pytest.raises(SystemExit, match="export slice"):
-        serve_cli.main(["--artifact", "model.fwd.hlo"])
+def _serve(server, clients):
+    """Start `server` on a local port, run `clients(port)`, stop it."""
+    async def run():
+        srv = await server.start(host="127.0.0.1", port=0)
+        try:
+            return await clients(srv.sockets[0].getsockname()[1])
+        finally:
+            server.stop()
+            srv.close()
+            await srv.wait_closed()
+
+    return asyncio.run(run())
+
+
+def _gather(feats, stats=False):
+    async def clients(port):
+        out = await asyncio.gather(*[request_async(f, host="127.0.0.1", port=port,
+                                                   timeout_s=60) for f in feats])
+        if stats:
+            return out, await stats_async(host="127.0.0.1", port=port, timeout_s=30)
+        return out
+    return clients
+
+
+@pytest.mark.parametrize("max_batch, n, pad_to, bucket_pad, rows", [
+    (8, 3, 0, True, 4),   # artifact mode: the next power of two
+    (6, 5, 0, True, 6),   # bucket_size(5) = 8, clamped at max_batch
+    (8, 3, 8, False, 8),  # a fixed pad
+    (8, 3, 0, False, 3),  # checkpoint mode: the exact size
+])
+def test_bucket_padding(max_batch, n, pad_to, bucket_pad, rows):
+    """A coalesced batch of n reaches predict_fn padded to `rows`; replies
+    are the real rows' (h36x's tests/test_serve_daemon.py::
+    test_bucket_padding)."""
+    assert [bucket_size(k) for k in (1, 2, 3, 4, 5, 8, 9)] == [1, 2, 4, 4, 8, 8, 16]
+    seen = []
+
+    def spy(feats):
+        seen.append(feats.shape[0])
+        return np.repeat(feats.sum(axis=2, keepdims=True), 51, axis=2).reshape(
+            feats.shape[0], T, 17, 3)
+
+    server = BatchingServer(spy, seq_len=T, feature_dim=F, max_batch=max_batch,
+                            max_wait_ms=200.0, pad_to=pad_to, bucket_pad=bucket_pad)
+    rng = np.random.default_rng(3)
+    feats = [rng.normal(size=(T, F)).astype(np.float32) for _ in range(n)]
+    outs = _serve(server, _gather(feats))
+    assert seen == [rows] and server.stats["rows"] == n
+    for got, f in zip(outs, feats):
+        np.testing.assert_array_equal(got, spy(f[None])[0])
+
+
+@pytest.fixture(scope="module")
+def artifacts(served_ckpt, tmp_path_factory):
+    """A forward and a 2-step rollout artifact of the served model, and a
+    forward of fixed batch 4, saved."""
+    d = tmp_path_factory.mktemp("artifacts")
+    tree = param_tree(served_ckpt[1])
+    kw = dict(seq_len=T, feature_dim=F)
+    return (export.save_artifact(export.export_forward(tree, **kw), d / "fwd.pt2"),
+            export.save_artifact(export.export_rollout(tree, steps=2, **kw),
+                                 d / "roll.pt2"),
+            export.save_artifact(export.export_forward(tree, batch=4, **kw),
+                                 d / "fwd_b4.pt2"))
+
+
+def test_artifact_is_served(artifacts, served_ckpt, monkeypatch):
+    """build_predict_fn(artifact=) serves the artifact on the device thread,
+    warmed at every bucket up to max_batch; 5 concurrent requests coalesce
+    into one batch padded to 8 and reply what the artifact computes
+    directly, which is the model's float32 forward."""
+    path, model = served_ckpt
+    calls = []
+    real = export.LoadedArtifact.__call__
+    monkeypatch.setattr(export.LoadedArtifact, "__call__",
+                        lambda self, x: calls.append(x.shape[0]) or real(self, x))
+    predict_fn, pad_to = build_predict_fn(artifact=str(artifacts[0]), max_batch=8,
+                                          warm=True, device="cpu")
+    assert pad_to == 0 and calls == [1, 2, 4, 8]
+    server = BatchingServer(predict_fn, seq_len=T, feature_dim=F, max_batch=8,
+                            max_wait_ms=200.0, pad_to=pad_to, bucket_pad=True)
+    rng = np.random.default_rng(4)
+    feats = [rng.normal(size=(T, F)).astype(np.float32) for _ in range(5)]
+    outs, stats = _serve(server, _gather(feats, stats=True))
+    assert calls[4:] == [8] and stats["batches"] == 1 and stats["rows"] == 5
+    direct = export.load_artifact(artifacts[0], device="cpu")(np.stack(feats))
+    want = make_fused_forward(param_tree(model), use_kernels=False, precise=True)(
+        torch.from_numpy(np.stack(feats)))
+    for i, got in enumerate(outs):
+        np.testing.assert_array_equal(got, direct[i].numpy())
+        np.testing.assert_allclose(got, want[i].numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_fixed_batch_artifact_is_served(artifacts, monkeypatch):
+    """An artifact of fixed batch 4: build_predict_fn returns pad_to=4 and
+    warms that size only; 3 requests reach it padded to 4 rows and reply
+    what it computes; a max_batch above 4 is refused."""
+    calls = []
+    real = export.LoadedArtifact.__call__
+    monkeypatch.setattr(export.LoadedArtifact, "__call__",
+                        lambda self, x: calls.append(x.shape[0]) or real(self, x))
+    predict_fn, pad_to = build_predict_fn(artifact=str(artifacts[2]), max_batch=4,
+                                          warm=True, device="cpu")
+    assert pad_to == 4 and calls == [4]
+    server = BatchingServer(predict_fn, seq_len=T, feature_dim=F, max_batch=4,
+                            max_wait_ms=200.0, pad_to=pad_to, bucket_pad=True)
+    rng = np.random.default_rng(6)
+    feats = [rng.normal(size=(T, F)).astype(np.float32) for _ in range(3)]
+    outs = _serve(server, _gather(feats))
+    assert calls[1:] == [4]
+    padded = np.concatenate([np.stack(feats), np.zeros((1, T, F), np.float32)])
+    direct = export.load_artifact(artifacts[2], device="cpu")(padded)
+    for i, got in enumerate(outs):
+        np.testing.assert_array_equal(got, direct[i].numpy())
+    with pytest.raises(ValueError, match="fixed batch 4"):
+        build_predict_fn(artifact=str(artifacts[2]), max_batch=8, device="cpu")
+
+
+def test_rollout_artifact_served_with_split(artifacts):
+    """A rollout artifact replies (ctx, future) concatenated on time with a
+    'split' header; the client splits it back, equal to the artifact called
+    directly."""
+    predict_fn, pad_to = build_predict_fn(artifact=str(artifacts[1]), max_batch=4,
+                                          device="cpu")
+    server = BatchingServer(predict_fn, seq_len=T, feature_dim=F, max_batch=4,
+                            max_wait_ms=200.0, pad_to=pad_to, bucket_pad=True)
+    rng = np.random.default_rng(5)
+    feats = [rng.normal(size=(T, F)).astype(np.float32) for _ in range(3)]
+    outs = _serve(server, _gather(feats))
+    ctx, fut = export.load_artifact(artifacts[1], device="cpu")(np.stack(feats))
+    for i, (c, f) in enumerate(outs):
+        assert c.shape == (T, 17, 3) and f.shape == (2, 17, 3)
+        np.testing.assert_array_equal(c, ctx[i].numpy())
+        np.testing.assert_array_equal(f, fut[i].numpy())
+
+
+def test_cli_serve_artifact(artifacts, monkeypatch, capsys):
+    """cli.serve --artifact: wire shapes from the artifact, bucket padding,
+    a flag contradicting the artifact's shape refused."""
+    import h36x_torch.serve_daemon as daemon
+
+    got = {}
+
+    async def fake_serve_forever(server, drain_s=10.0, **bind):
+        got["server"] = server
+
+    monkeypatch.setattr(daemon, "serve_forever", fake_serve_forever)
+    serve_cli.main(["--artifact", str(artifacts[0]), "--device", "cpu",
+                    "--max-batch", "4", "--seq-len", str(T)])
+    server = got["server"]
+    assert (server.seq_len, server.feature_dim) == (T, F)
+    assert (server.pad_to, server.bucket_pad, server.max_batch) == (0, True, 4)
+    assert f"wire shapes: T={T} D={F}" in capsys.readouterr().out
+    for flag, value in (("--seq-len", T + 1), ("--feature-dim", F * 2)):
+        with pytest.raises(SystemExit, match="contradicts the artifact"):
+            serve_cli.main(["--artifact", str(artifacts[0]), "--device", "cpu",
+                            flag, str(value)])
+
+
+def test_cli_serve_fixed_batch_artifact(artifacts, monkeypatch):
+    """cli.serve --artifact of a fixed batch: max_batch defaults to that
+    batch, every batch is padded to it, and a larger --max-batch is
+    refused."""
+    import h36x_torch.serve_daemon as daemon
+
+    got = {}
+
+    async def fake_serve_forever(server, drain_s=10.0, **bind):
+        got["server"] = server
+
+    monkeypatch.setattr(daemon, "serve_forever", fake_serve_forever)
+    serve_cli.main(["--artifact", str(artifacts[2]), "--device", "cpu"])
+    assert (got["server"].pad_to, got["server"].max_batch) == (4, 4)
+    with pytest.raises(SystemExit, match="exceeds the artifact's fixed batch 4"):
+        serve_cli.main(["--artifact", str(artifacts[2]), "--device", "cpu",
+                        "--max-batch", "8"])
 
 
 @pytest.mark.parametrize("argv, msg", [
     (["--stats", "--model-path", "x.msgpack"], "takes no model source"),
     ([], "is required"),
     (["--artifact", "a.hlo", "--groups", "8"], "cannot take effect"),
+    (["--artifact", "a.pt2", "--latent-dim", "64", "--num-blocks", "1"],
+     "--latent-dim --num-blocks: artifact mode"),
 ])
 def test_cli_conflicts(argv, msg):
     with pytest.raises(SystemExit, match=msg):

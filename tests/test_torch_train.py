@@ -357,7 +357,7 @@ def test_checkpoint_params_read_by_h36x(flax_small, tmp_path):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("ckpt_backend", "orbax"), ("model.dtype", "bfloat16"), ("mesh.data", 2),
+    ("ckpt_backend", "orbax"), ("mesh.data", 2),
     ("mesh.model", 2), ("dist.num_processes", 2),
 ])
 def test_trainer_refuses_what_this_slice_does_not_run(field, value):
@@ -365,6 +365,19 @@ def test_trainer_refuses_what_this_slice_does_not_run(field, value):
     head, _, leaf = field.rpartition(".")
     setattr(getattr(cfg, head) if head else cfg, leaf, value)
     with pytest.raises(NotImplementedError, match="later slice"):
+        check_supported(cfg)
+
+
+@pytest.mark.parametrize("value", ["float32", "bfloat16", "bf16", "float16"])
+def test_trainer_accepts_bfloat16_and_refuses_an_unknown_dtype(value):
+    """h36x's --model.dtype names run (tests/test_torch_bf16.py holds the bf16
+    model to h36x's); another name raises ValueError."""
+    cfg = TrainConfig()
+    cfg.model.dtype = value
+    if value == "float16":
+        with pytest.raises(ValueError, match="unknown --model.dtype"):
+            check_supported(cfg)
+    else:
         check_supported(cfg)
 
 
