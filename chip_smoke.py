@@ -108,6 +108,17 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
    2 epochs: its steps launch B1-B4 as the f32 fused run's and give its
    train losses exactly (the kernels compute in float32 whatever the dtype,
    as h36x's fused step), its eval in bf16 plain ops (as h36x's model.apply).
+   Then data-parallel (train_dist): the same 2-epoch fused run in two
+   processes on the one card (this script again, as --train-worker REPORT
+   ARGS, around cli.train.main with --dist.num-processes 2 --dist.collectives
+   gloo: 16 rows each, gradients averaged through the host), the first
+   step's loss within LOSS_TOL of a one-process worker's and every step's
+   and rank 0's metrics.jsonl rows within DIST_ROW_TOL of one process's
+   (h36x's keys and bound for its 2-process rows), rank 1 writing
+   no file, each rank's B1-B4 counts those of the single-process run, step
+   ms per rank beside the single process's; a 2-process stop after 1 epoch
+   and --resume equal to the straight 2-process run; and NCCL (the default
+   on CUDA) refusing two ranks on one card by name.
 6. The extraction path: h36x_torch.extract.pipeline.run_extract (what
    h36x_torch.cli.extract calls) over an in-memory video source made from a
    seed (SyntheticVideos: the machine has no OpenCV to decode mp4), at the
@@ -118,6 +129,23 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
    verify_store, index.json and every non-feature array are byte-identical
    between them, the features finite and within the bf16 tolerance; one
    batch of the store runs through the PHD forward. Clips/s of each run.
+   Then ingest: a raw Human3.6M tree this script writes from a seed
+   (metadata.xml with the w0 block and the action mapping; 1 subject x 2
+   actions x 2 trials x the 4 official cameras; npz poses of 1000 frames x
+   32 joints; stub mp4s) through h36x_torch.cli.ingest.main: 16 cells, the
+   pickles equal to the npz poses at H36M_RAW_JOINT_IDS, rt orthonormal,
+   the symlinks, a second run changing no file. The crop-resize front ends
+   (crop_resize) at one clip of 40 1000x1000x3 u8 frames on the card cropped
+   to 224: matrix and gather forms against the CPU, each other (1e-5) and
+   the native crop (one u8 step), resize_bilinear against F.interpolate,
+   ms per clip. Partitioned extraction (extract_partitioned) of the
+   ingested tree's clips (frames from memory): --engine opt unpartitioned
+   and as --partition 0/2 and 1/2 (exact B5 counts each),
+   h36x_torch.cli.merge_shards --verify --keep-parts, the merged store
+   holding every clip of the unpartitioned run once (joints and K equal,
+   features within 2e-2; bit for bit logged), and a bf16 and a reference
+   .pt copy of it read back through FeatureClipDataset and fed to the card
+   in every --data.feed-dtype.
 7. The prediction path at full width, on a store that write_store makes
    and a seeded checkpoint: h36x_torch.cli.predict.main in its three modes
    (batch rollout of 8 clips x 25 steps; --streaming --freeze with a
@@ -190,6 +218,17 @@ REL_NORM_TOL = 1e-4
 # 1/sqrt(rows * units), some 1e-3, of its norm
 SEEDED_REL_NORM_TOL = 1e-2
 LOSS_TOL = dict(rtol=1e-5, atol=0.0)  # fused vs plain step loss
+# a 2-process run against one process's. The first step starts from the same
+# params: only the batch split's rounding (each process's kernels reduce 16
+# rows where one process's reduce 32) parts the losses, held at LOSS_TOL.
+# Later steps: AdamW's first updates (m / sqrt(v) = sign(g)) turn that
+# rounding into whole steps on near-zero gradients, so every step's loss and
+# the metrics.jsonl rows are held at h36x's bound for its 2-process CLI rows
+# (tests/test_multiprocess.py:163-166), on the keys it compares there;
+# val_bone, a squared difference of bone lengths that magnifies the drift,
+# is logged.
+DIST_ROW_TOL = 1e-4
+DIST_ROW_KEYS = ("lr", "train_loss", "train_mpjpe", "val_loss", "val_mpjpe")
 # the backward kernels' hopper routes: each float32 operand split into three
 # bf16 parts, six tensor-core passes a product
 SPLIT_PASSES = 6
@@ -2404,11 +2443,12 @@ def frames_per_dispatch() -> int:
     return EXTRACT["batch_size"] * EXTRACT["seq_len"] * 3
 
 
-def drive_extract_path(dev, dataset, out, engine):
+def drive_extract_path(dev, dataset, out, engine, partition=""):
     """Extraction end to end through run_extract, the function
     h36x_torch.cli.extract calls, with the counts set to 0 just before it
     and read just after: B5 must launch 13 times per dispatch with the `opt`
-    engine and never with `flax`, and no other kernel launches."""
+    engine and never with `flax`, and no other kernel launches. With
+    `partition` ("i/N") only the clips i::N, at least one dispatch."""
     import math
 
     from h36x_torch.config import ExtractConfig
@@ -2420,7 +2460,8 @@ def drive_extract_path(dev, dataset, out, engine):
         raise AssertionError("the port's native crop library did not build")
     cfg = ExtractConfig(out=out, seq_len=e["seq_len"], stride=e["stride"],
                         resize=e["resize"], batch_size=e["batch_size"], num_workers=4,
-                        augment=True, shard_size=8, shuffle_pool=16, engine=engine)
+                        augment=True, shard_size=8, shuffle_pool=16, engine=engine,
+                        partition=partition)
     zero_counts()
     t0 = time.perf_counter()
     summary = run_extract(cfg, dataset=dataset, device=dev)
@@ -2434,18 +2475,20 @@ def drive_extract_path(dev, dataset, out, engine):
         raise AssertionError(f"extract {engine}: B5 launches by route {by_route}")
     # the run's own rate (summary["seconds"]: from the backbone's load to
     # the index) and the call's wall time, the load included
-    log({"phase": f"extract {engine}", "call_seconds": seconds,
+    log({"phase": f"extract {engine}" + (f" partition {partition}" if partition else ""),
+         "call_seconds": seconds,
          "run_seconds": summary["seconds"], "launches": launches,
          "b5_launches_by_route": by_route, "dispatches": dispatches,
          "clips_per_s": summary["clips_per_sec"],
          "backbone_frames_per_s": summary["backbone_frames"] / summary["seconds"],
          **{k: summary[k] for k in ("n_clips", "n_shards", "backbone_frames",
                                     "dedup_ratio", "crop_scope", "jitter_key")}})
-    if launches != want or dispatches < 2:
+    if launches != want or dispatches < (1 if partition else 2):
         raise AssertionError(f"extract {engine}: launches {launches} != {want} "
                              f"over {dispatches} dispatches")
+    i, n = (int(v) for v in partition.split("/")) if partition else (0, 1)
     if (summary["n_clips"], summary["crop_scope"], summary["jitter_key"]) != (
-            len(dataset), "video", "video"):
+            len(range(len(dataset))[i::n]), "video", "video"):
         raise AssertionError(f"extract {engine}: {summary}")
     return launches, summary
 
@@ -2500,6 +2543,567 @@ def compare_stores(opt_root, flax_root, dev):
          "ok": True})
 
 
+# -- slice 10: ingest, the crop-resize front ends, partitioned extraction and
+# the merge, the store's bf16 and .pt forms, 2-process data-parallel training
+
+# the raw tree of the ingest phase: 1 subject x 2 actions x 2 trials x the 4
+# official cameras, 1000 frames of 32 joints each
+INGEST = dict(subject=1, actions=(1, 2), trials=(1, 2), frames=1000)
+CROP = dict(frames=40, raw=1000, box=(130, 210, 600, 600), out=224)
+CROP_TOL = 1e-5  # the device forms against the CPU and each other
+NATIVE_TOL = 1.0 / 255 + 1e-6  # against the native crop's uint8 (one step)
+# resize_bilinear against F.interpolate on the card: interpolate's CUDA kernel
+# takes its source coordinates in float32 (2^-24 relative: ~6e-5 px at 1000
+# px, times a neighbour difference up to 1), the grid here in float64
+INTERP_TOL = 2.5e-4
+
+
+def write_raw_tree(root, seed=0) -> dict:
+    """A raw Human3.6M tree in the official layout, written here from a
+    seed: metadata.xml (the w0 calibration block of 11 subjects x 4 cameras
+    and the action mapping), per (action, trial, camera) a stub .mp4 under
+    Videos/ and .npz 2D and 3D poses (1, frames, 32 * dim) under
+    MyPoseFeatures/. The 2D joints are pixels of a 1000 x 1000 frame.
+    Returns {(action, trial, serial): (poses2d, poses3d)}."""
+    from h36x_torch.data.ingest import H36M_CAMERA_SERIALS, N_CAMS, N_SUBJECTS
+
+    rng = np.random.default_rng(seed)
+    ext = np.concatenate([rng.uniform(-np.pi, np.pi, (N_CAMS * N_SUBJECTS, 3)),
+                          rng.normal(0, 2000, (N_CAMS * N_SUBJECTS, 3))], axis=1)
+    intr = np.concatenate([rng.uniform(1140, 1150, (N_CAMS, 2)),
+                           rng.uniform(490, 510, (N_CAMS, 2)),
+                           rng.normal(0, 0.01, (N_CAMS, 5))], axis=1)
+    w0 = " ".join(repr(float(v)) for v in np.concatenate([ext.ravel(), intr.ravel()]))
+    rows = "".join(
+        f"<tr><a>{a + 1}</a><b>{t}</b>"
+        + "".join(f"<c{s}>Act{a} {t}</c{s}>" for s in range(1, N_SUBJECTS + 1)) + "</tr>"
+        for a in range(1, 16) for t in (1, 2))
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "metadata.xml"), "w") as f:
+        f.write(f"<root><w0>[{w0}]</w0><mapping>{rows}</mapping></root>")
+    s, n = INGEST["subject"], INGEST["frames"]
+    dirs = [os.path.join(root, f"S{s}", d) for d in (
+        "Videos", "MyPoseFeatures/D2_Positions", "MyPoseFeatures/D3_Positions_mono")]
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+    poses = {}
+    for a in INGEST["actions"]:
+        for t in INGEST["trials"]:
+            for serial in H36M_CAMERA_SERIALS:
+                seq = f"Act{a} {t}"
+                centre = 500 + rng.uniform(-100, 100, 2)
+                p2 = (centre + rng.uniform(-1, 1, (1, 32, 2)) * [100, 200]
+                      + np.cumsum(rng.normal(0, 1, (n, 1, 2)), axis=0)).astype(np.float32)
+                p3 = (300 * rng.normal(size=(n, 32, 3))).astype(np.float32)
+                with open(os.path.join(dirs[0], f"{seq}.{serial}.mp4"), "wb") as f:
+                    f.write(b"stub mp4")
+                np.savez_compressed(os.path.join(dirs[1], f"{seq}.{serial}.npz"),
+                                    Pose=p2.reshape(1, n, 64))
+                np.savez_compressed(os.path.join(dirs[2], f"{seq}.{serial}.npz"),
+                                    Pose=p3.reshape(1, n, 96))
+                poses[(a, t, serial)] = (p2, p3)
+    return poses
+
+
+def tree_state(root) -> dict:
+    """relative path -> (kind, mtime_ns, link target) of every entry."""
+    out = {}
+    for base, dirs, files in os.walk(root):
+        for name in dirs + files:
+            p = os.path.join(base, name)
+            st = os.lstat(p)
+            out[os.path.relpath(p, root)] = (
+                st.st_mode >> 12, st.st_mtime_ns,
+                os.readlink(p) if os.path.islink(p) else None)
+    return out
+
+
+def drive_ingest_path(tmp) -> str:
+    """h36x_torch.cli.ingest.main over a raw tree this script writes: 16
+    cells; each cell's gt_poses.pkl equal to the npz poses at
+    H36M_RAW_JOINT_IDS, shapes (1000, 17, 2) and (1000, 17, 3);
+    camera_wext.pkl's keys with rt orthonormal; the video a symlink to the
+    raw mp4; a second run changes no file. Returns the ingested root."""
+    import pickle
+
+    from h36x_torch.cli.ingest import main as ingest_main
+    from h36x_torch.data.ingest import ACTION_NAMES, H36M_CAMERA_SERIALS
+    from h36x_torch.geometry.skeleton import H36M_RAW_JOINT_IDS
+
+    raw, out = os.path.join(tmp, "raw"), os.path.join(tmp, "ingested")
+    t0 = time.perf_counter()
+    poses = write_raw_tree(raw)
+    written = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cells = ingest_main(["--source-dir", raw, "--out-dir", out,
+                         "--subjects", str(INGEST["subject"])])
+    seconds = time.perf_counter() - t0
+    ids = np.asarray(H36M_RAW_JOINT_IDS)
+    s, n = INGEST["subject"], INGEST["frames"]
+    checked = 0
+    for (a, t, serial), (p2, p3) in poses.items():
+        cam0 = H36M_CAMERA_SERIALS.index(serial)
+        cdir = os.path.join(out, f"S{s}", f"{ACTION_NAMES[a - 1]}_{t - 1}", f"cam_{cam0}")
+        with open(os.path.join(cdir, "gt_poses.pkl"), "rb") as f:
+            gt = pickle.load(f)
+        with open(os.path.join(cdir, "camera_wext.pkl"), "rb") as f:
+            cam = pickle.load(f)
+        video = os.path.join(cdir, f"S{s}_{ACTION_NAMES[a - 1]}_{t - 1}_cam_{cam0}.mp4")
+        want_link = os.path.abspath(os.path.join(
+            raw, f"S{s}", "Videos", f"Act{a} {t}.{serial}.mp4"))
+        ok = (gt["2d"].shape == (n, 17, 2) and gt["3d"].shape == (n, 17, 3)
+              and np.array_equal(gt["2d"], p2[:, ids]) and np.array_equal(gt["3d"], p3[:, ids])
+              and set(cam) == {"f", "c", "k", "rt", "t"}
+              and np.allclose(cam["rt"] @ cam["rt"].T, np.eye(3), atol=1e-12)
+              and os.path.islink(video) and os.readlink(video) == want_link)
+        if not ok:
+            raise AssertionError(f"ingested cell {cdir} is wrong")
+        checked += 1
+    before = tree_state(out)
+    t0 = time.perf_counter()
+    again = ingest_main(["--source-dir", raw, "--out-dir", out,
+                         "--subjects", str(INGEST["subject"])])
+    second = time.perf_counter() - t0
+    unchanged = tree_state(out) == before
+    log({"phase": "ingest", "seconds": seconds, "raw_tree_seconds": written,
+         "cells": cells, "cells_checked": checked, "second_run_seconds": second,
+         "second_run_cells": again, "second_run_unchanged": unchanged,
+         "entries": len(before)})
+    if cells != 16 or checked != 16 or again != 16 or not unchanged:
+        raise AssertionError(f"ingest: {cells} cells, {checked} checked, second run "
+                             f"{again} cells, unchanged {unchanged}")
+    return out
+
+
+def check_crop_resize(dev, smi):
+    """The device crop-resize front ends at H36M's traffic shape (one clip
+    of 40 frames of 1000 x 1000 x 3 u8 on the card, cropped and resized to
+    224): each form on cuda against the same call on the CPU and against
+    the other (CROP_TOL), both against the native crop's u8 output
+    (NATIVE_TOL; the gap is logged), resize_bilinear against itself on the
+    CPU (CROP_TOL) and against F.interpolate on the card (INTERP_TOL); ms
+    per clip of each form (CUDA events) beside the native crop's host
+    ms."""
+    from h36x_torch import native
+    from h36x_torch.ops import preprocess as pre
+    from h36x_torch.ops.resize import resize_bilinear
+
+    c = CROP
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, (c["frames"], c["raw"], c["raw"], 3), dtype=np.uint8)
+    top, left, side, _ = c["box"]
+    wy, wx = pre.crop_resize_matrices(c["box"], c["raw"], c["raw"], c["out"])
+    gy, gx = pre.crop_resize_grids(c["box"], c["raw"], c["raw"], c["out"])
+    host = torch.from_numpy(frames)
+    on_card = host.to(dev)
+    wy_d, wx_d = torch.from_numpy(wy).to(dev), torch.from_numpy(wx).to(dev)
+    gy_d = tuple(torch.from_numpy(a).to(dev) for a in gy)
+    gx_d = tuple(torch.from_numpy(a).to(dev) for a in gx)
+    matrix = pre.fused_crop_resize(on_card, wy_d, wx_d)
+    gather = pre.fused_crop_resize_gather(on_card, gy_d, gx_d)
+    torch.cuda.synchronize()
+    cpu_matrix = pre.fused_crop_resize(host, wy, wx)
+    cpu_gather = pre.fused_crop_resize_gather(host, gy, gx)
+    nat = torch.from_numpy(native.crop_resize_clip(frames, top, left, side, c["out"])
+                           ).float() / 255.0
+    errs = {
+        "matrix_vs_cpu": float((matrix.cpu() - cpu_matrix).abs().max()),
+        "gather_vs_cpu": float((gather.cpu() - cpu_gather).abs().max()),
+        "matrix_vs_gather": float((matrix - gather).abs().max()),
+        "matrix_vs_native": float((matrix.cpu() - nat).abs().max()),
+        "gather_vs_native": float((gather.cpu() - nat).abs().max()),
+    }
+    img = (on_card.permute(0, 3, 1, 2).float() / 255.0).contiguous()
+    resized = resize_bilinear(img, c["out"], c["out"])
+    ref = torch.nn.functional.interpolate(img, size=(c["out"], c["out"]), mode="bilinear",
+                                          align_corners=False, antialias=False)
+    errs["resize_vs_cpu"] = float((resized.cpu() - resize_bilinear(
+        img.cpu(), c["out"], c["out"])).abs().max())
+    errs["resize_vs_interpolate"] = float((resized - ref).abs().max())
+    ms = {"matrix_ms": time_ms(lambda: pre.fused_crop_resize(on_card, wy_d, wx_d), 10),
+          "gather_ms": time_ms(lambda: pre.fused_crop_resize_gather(on_card, gy_d, gx_d), 10),
+          "resize_bilinear_ms": time_ms(lambda: resize_bilinear(img, c["out"], c["out"]), 10),
+          "interpolate_ms": time_ms(lambda: torch.nn.functional.interpolate(
+              img, size=(c["out"], c["out"]), mode="bilinear", align_corners=False), 10),
+          "native_host_ms": host_ms(lambda: native.crop_resize_clip(
+              frames, top, left, side, c["out"]), 5)}
+    shapes_ok = (matrix.shape == gather.shape == (c["frames"], c["out"], c["out"], 3)
+                 and matrix.dtype == gather.dtype == torch.float32
+                 and matrix.device.type == gather.device.type == dev.type)
+    log({"phase": "crop_resize", "card": smi, "clip": [c["frames"], c["raw"], c["raw"], 3],
+         "box": list(c["box"]), "out": c["out"], **errs, **ms, "tol": CROP_TOL,
+         "native_tol": NATIVE_TOL, "interpolate_tol": INTERP_TOL, "per": "clip"})
+    if not shapes_ok or max(errs["matrix_vs_cpu"], errs["gather_vs_cpu"],
+                            errs["matrix_vs_gather"], errs["resize_vs_cpu"]) > CROP_TOL:
+        raise AssertionError(f"crop-resize front ends: {errs}")
+    if errs["resize_vs_interpolate"] > INTERP_TOL:
+        raise AssertionError(f"resize_bilinear and F.interpolate on the card: {errs}")
+    if max(errs["matrix_vs_native"], errs["gather_vs_native"]) > NATIVE_TOL:
+        raise AssertionError(f"the native crop samples differently: {errs}")
+
+
+class IngestedVideos:
+    """The clips scan_clips finds in the ingested tree (subject 1, camera
+    0, frame_skip 2), cut to the first EXTRACT["videos"] videos and to
+    starts that fit in EXTRACT["frames"] subsampled frames, their poses and
+    cameras those ingest wrote; the frames come from memory, u8 at H36M's
+    raw size and made from a seed (the machine with the card has no OpenCV
+    to decode the mp4s). The interface of h36x_torch.data.clips.ClipDataset
+    that the unique-frame scheduler reads."""
+
+    def __init__(self, root, seed=0):
+        from h36x_torch.data.clips import ClipDataset
+
+        e = EXTRACT
+        base = ClipDataset(root, [INGEST["subject"]], seq_len=e["seq_len"],
+                           stride=e["stride"], frame_skip=2, cams=[0])
+        keep = sorted({c.video_idx for c in base.clips})[:e["videos"]]
+        self.base = base
+        self.clips = [c for c in base.clips
+                      if c.video_idx in keep and c.end <= e["frames"]]
+        rng = np.random.default_rng(seed)
+        self.frames = {v: rng.integers(0, 256, (e["frames"], e["raw"], e["raw"], 3),
+                                       dtype=np.uint8) for v in keep}
+
+    def __len__(self):
+        return len(self.clips)
+
+    def clip_annotations(self, i):
+        return self.base.clip_annotations(self.base.clips.index(self.clips[i]))
+
+    def video_groups(self):
+        groups = {}
+        for i, ci in enumerate(self.clips):
+            groups.setdefault(ci.video_idx, []).append(i)
+        return [groups[v] for v in sorted(groups)]
+
+    def video_joints2d(self, video_idx):
+        return self.base.video_joints2d(video_idx)
+
+    def open_video(self, video_idx):
+        return SyntheticVideos.Cursor(self.frames[video_idx])
+
+    def __getitem__(self, i):
+        j3d, j2d, cam, ci = self.clip_annotations(i)
+        return self.frames[ci.video_idx][ci.start:ci.end], j3d, j2d, cam, ci
+
+
+def clip_rows(root) -> dict:
+    """clip key (subject, action, cam, start) -> its rows of every array
+    (the clip's variants), read from the store at `root`."""
+    from h36x_torch.data.shards import load_index, read_shard, shard_path
+
+    idx = load_index(root)
+    shards_ = {}
+    out = {}
+    for c in idx["clips"]:
+        sid = c["shard_id"]
+        if sid not in shards_:
+            shards_[sid] = read_shard(shard_path(root, sid), mmap=False)
+        rows = slice(c["row"], c["row"] + idx["n_variants"])
+        key = (c["subject"], c["action"], c["cam"], c["start"])
+        if key in out:
+            raise AssertionError(f"{root}: clip {key} twice")
+        out[key] = {k: shards_[sid][k][rows] for k in ("feats", "joints3d", "joints2d", "K")}
+    return out
+
+
+def drive_partitioned_extract(dev, ingested, tmp, smi):
+    """Partitioned extraction of the ingested tree's clips: run_extract
+    (--engine opt) unpartitioned, as --partition 0/2 and as 1/2, each its
+    own path with exact B5 counts; cli.merge_shards --verify --keep-parts
+    unifies the parts; the merged store holds every clip of the
+    unpartitioned run exactly once, joints and K equal, features within
+    BACKBONE_REL_NORM (whether bit for bit is logged). Then a bf16 copy and
+    a reference-format .pt copy of the merged store, each read back through
+    FeatureClipDataset and one batch of it fed to the card in every
+    --data.feed-dtype. Returns {path: launch counts}."""
+    from h36x_torch.cli.merge_shards import main as merge_main
+    from h36x_torch.data.features import FeatureClipDataset
+    from h36x_torch.data.shards import (ShardWriter, as_tensor, bf16_bits, load_index,
+                                        read_shard, shard_path, write_index)
+    from h36x_torch.parallel.feed import FEED_DTYPES, to_device
+
+    t0 = time.perf_counter()
+    videos = IngestedVideos(ingested)
+    log({"phase": "ingested_videos_made", "seconds": time.perf_counter() - t0,
+         "clips": len(videos), "videos": len(videos.frames)})
+    paths = {}
+    runs = {}
+    for name, part in (("full", ""), ("part0", "0/2"), ("part1", "1/2")):
+        out = os.path.join(tmp, name)
+        launches, summary = drive_extract_path(dev, videos, out, "opt", partition=part)
+        paths[f"extract_partition_{name}"] = launches
+        runs[name] = summary
+    merged = os.path.join(tmp, "merged")
+    t0 = time.perf_counter()
+    idx = merge_main(["--parts", os.path.join(tmp, "part0"), os.path.join(tmp, "part1"),
+                      "--out", merged, "--verify", "--keep-parts"])
+    merge_s = time.perf_counter() - t0
+    full, got = clip_rows(os.path.join(tmp, "full")), clip_rows(merged)
+    same_keys = sorted(full) == sorted(got) and idx["n_clips"] == len(videos)
+    diff2 = ref2 = 0.0
+    exact_other = bit_for_bit = True
+    for key, want in full.items():
+        have = got.get(key)
+        if have is None:
+            continue
+        exact_other &= all(np.array_equal(have[k], want[k]) for k in ("joints3d", "joints2d", "K"))
+        bit_for_bit &= have["feats"].tobytes() == want["feats"].tobytes()
+        a, b = torch.from_numpy(have["feats"]).double(), torch.from_numpy(want["feats"]).double()
+        diff2 += float(((a - b) ** 2).sum())
+        ref2 += float((b ** 2).sum())
+    rel = (diff2 / ref2) ** 0.5 if ref2 > 0 else float("inf")
+    log({"phase": "extract_partitioned", "card": smi,
+         "clips_per_s": {k: r["clips_per_sec"] for k, r in runs.items()},
+         "run_seconds": {k: r["seconds"] for k, r in runs.items()},
+         "clips": {k: r["n_clips"] for k, r in runs.items()},
+         "merge_seconds": merge_s, "merged_clips": idx["n_clips"],
+         "merged_shards": idx["n_shards"], "same_clips_once": same_keys,
+         "joints_K_equal": exact_other, "feats_rel_norm": rel,
+         "feats_bit_for_bit": bit_for_bit, "tol_rel_norm": BACKBONE_REL_NORM})
+    if not (same_keys and exact_other and rel <= BACKBONE_REL_NORM):
+        raise AssertionError("the merged store differs from the unpartitioned run")
+
+    # the bf16 copy and the reference's .pt copy of the merged store
+    index = load_index(merged)
+    bf16_root, pt_root = os.path.join(tmp, "bf16"), os.path.join(tmp, "pt")
+    writer = ShardWriter(bf16_root, n_vars=index["n_variants"])
+    os.makedirs(pt_root)
+    for sid in range(index["n_shards"]):
+        shard = read_shard(shard_path(merged, sid), mmap=False)
+        arrays = {k: shard[k] for k in ("feats", "joints3d", "joints2d", "K")}
+        writer.write({**arrays, "feats": torch.from_numpy(shard["feats"]).bfloat16()},
+                     shard["meta"])
+        torch.save({**{k: torch.from_numpy(v) for k, v in arrays.items()},
+                    "meta": shard["meta"], "n_vars": shard["n_vars"]},
+                   os.path.join(pt_root, f"shard_{sid:05d}.pt"))
+    write_index(bf16_root, index["clips"], **{k: index[k] for k in (
+        "n_shards", "n_clips", "n_variants", "aug_names", "seq_len", "frame_skip",
+        "shuffle_seed", "shuffle_pool")}, feat_dtype="bfloat16")
+    torch.save({k: index[k] for k in ("clips", "n_shards", "n_clips", "n_variants",
+                                      "aug_names", "seq_len", "frame_skip", "feat_dtype")},
+               os.path.join(pt_root, "index.pt"))
+    rows = list(range(0, 4 * index["n_variants"], 3))
+    want = FeatureClipDataset(merged, augment=True).get_batch(rows)
+    forms = {}
+    for name, root in (("bf16", bf16_root), ("pt", pt_root)):
+        ds = FeatureClipDataset(root, augment=True)
+        batch = ds.get_batch(rows)
+        want_feats = (bf16_bits(torch.from_numpy(want[0]).bfloat16()) if name == "bf16"
+                      else want[0])
+        same = (batch[0].tobytes() == want_feats.tobytes()
+                and all(np.array_equal(a, b) for a, b in zip(batch[1:], want[1:])))
+        fed = {}
+        for feed, dtype in FEED_DTYPES.items():
+            on_card = to_device(batch, dev, dtype)
+            fed[feed] = (on_card[0].dtype == dtype and on_card[0].device.type == dev.type
+                         and torch.equal(on_card[0].cpu(), as_tensor(batch[0]).to(dtype)))
+        forms[name] = {"torch_format": ds.torch_format, "batch_equal": same, "fed": fed}
+        if not (same and all(fed.values())):
+            raise AssertionError(f"{name} copy of the store: {forms[name]}")
+    log({"check": "store forms", **forms})
+    return paths
+
+
+def train_worker(report, argv) -> int:
+    """One process of a data-parallel cli.train run (chip_smoke.py
+    --train-worker REPORT ARGS...): the counts set to 0, cli.train.main
+    (ARGS), then REPORT gets this process's launch counts, each epoch's
+    train timing (fit's train_epoch, recorded), and each train step's loss
+    and ms (host clock between two synchronisations: the step, its
+    all-reduce and any wait for the other rank)."""
+    from h36x_torch.cli.train import main as train_main
+    from h36x_torch.train import loop
+    from h36x_torch.train.step import TrainStep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    timing = []
+    inner = loop.train_epoch
+
+    def recorded(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        timing.append(out["_timing"])
+        return out
+
+    loop.train_epoch = recorded
+    step_ms, losses = [], []
+    call = TrainStep.__call__
+
+    def timed(self, *args, **kwargs):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(self, *args, **kwargs)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(out["loss"].tolist())
+        return out
+
+    TrainStep.__call__ = timed
+    zero_counts()
+    train_main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    with open(report, "w") as f:
+        json.dump({"launches": read_counts(), "timing": timing, "step_ms": step_ms,
+                   "losses": losses}, f)
+    return 0
+
+
+def run_ranks(argvs, logs_dir, timeout=600) -> list:
+    """Start one process per argv, wait for all (each under `timeout`),
+    kill any left; returns their (returncode, output tail)."""
+    procs, outs = [], []
+    try:
+        for i, argv in enumerate(argvs):
+            out = open(os.path.join(logs_dir, f"rank{i}_{len(os.listdir(logs_dir))}.log"), "w+")
+            outs.append(out)
+            procs.append(subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    result = []
+    for p, out in zip(procs, outs):
+        out.seek(0)
+        result.append((p.returncode, out.read()[-3000:]))
+        out.close()
+    return result
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def drive_dist_train_path(tmp, base_rows, smi):
+    """Two processes on the one card (--dist.num-processes 2, gloo through
+    the host, 16 rows each) train like drive_train_path's single-process
+    fused run (its store, flags and rows): each rank's first step loss
+    equals a one-process worker's at LOSS_TOL and every later one at
+    DIST_ROW_TOL, rank 0's metrics.jsonl equals the single-process rows at
+    DIST_ROW_TOL on DIST_ROW_KEYS, rank 1 writes no file (its --outdir is its
+    own, and must stay absent), each process launches B1-B4 exactly as the
+    single-process run; step ms per process beside the single process's.
+    Then the same 2-process run stopped after 1 epoch and resumed by a
+    fresh pair: rows equal the straight run's. And NCCL, the default on
+    CUDA, must refuse two ranks on one card with a clear error. Returns
+    {path: launch counts} (each rank its own path)."""
+    import math
+
+    store = os.path.join(tmp, "store")
+    logs_dir = os.path.join(tmp, "dist_logs")
+    os.makedirs(logs_dir, exist_ok=True)
+    steps = TRAIN["train_clips"] // TRAIN["batch"]
+    evals = math.ceil(TRAIN["val_clips"] / TRAIN["batch"])
+    epochs = TRAIN["epochs"]
+    want = expect_counts(gn_relu_cconv=4 * epochs * (steps + evals),
+                         gn_relu_cconv_bwd=4 * epochs * steps,
+                         joint_regressor=epochs * (steps + evals),
+                         joint_regressor_bwd=epochs * steps)
+
+    def ranks(name, n, *flags, collectives="gloo", outdirs=None):
+        """cli.train in n worker processes (n 2: --dist.*, each rank its own
+        --outdir); returns (their (rc, output tail)s, reports, seconds,
+        outdirs)."""
+        port = free_port()
+        outdirs = outdirs or [os.path.join(tmp, name if i == 0 else f"{name}_rank{i}")
+                              for i in range(n)]
+        reports = [os.path.join(tmp, f"{name}_report{i}_{time.time_ns()}.json")
+                   for i in range(n)]
+        dist = []
+        if n > 1:
+            dist = ["--dist.num-processes", str(n), "--dist.coordinator", f"localhost:{port}"]
+            if collectives:
+                dist += ["--dist.collectives", collectives]
+        argvs = [[sys.executable, os.path.abspath(__file__), "--train-worker", reports[i],
+                  *train_argv(store, outdirs[i], *flags, *dist,
+                              *(["--dist.process-id", str(i)] if n > 1 else []))]
+                 for i in range(n)]
+        t0 = time.perf_counter()
+        result = run_ranks(argvs, logs_dir)
+        seconds = time.perf_counter() - t0
+        got = []
+        for (rc, out), report in zip(result, reports):
+            if rc != 0 and collectives:
+                raise AssertionError(f"{name}: a rank failed (rc {rc}):\n{out}")
+            if rc == 0:
+                with open(report) as f:
+                    got.append(json.load(f))
+        return result, got, seconds, outdirs
+
+    def median(xs):
+        return float(np.median(xs)) if xs else float("nan")
+
+    _, (single,), _, single_dirs = ranks("dist_single", 1)
+    single_rows = read_rows(single_dirs[0])
+    _, reports, seconds, outdirs = ranks("dist", 2)
+    rows = read_rows(outdirs[0])
+    max_rel = max(abs(r[k] - w[k]) / abs(w[k]) for r, w in zip(rows, base_rows)
+                  for k in DIST_ROW_KEYS)
+    step_rel = [[abs(a - b) / abs(b) for a, b in zip(r["losses"], single["losses"])]
+                for r in reports]
+    log({"phase": "train_dist", "card": smi, "processes": 2,
+         "collectives": "gloo through the host (two ranks share one card; not NCCL)",
+         "seconds": seconds, "launches_per_rank": [r["launches"] for r in reports],
+         "step_ms_median_per_rank": [median(r["step_ms"][steps:]) for r in reports],
+         "step_ms_per_rank": [r["step_ms"] for r in reports],
+         "single_process_step_ms_median": median(single["step_ms"][steps:]),
+         "single_process_step_ms": single["step_ms"],
+         "step_ms_is": "host clock between synchronisations around each train step "
+                       "(medians over epoch 2)",
+         "single_worker_rows_equal_in_process_rows": len(single_rows) == len(base_rows)
+         and all(r[k] == w[k] for r, w in zip(single_rows, base_rows) for k in ROW_KEYS),
+         "step_loss_rel_diff_per_rank": step_rel, "first_step_tol": LOSS_TOL["rtol"],
+         "max_rel_diff_vs_single": max_rel, "rel_diff_by_key": {
+             k: max(abs(r[k] - w[k]) / abs(w[k]) for r, w in zip(rows, base_rows))
+             for k in ROW_KEYS}, "tol": DIST_ROW_TOL, "metrics": rows,
+         "rank1_outdir_exists": os.path.exists(outdirs[1])})
+    if any(r["launches"] != want for r in reports + [single]):
+        raise AssertionError(f"2-process launches {[r['launches'] for r in reports]} != {want}")
+    if os.path.exists(outdirs[1]):
+        raise AssertionError("rank 1 wrote files")
+    if any(len(d) != epochs * steps or d[0] > LOSS_TOL["rtol"] or max(d) > DIST_ROW_TOL
+           for d in step_rel):
+        raise AssertionError(f"2-process step losses differ from one process's: {step_rel}")
+    if len(rows) != len(base_rows) or max_rel > DIST_ROW_TOL:
+        raise AssertionError(f"2-process rows differ from the single process's: {max_rel}")
+    paths = {"train_dist_single": single["launches"],
+             "train_dist_rank0": reports[0]["launches"],
+             "train_dist_rank1": reports[1]["launches"]}
+
+    cut = os.path.join(tmp, "dist_resume")
+    _, first, s1, _ = ranks("dist_resume", 2, "--optim.stop-after-epochs", "1",
+                            outdirs=[cut, cut + "_rank1"])
+    _, second, s2, _ = ranks("dist_resume", 2, "--resume", cut, outdirs=[cut, cut + "_rank1"])
+    resumed = [{k: r[k] for k in ("epoch", *ROW_KEYS)} for r in read_rows(cut)]
+    straight = [{k: r[k] for k in ("epoch", *ROW_KEYS)} for r in rows]
+    legs = [{k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+            for a, b in zip(first, second)]
+    log({"phase": "train_dist_resume", "seconds": s1 + s2, "launches_per_rank": legs,
+         "metrics": resumed, "equal": resumed == straight})
+    if resumed != straight or any(c != want for c in legs) or os.path.exists(cut + "_rank1"):
+        raise AssertionError("2-process stop + --resume differs from the straight run")
+    paths.update({"train_dist_resume_rank0": legs[0], "train_dist_resume_rank1": legs[1]})
+
+    result, _, secs, _ = ranks("dist_nccl", 2, "--optim.epochs", "1", collectives="")
+    refused = [rc != 0 and "NCCL refuses two ranks on one device" in out
+               for rc, out in result]
+    log({"check": "nccl two ranks on one card", "refused": refused, "seconds": secs})
+    if not all(refused):
+        raise AssertionError(f"NCCL with two ranks on one card was not refused: {result}")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -2507,6 +3111,7 @@ def main() -> int:
         return 2
     from h36x_torch.ops import _build
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2544,7 +3149,11 @@ def main() -> int:
         paths["serve_artifact"] = drive_artifact_path(dev, g, tmp, smi.splitlines()[0])
     with tempfile.TemporaryDirectory() as tmp:
         paths["train"] = drive_train_path(g, tmp)
-        paths.update(drive_grouped_train_paths(tmp, read_rows(os.path.join(tmp, "runs"))))
+        base_rows = read_rows(os.path.join(tmp, "runs"))
+        paths.update(drive_grouped_train_paths(tmp, base_rows))
+        t0 = time.perf_counter()
+        paths.update(drive_dist_train_path(tmp, base_rows, smi.splitlines()[0]))
+        log({"phase": "train_dist total", "seconds": time.perf_counter() - t0})
         paths.update(drive_bf16_train_paths(dev, tmp, smi.splitlines()[0]))
     t0 = time.perf_counter()
     e = EXTRACT
@@ -2558,8 +3167,19 @@ def main() -> int:
         compare_stores(os.path.join(tmp, "opt"), os.path.join(tmp, "flax"), dev)
     del videos
     with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ingested = drive_ingest_path(tmp)
+        log({"phase": "ingest total", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        check_crop_resize(dev, smi.splitlines()[0])
+        log({"phase": "crop_resize total", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        paths.update(drive_partitioned_extract(dev, ingested, tmp, smi.splitlines()[0]))
+        log({"phase": "extract_partitioned total", "seconds": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory() as tmp:
         paths["predict"] = drive_predict_path(dev, g, tmp)
     paths["probe"] = drive_probe_path()
+    log({"phase": "total", "seconds": time.perf_counter() - t_script})
     for k in kernels:
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -2577,4 +3197,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--train-worker":
+        sys.exit(train_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

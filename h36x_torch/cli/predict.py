@@ -69,6 +69,7 @@ def main(argv=None, *, use_kernels=None, precise: bool = False):
     args = p.parse_args(argv)
 
     from h36x_torch.data.features import FeatureClipDataset
+    from h36x_torch.data.shards import as_tensor
     from h36x_torch.models.phd import param_tree
     from h36x_torch.serve import StreamingPredictor, make_rollout_fn
     from h36x_torch.train.checkpoint import checkpoint_ref_exists, load_params_only
@@ -85,7 +86,7 @@ def main(argv=None, *, use_kernels=None, precise: bool = False):
                             test_set=True)  # raises on an empty clip list
     n = min(args.clips, len(ds))
     feats, joints3d, _, _, meta = ds.get_batch(list(range(n)))
-    feats = np.asarray(feats, np.float32)
+    feats = as_tensor(feats).float().numpy()  # bfloat16 stores: their bits
     feature_dim = feats.shape[-1]
     seq_len = feats.shape[1]
 

@@ -1,4 +1,5 @@
-"""CLI: training on one GPU (counterpart of h36x/cli/train.py).
+"""CLI: training on one GPU, or data-parallel on several processes
+(counterpart of h36x/cli/train.py).
 
     python -m h36x_torch.cli.train --train-root STORE [--optim.fused true] \\
         [--optim.phase 1|2|0] [--init-from CKPT] [--resume OUTDIR] \\
@@ -19,8 +20,16 @@ stacked group of batches, on the card one replay of a CUDA graph of the K
 steps; `--optim.grad-accum K` one update over the mean gradient of K
 microbatches. `--profile-dir` writes a torch.profiler trace of the first
 (resumed) epoch. `--device cpu` runs the plain PyTorch path on the CPU.
-Orbax checkpoints, bfloat16 compute and multi-device runs come with later
-slices and raise.
+
+Data-parallel: every process runs this CLI with the same flags plus
+
+    --dist.num-processes N --dist.process-id I --dist.coordinator HOST:PORT
+
+(one device per process: card I % the card count; NCCL on CUDA, gloo on
+the CPU or with `--dist.collectives gloo`); each process takes its 1/N of
+every batch, and rank 0 alone logs and writes. `--resume` works the same.
+Orbax checkpoints, tensor parallelism (`--mesh.model` > 1) and several
+devices per process come with later slices and raise.
 """
 
 import argparse
@@ -28,12 +37,13 @@ import argparse
 from h36x_torch.config import TrainConfig, add_fields, apply_namespace
 from h36x_torch.data.features import FeatureClipDataset
 from h36x_torch.data.sampler import MixedShardBatchSampler, SequentialBatchSampler
+from h36x_torch.parallel.distributed import is_main_process, setup_from_config, shutdown
 from h36x_torch.train.loop import check_supported, fit
-from h36x_torch.utils.runtime import resolve_device
 
 
 def main(argv=None):
-    """Returns fit's (model, best_val)."""
+    """Returns fit's (model, best_val). Leaves the process group, if it
+    joined one, whatever happens."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_fields(p, TrainConfig())
@@ -42,9 +52,15 @@ def main(argv=None):
                         "the plain PyTorch path)")
     ns = p.parse_args(argv)
     cfg = apply_namespace(TrainConfig(), ns, skip=("device",))
-    device = resolve_device(ns.device)
     check_supported(cfg)
+    try:
+        device = setup_from_config(cfg.dist, ns.device)
+        return _train(cfg, device)
+    finally:
+        shutdown()
 
+
+def _train(cfg, device):
     if not cfg.train_root:
         raise SystemExit("--train-root is required")
     val_root = cfg.val_root or cfg.train_root
@@ -66,22 +82,25 @@ def main(argv=None):
     val_sampler = SequentialBatchSampler(val_set, batch_size=cfg.optim.batch_size)
 
     o = cfg.optim
-    print(f"===== Phase-{o.phase} training =====")
-    print(f"Device: {device} | fused kernels: {o.fused}")
+    log = print if is_main_process() else (lambda *a, **k: None)
+    log(f"===== Phase-{o.phase} training =====")
+    log(f"Device: {device} | fused kernels: {o.fused}"
+        + (f" | processes: {cfg.dist.num_processes}" if cfg.dist.num_processes > 1 else ""))
     if o.steps_per_dispatch > 1:
-        print(f"Grouped: {o.steps_per_dispatch} steps per dispatch"
-              + (" (one CUDA graph replay per group)" if device.type == "cuda" else ""))
+        graphed = device.type == "cuda" and cfg.dist.num_processes <= 1
+        log(f"Grouped: {o.steps_per_dispatch} steps per dispatch"
+            + (" (one CUDA graph replay per group)" if graphed else ""))
     if o.grad_accum > 1:
-        print(f"Grouped: gradient accumulation over {o.grad_accum} microbatches")
+        log(f"Grouped: gradient accumulation over {o.grad_accum} microbatches")
     if o.phase == 2:
-        print(f"AR window: input {o.input_len} | horizon 1 -> {o.pred_len} over "
-              f"{o.curriculum_steps} epochs | lambda_future {o.lambda_future}")
+        log(f"AR window: input {o.input_len} | horizon 1 -> {o.pred_len} over "
+            f"{o.curriculum_steps} epochs | lambda_future {o.lambda_future}")
     if cfg.resume:
-        print(f"Resuming from {cfg.resume}/last.msgpack")
-    print(f"Train clips: {len(train_set)} | Val clips: {len(val_set)}")
-    print(f"Batch size: {cfg.optim.batch_size} | LR: {cfg.optim.lr} | "
-          f"Epochs: {cfg.optim.epochs}")
-    print("============================")
+        log(f"Resuming from {cfg.resume}/last.msgpack")
+    log(f"Train clips: {len(train_set)} | Val clips: {len(val_set)}")
+    log(f"Batch size: {cfg.optim.batch_size} | LR: {cfg.optim.lr} | "
+        f"Epochs: {cfg.optim.epochs}")
+    log("============================")
     return fit(cfg, train_set, val_set, train_sampler, val_sampler, device=device)
 
 

@@ -4,11 +4,10 @@ The clip geometry constants, `ModelConfig`, and the training configs
 (`DataConfig`, `OptimConfig`, `MeshConfig`, `DistConfig`, `TrainConfig`)
 and the extraction config (`ExtractConfig`) with h36x's field names and
 defaults, so the trainer and the extractor take the same
-`--optim.batch-size`-style flags (:func:`parse_into`). Only the training
-fields that the trainer reads are carried over; values that the port does
-not run yet are refused (:func:`h36x_torch.train.loop.check_supported`).
-The multi-process launch fields and the ingest config come with their
-slices.
+`--optim.batch-size`-style flags (:func:`parse_into`), and the ingest
+config (`IngestConfig`). Only the training fields that the trainer reads
+are carried over; values that the port does not run yet are refused
+(:func:`h36x_torch.train.loop.check_supported`).
 """
 
 from __future__ import annotations
@@ -109,8 +108,11 @@ class OptimConfig:
 
 @dataclass
 class MeshConfig:
-    """Device layout (data = batch sharding, model = tensor parallel,
-    slices = multislice); this slice runs on one device."""
+    """Device layout (h36x's names): `data` and `slices` split the batch,
+    `model` is tensor parallelism. One process drives one device, so
+    data x slices must equal the number of processes (data -1: the number
+    of processes / slices); model > 1 raises
+    (:mod:`h36x_torch.parallel.mesh`)."""
 
     data: int = -1
     model: int = 1
@@ -119,9 +121,17 @@ class MeshConfig:
 
 @dataclass
 class DistConfig:
-    """Multi-process launch; this slice runs one process."""
+    """Multi-process data-parallel launch (h36x's fields): every process
+    runs the same CLI with its own process_id and drives one device
+    (:mod:`h36x_torch.parallel.distributed`); the store lies on storage
+    all of them read."""
 
+    coordinator: str = ""  # host:port of process 0 (the rendezvous)
     num_processes: int = 1
+    process_id: int = -1  # -1: from the RANK environment variable
+    platform: str = ""  # '' | 'cpu' | 'cuda' ('gpu'): the device to run on
+    local_devices: int = 0  # devices per process: 0 or 1 (one device each)
+    collectives: str = ""  # '' (nccl on cuda, gloo on cpu) | 'gloo' | 'nccl'
 
 
 @dataclass
@@ -185,6 +195,15 @@ class ExtractConfig:
     # device batch rows of the unique-frame scheduler; 0 = batch_size *
     # seq_len * pixel variants
     frames_per_dispatch: int = 0
+
+
+@dataclass
+class IngestConfig:
+    """Raw-H36M ingest (h36x's fields and defaults)."""
+
+    source_dir: str = ""
+    out_dir: str = ""
+    subjects: List[int] = field(default_factory=lambda: list(ALL_SUBJECTS))
 
 
 # ---------------------------------------------------------------------------

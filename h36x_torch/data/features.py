@@ -4,9 +4,13 @@ augmenting, an LRU shard cache, and joints3d converted mm -> m.
 :meth:`FeatureClipDataset.get_batch` gathers a batch of rows into stacked
 numpy arrays shard by shard, which is what the device feed consumes.
 
-The features keep their stored dtype (float32 or float16) here; the cast to
-the feed dtype (`--data.feed-dtype`) happens in the feed, just before the
-host-to-device copy (:func:`h36x_torch.parallel.feed.prefetch_to_device`).
+The features keep their stored dtype here (float32, float16, or bfloat16
+held as its uint16 bits, :mod:`h36x_torch.data.shards`); the cast to the
+feed dtype (`--data.feed-dtype`) happens in the feed, on whichever side of
+the host-to-device copy holds the narrower dtype
+(:func:`h36x_torch.parallel.feed.to_device`). A reference-format `.pt`
+store (index.pt) reads its shards through
+:func:`h36x_torch.data.shards.load_torch_shard`.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ class FeatureClipDataset:
         self.augment = augment
 
         index = shard_store.load_index(self.root)
+        self.torch_format = bool(index.get("torch_format"))
         # rows are addressed as clip["row"] + variant: the grouped layout,
         # the only one h36x writes; refuse any other rather than misread it
         if not index.get("variants_grouped", True):
@@ -63,7 +68,8 @@ class FeatureClipDataset:
             self._items = [(c, 0) for c in clips]
 
         self._reader = shard_store.ShardReader(
-            self.root, cache_size=shard_cache_size, log_loads_every=log_loads_every)
+            self.root, cache_size=shard_cache_size, log_loads_every=log_loads_every,
+            loader=shard_store.load_torch_shard if self.torch_format else None)
 
     def __len__(self) -> int:
         return len(self._items)
@@ -80,7 +86,8 @@ class FeatureClipDataset:
 
     def get_batch(self, indices: Sequence[int]):
         """Gather rows into stacked arrays: (feats, joints3d, joints2d, K[, meta]),
-        joints3d in metres."""
+        joints3d in metres, feats in the store's dtype (bfloat16 as its
+        bits: :func:`h36x_torch.data.shards.as_tensor` reads them)."""
         n = len(indices)
         if n == 0:
             raise ValueError("get_batch() called with no indices")

@@ -1,4 +1,4 @@
-"""The feature-shard store (counterpart of h36x/data/shards.py), numpy only.
+"""The feature-shard store (counterpart of h36x/data/shards.py).
 
 The format is h36x's, so a store written by either package reads the same
 in the other. A shard file `shard_XXXXX.h36x` is
@@ -12,8 +12,19 @@ in the other. A shard file `shard_XXXXX.h36x` is
 
 where "crc32" is the zlib CRC32 of the array's payload bytes. A shard holds
 N_clips x n_vars rows, a clip's variants contiguous. `index.json` maps
-clips to (shard, row). bfloat16 arrays (readable by h36x through
-ml_dtypes) and the reference's torch `.pt` stores are not read here.
+clips to (shard, row).
+
+bfloat16 arrays: numpy has no bfloat16, so on the host the port holds one
+as its raw bits, a little-endian uint16 array; "bfloat16" is the name such
+an array is written under, and reading that name gives `<u2` back. The
+device feed views those bits as `torch.bfloat16`
+(:func:`h36x_torch.parallel.feed.to_device`); :func:`bf16_bits` and
+:func:`bf16_tensor` convert between the two. No store dtype is uint16
+otherwise.
+
+:func:`merge_stores` unifies the part stores of a partitioned extraction;
+:func:`load_torch_index` / :func:`load_torch_shard` read the reference's
+torch `.pt` stores (`index.pt`, `shard_XXXXX.pt`).
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 MAGIC = b"H36XSHRD"
 _ALIGN = 64
@@ -33,15 +45,55 @@ _HOST_LE = sys.byteorder == "little"
 
 ARRAY_KEYS = ("feats", "joints3d", "joints2d", "K")
 
-_DTYPE_NAMES = {"float32", "float16", "float64", "int32", "int64", "uint8"}
+_DTYPE_NAMES = {"float32", "float16", "bfloat16", "float64", "int32", "int64", "uint8"}
+BF16_BITS = np.dtype("<u2")  # a bfloat16 array's host form: its raw bits
 
 
 def np_dtype(name: str) -> np.dtype:
-    """The little-endian numpy dtype of a shard dtype name."""
+    """The little-endian numpy dtype of a shard dtype name ("bfloat16":
+    uint16, the raw bits)."""
     if name not in _DTYPE_NAMES:
         raise ValueError(f"unsupported shard dtype {name!r} (h36x_torch reads "
                          f"{sorted(_DTYPE_NAMES)})")
+    if name == "bfloat16":
+        return BF16_BITS
     return np.dtype(name).newbyteorder("<")
+
+
+def dtype_name(dt: np.dtype) -> str:
+    """The shard dtype name of a numpy dtype (uint16: "bfloat16")."""
+    name = "bfloat16" if dt.kind == "u" and dt.itemsize == 2 else dt.name
+    if name not in _DTYPE_NAMES:
+        raise ValueError(f"unsupported shard dtype {dt!r}")
+    return name
+
+
+def bf16_bits(t: torch.Tensor) -> np.ndarray:
+    """A torch.bfloat16 tensor's raw bits as a numpy uint16 array (CPU)."""
+    return t.detach().cpu().contiguous().view(torch.uint16).numpy()
+
+
+def bf16_tensor(bits: np.ndarray) -> torch.Tensor:
+    """uint16 bits -> a torch.bfloat16 tensor sharing their memory (no
+    float32 copy)."""
+    return torch.from_numpy(np.ascontiguousarray(bits)).view(torch.bfloat16)
+
+
+def as_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host shard array as a CPU tensor sharing its memory: bf16 bits
+    (uint16) as torch.bfloat16, another array as its own dtype."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype == BF16_BITS:
+        return bf16_tensor(arr)
+    return torch.from_numpy(arr)
+
+
+def host_array(arr) -> np.ndarray:
+    """A shard array as numpy: a torch.bfloat16 tensor as its bits, another
+    tensor as its values."""
+    if isinstance(arr, torch.Tensor):
+        return bf16_bits(arr) if arr.dtype == torch.bfloat16 else arr.detach().cpu().numpy()
+    return np.asarray(arr)
 
 
 def shard_path(root, shard_id: int) -> Path:
@@ -49,7 +101,10 @@ def shard_path(root, shard_id: int) -> Path:
 
 
 def write_shard(path, arrays: Dict[str, np.ndarray], meta: List[dict], n_vars: int) -> None:
-    """Serialize one shard (atomic rename). `arrays` share the leading row count."""
+    """Serialize one shard (atomic rename). `arrays` share the leading row
+    count; a value may be a numpy array or a tensor (a torch.bfloat16 one,
+    or a uint16 array of bf16 bits, is written as "bfloat16")."""
+    arrays = {k: host_array(v) for k, v in arrays.items()}
     rows = {k: int(v.shape[0]) for k, v in arrays.items()}
     if len(set(rows.values())) != 1:
         raise ValueError(f"inconsistent row counts: {rows}")
@@ -63,11 +118,9 @@ def write_shard(path, arrays: Dict[str, np.ndarray], meta: List[dict], n_vars: i
         arr = np.ascontiguousarray(arr)
         if arr.dtype.byteorder == ">" or (arr.dtype.byteorder == "=" and not _HOST_LE):
             arr = arr.astype(arr.dtype.newbyteorder("<"))
-        if arr.dtype.name not in _DTYPE_NAMES:
-            raise ValueError(f"unsupported shard dtype {arr.dtype!r}")
         entries[name] = arr
         header["arrays"][name] = {
-            "dtype": arr.dtype.name,
+            "dtype": dtype_name(arr.dtype),
             "shape": list(arr.shape),
             "offset": 0,
             "nbytes": int(arr.nbytes),
@@ -156,9 +209,12 @@ def verify_store(root) -> dict:
 
     Returns {"n_shards", "rows", "arrays_checked", "arrays_unchecked",
     "errors": [str]}; `arrays_unchecked` counts arrays written without a
-    checksum."""
+    checksum. Raises for a reference `.pt` store, which has no checksums."""
     root = Path(root)
     idx = load_index(root)
+    if idx.get("torch_format"):
+        raise ValueError("checksum verification covers native .h36x stores; reference "
+                         ".pt stores carry no integrity records")
     n_shards = int(idx["n_shards"])
     n_vars = int(idx["n_variants"])
     per_shard: Dict[int, int] = {}
@@ -217,14 +273,18 @@ def verify_store(root) -> dict:
 
 class ShardReader:
     """LRU cache of open shards. log_loads_every > 0 prints the running
-    load/hit counts every Nth disk load."""
+    load/hit counts every Nth disk load. `loader(root, shard_id)` reads one
+    shard (default: the native .h36x file; the dataset passes
+    :func:`load_torch_shard` for a reference `.pt` store)."""
 
     def __init__(self, root, cache_size: int = 2, mmap: bool = True,
-                 log_loads_every: int = 0):
+                 log_loads_every: int = 0, loader=None):
         self.root = Path(root)
         self.cache_size = cache_size
         self.mmap = mmap
         self.log_loads_every = log_loads_every
+        self._loader = loader or (
+            lambda root, sid: read_shard(shard_path(root, sid), mmap=self.mmap))
         self._cache: dict = {}
         self._order: list = []
         self.load_calls = 0
@@ -240,7 +300,7 @@ class ShardReader:
         while self._order and len(self._order) >= self.cache_size:
             del self._cache[self._order.pop(0)]
         self.load_calls += 1
-        shard = read_shard(shard_path(self.root, shard_id), mmap=self.mmap)
+        shard = self._loader(self.root, shard_id)
         if self.cache_size > 0:
             self._cache[shard_id] = shard
             self._order.append(shard_id)
@@ -290,11 +350,127 @@ def write_index(
 
 
 def load_index(root) -> dict:
-    """Load index.json of a store."""
-    path = Path(root) / "index.json"
-    if not path.exists():
-        raise FileNotFoundError(
-            f"no index.json under {root}; run the extract stage first (the "
-            "reference's index.pt stores are not read by h36x_torch)")
-    with open(path) as f:
-        return json.load(f)
+    """Load a store's index.json, or else a reference-format index.pt."""
+    root = Path(root)
+    path = root / "index.json"
+    if path.exists():
+        with open(path) as f:
+            return json.load(f)
+    tpath = root / "index.pt"
+    if tpath.exists():
+        return load_torch_index(tpath)
+    raise FileNotFoundError(
+        f"no index.json (or reference index.pt) under {root}; run the extract "
+        "stage first.")
+
+
+def merge_stores(parts, out_root, move: bool = True) -> dict:
+    """Unify the part stores of a partitioned extraction (`--partition i/N`,
+    one store per part) into one store under `out_root`: every part's shard
+    files renumbered into one namespace and the clip indexes concatenated,
+    no array read or rewritten. index.json and the shards come out equal,
+    byte for byte, to h36x's merge of the same parts.
+
+    Crash-safe order: (1) the shards are hard-linked into out_root (copied
+    where the filesystem cannot link), the parts untouched; (2) the merged
+    index is written (atomic rename), which makes out_root a store; (3)
+    with `move` only then are the parts' shard files unlinked. A crash
+    leaves intact parts and an index-less out_root, or a complete merged
+    store and some stray source links, never a broken store.
+
+    The parts' n_variants, aug_names, seq_len, frame_skip and feat_dtype
+    must agree and no clip may repeat; out_root must hold no store. Returns
+    the merged index."""
+    import shutil
+
+    parts = [Path(p) for p in parts]
+    if not parts:
+        raise ValueError("no part stores given")
+    out_root = Path(out_root)
+    out_root.mkdir(parents=True, exist_ok=True)
+    leftovers = ([p.name for p in out_root.glob("shard_*.h36x")]
+                 + [p.name for p in (out_root / "index.json",) if p.exists()])
+    if leftovers:
+        raise ValueError(f"output store {out_root} is not empty ({leftovers[:3]}...); "
+                         "merge into a fresh directory")
+
+    indexes = [load_index(p) for p in parts]
+    first = indexes[0]
+    for p, idx in zip(parts[1:], indexes[1:]):
+        for key in ("n_variants", "aug_names", "seq_len", "frame_skip", "feat_dtype"):
+            if idx[key] != first[key]:
+                raise ValueError(f"part {p} disagrees on {key}: "
+                                 f"{idx[key]!r} != {first[key]!r}")
+
+    # everything checked before the filesystem is touched
+    merged_clips: List[dict] = []
+    links = []
+    seen = set()
+    offset = 0
+    for part, idx in zip(parts, indexes):
+        if idx.get("torch_format") or idx.get("n_shards") is None:
+            raise ValueError(f"part {part} has a torch-format (or countless) index — "
+                             "merge only native h36x part stores")
+        for sid in range(idx["n_shards"]):
+            src, dst = shard_path(part, sid), shard_path(out_root, offset + sid)
+            if not src.exists():
+                raise FileNotFoundError(f"part {part} is missing {src.name}")
+            if src.resolve() == dst.resolve():
+                raise ValueError(f"part {part} overlaps the output store")
+            links.append((src, dst))
+        for entry in idx["clips"]:
+            key = (entry["subject"], entry["action"], entry["cam"], entry["start"])
+            if key in seen:
+                raise ValueError(f"clip {key} appears in more than one part")
+            seen.add(key)
+            merged_clips.append(dict(entry, shard_id=entry["shard_id"] + offset))
+        offset += idx["n_shards"]
+
+    for src, dst in links:
+        try:
+            os.link(src, dst)
+        except OSError:
+            shutil.copy2(src, dst)
+    write_index(
+        out_root, merged_clips, n_shards=offset, n_clips=len(merged_clips),
+        n_variants=first["n_variants"], aug_names=first["aug_names"],
+        seq_len=first["seq_len"], frame_skip=first["frame_skip"],
+        feat_dtype=first["feat_dtype"], shuffle_seed=first.get("shuffle_seed"),
+        shuffle_pool=first.get("shuffle_pool"))
+    if move:
+        for src, _ in links:
+            os.unlink(src)
+    return load_index(out_root)
+
+
+# -- the reference's torch `.pt` stores -------------------------------------------
+
+
+def load_torch_index(path) -> dict:
+    """A reference-format index.pt as an index dict (`torch_format` set),
+    read with torch.load(weights_only=True)."""
+    idx = torch.load(path, map_location="cpu", weights_only=True)
+    return {
+        "version": 0,
+        "clips": idx["clips"],
+        "n_shards": idx.get("n_shards"),
+        "n_clips": idx.get("n_clips"),
+        "n_variants": idx["n_variants"],
+        "aug_names": idx.get("aug_names", ["orig"]),
+        "seq_len": idx.get("seq_len"),
+        "frame_skip": idx.get("frame_skip"),
+        "feat_dtype": idx.get("feat_dtype", "float32"),
+        "variants_grouped": idx.get("variants_grouped", True),
+        "torch_format": True,
+    }
+
+
+def load_torch_shard(root, shard_id: int) -> dict:
+    """A reference-format shard_XXXXX.pt as read_shard's dict, its tensors
+    as numpy arrays (a bfloat16 one as its bits)."""
+    data = torch.load(Path(root) / f"shard_{shard_id:05d}.pt", map_location="cpu",
+                      weights_only=True)
+    out = {"meta": data.get("meta", []), "n_vars": data.get("n_vars", 1)}
+    for k in ARRAY_KEYS:
+        out[k] = host_array(data[k])
+    return out

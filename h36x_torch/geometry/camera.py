@@ -1,11 +1,25 @@
 """Camera models (counterpart of h36x/geometry/camera.py): pinhole
-projection through intrinsics K (torch), and the host-side numpy
-intrinsics helpers that extraction reads."""
+projection through intrinsics K (torch), and the host-side numpy helpers
+that ingest (the extrinsics' Euler rotation) and extraction (intrinsics)
+read."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def rotation_matrix_xyz(angles) -> np.ndarray:
+    """Rotation matrix X(x) @ Y(y) @ Z(z) from Euler angles (radians), the
+    composition of H36M's camera extrinsics in metadata.xml."""
+    x, y, z = (float(a) for a in np.asarray(angles, dtype=np.float64))
+    cx, sx = np.cos(x), np.sin(x)
+    cy, sy = np.cos(y), np.sin(y)
+    cz, sz = np.cos(z), np.sin(z)
+    X = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    Y = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    Z = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return (X @ Y) @ Z
 
 
 def intrinsics_matrix(f, c, dtype=np.float32) -> np.ndarray:

@@ -1,12 +1,15 @@
 """Human3.6M 17-joint skeleton edges and left/right pairs (counterpart of
-h36x/geometry/skeleton.py, the parts the losses and the flip augmentation
-read)."""
+h36x/geometry/skeleton.py, the parts the losses, the flip augmentation
+and ingest read)."""
 
 from __future__ import annotations
 
 import numpy as np
 
 NUM_JOINTS = 17
+
+# Indices into the raw 32-joint H36M pose arrays selecting the 17-joint subset.
+H36M_RAW_JOINT_IDS = (0, 1, 2, 3, 6, 7, 8, 12, 13, 14, 15, 17, 18, 19, 25, 26, 27)
 
 # Skeleton bone edges, 16 total, as (parent, child) joint indices.
 H36M_EDGES = (

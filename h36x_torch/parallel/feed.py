@@ -2,9 +2,11 @@
 h36x/parallel/feed.py).
 
 A thread turns host (numpy) batches into device tensors while the device
-computes: the features are cast to the feed dtype first (fewer bytes over
-the link), every array goes to pinned memory and is copied with
-`non_blocking=True`. A bounded queue keeps `buffer_size` batches ahead.
+computes: the features are cast to the feed dtype on the side of the link
+where they are narrower (fewer bytes over it; a bfloat16 store, held as
+its bits, reaches a float32 feed without a float32 copy on the host), every
+array goes to pinned memory and is copied with `non_blocking=True`. A
+bounded queue keeps `buffer_size` batches ahead.
 """
 
 from __future__ import annotations
@@ -13,8 +15,9 @@ import queue
 import threading
 from typing import Iterable, Iterator, Optional
 
-import numpy as np
 import torch
+
+from h36x_torch.data.shards import as_tensor
 
 FEED_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                "float16": torch.float16}
@@ -27,16 +30,18 @@ def feed_dtype(name: str) -> torch.dtype:
 
 
 def to_device(batch, device: torch.device, feats_dtype: Optional[torch.dtype] = None):
-    """A host batch (tuple of numpy arrays, features first) as device
-    tensors; the features cast to `feats_dtype` before the copy."""
+    """A host batch (tuple of numpy arrays, features first; bfloat16 features
+    as their uint16 bits) as device tensors, the features in `feats_dtype`:
+    cast before the copy when that narrows them, after it otherwise."""
     out = []
     for i, arr in enumerate(batch):
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if i == 0 and feats_dtype is not None and t.dtype != feats_dtype:
-            t = t.to(feats_dtype)
+        t = as_tensor(arr)
+        cast = i == 0 and feats_dtype is not None and t.dtype != feats_dtype
+        if cast and feats_dtype.itemsize < t.dtype.itemsize:
+            t, cast = t.to(feats_dtype), False
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
-        out.append(t)
+        out.append(t.to(feats_dtype) if cast else t)
     return tuple(out)
 
 

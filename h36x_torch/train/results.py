@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from h36x_torch.data.features import FeatureClipDataset
+from h36x_torch.data.shards import BF16_BITS, as_tensor
 from h36x_torch.data.sampler import SequentialBatchSampler
 from h36x_torch.train.step import make_forward
 
@@ -125,7 +126,7 @@ def dump_result_batch(
             "the FeatureClipDataset with test_set=True")
     idx = list(range(min(batch_size, len(dataset))))
     feats, j3d, j2d, K, meta = dataset.get_batch(idx)
-    x = torch.from_numpy(np.ascontiguousarray(feats)).to(_device_of(model)).float()
+    x = as_tensor(feats).to(_device_of(model)).float()
     if forward_fn is not None:
         pred = forward_fn(x)
     else:
@@ -178,6 +179,8 @@ def dump_debug_batch(
             "FeatureClipDataset with test_set=True")
     idx = list(range(min(batch_size, len(dataset))))
     feats, j3d, j2d, K, meta = dataset.get_batch(idx)
+    if feats.dtype == BF16_BITS:  # numpy has no bfloat16: the NPZ holds float32
+        feats = as_tensor(feats).float().numpy()
     payload = {
         "video": feats,
         "joints3d": j3d,

@@ -26,6 +26,14 @@ stacked group (k, B, ...) of batches; on CUDA each full group is one replay
 of a CUDA graph holding the k steps (forward, backward, AdamW), the
 counterpart of h36x's one-dispatch `lax.scan`. `accum_steps = k` makes one
 update from the mean gradient of k microbatches.
+
+Data-parallel (a process group of several processes, each step given this
+process's rows of the global batch): between backward and AdamW the
+trainable gradients and the step's metrics are averaged over the processes
+with one flat all-reduce, which is h36x's mean over the global batch, and
+the dropout masks are the global batch's, this process's rows of them
+(:func:`h36x_torch.infer.dropout_mask`). Grouped steps then run eagerly:
+a gloo collective cannot sit in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 
 from h36x_torch.infer import make_fused_forward
 from h36x_torch.models.phd import param_tree
+from h36x_torch.parallel.distributed import mean_across_processes, process_info
 from h36x_torch.train.losses import (
     bone_length_loss,
     bone_length_per_row,
@@ -155,7 +164,11 @@ class TrainStep:
       dispatch count.
 
     `eager_steps` counts the updates run eagerly, `graph_replays` the
-    replays (each `scan_steps` updates)."""
+    replays (each `scan_steps` updates).
+
+    In a process group of several processes (the module docstring) every
+    update averages the gradients and metrics over the processes first,
+    and groups run eagerly."""
 
     def __init__(self, model, optimizer, grads_fn: Callable, scan_steps: int = 1,
                  accum_steps: int = 1):
@@ -168,6 +181,7 @@ class TrainStep:
         self.accum_steps = max(1, accum_steps)
         self.group = max(self.scan_steps, self.accum_steps)
         self.trainable = [p for g in optimizer.param_groups for p in g["params"]]
+        self.processes = process_info()[1]
         self.graph_replays = 0
         self.eager_steps = 0
         self._graphs: dict = {}
@@ -178,6 +192,7 @@ class TrainStep:
         for p in self.trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        mean_across_processes([p.grad for p in self.trainable] + list(metrics.values()))
         self.optimizer.step()
         return metrics
 
@@ -190,7 +205,8 @@ class TrainStep:
                              f"takes at most {self.group}")
         if self.accum_steps > 1:
             return self._accumulate(batch, generator)
-        if batch[0].device.type != "cuda" or batch[0].shape[0] < self.scan_steps:
+        if (batch[0].device.type != "cuda" or batch[0].shape[0] < self.scan_steps
+                or self.processes > 1):
             return self.run_eager(batch, generator)
         key = tuple((tuple(b.shape), b.dtype) for b in batch)
         if key not in self._graphs:
@@ -225,9 +241,11 @@ class TrainStep:
                     a.add_(p.grad)
         for a, p in zip(acc, self.trainable):
             p.grad = a.div_(n)
+        metrics = _stack(out)
+        mean_across_processes(acc + list(metrics.values()))
         self.optimizer.step()
         self.eager_steps += 1
-        return _stack(out)
+        return metrics
 
     def _capture(self, batches, generator):
         """Record the group's steps as one CUDA graph over static copies of

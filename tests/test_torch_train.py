@@ -358,9 +358,12 @@ def test_checkpoint_params_read_by_h36x(flax_small, tmp_path):
 
 @pytest.mark.parametrize("field, value", [
     ("ckpt_backend", "orbax"), ("mesh.data", 2),
-    ("mesh.model", 2), ("dist.num_processes", 2),
+    ("mesh.model", 2), ("dist.local_devices", 2),
 ])
 def test_trainer_refuses_what_this_slice_does_not_run(field, value):
+    """Orbax, tensor parallelism, and more devices than processes (mesh.data
+    2 on one process; two local devices) come with later slices;
+    --dist.num-processes > 1 runs (tests/test_torch_dist.py)."""
     cfg = TrainConfig()
     head, _, leaf = field.rpartition(".")
     setattr(getattr(cfg, head) if head else cfg, leaf, value)
@@ -463,9 +466,11 @@ def test_train_config_has_h36x_fields_and_defaults():
     ("--dist.coordinator", "localhost:1234"), ("--dist.process-id", "0"),
 ])
 def test_train_cli_has_no_flag_it_does_not_read(flag, value):
-    """Multi-process fields are not carried over until a slice reads them,
-    so their flags are refused rather than ignored."""
+    """The multi-process fields came with the slice that reads them
+    (h36x_torch.parallel.distributed.setup_from_config): each flag parses to
+    h36x's value, and the port's config has no field h36x's lacks."""
+    from h36x.config import parse_into as jax_parse
     from h36x_torch.config import parse_into
 
-    with pytest.raises(SystemExit):
-        parse_into(TrainConfig(), [flag, value])
+    port = dataclasses.asdict(parse_into(TrainConfig(), [flag, value]))
+    assert port == dataclasses.asdict(jax_parse(JaxTrainConfig(), [flag, value]))
