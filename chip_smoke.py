@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the h36x_torch serving, training, feature-extraction and
-prediction paths and the matmul probe once on one NVIDIA GPU (H100).
+prediction paths, the tools and the matmul probe once on one NVIDIA GPU
+(H100).
 
     python3 chip_smoke.py
 
@@ -118,7 +119,14 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
    no file, each rank's B1-B4 counts those of the single-process run, step
    ms per rank beside the single process's; a 2-process stop after 1 epoch
    and --resume equal to the straight 2-process run; and NCCL (the default
-   on CUDA) refusing two ranks on one card by name.
+   on CUDA) refusing two ranks on one card by name. The control of the
+   2-process rows (train_dist_control): one process (this script as
+   --control-worker REPORT ARGS), the same store, init and flags, each
+   update made from the fused step's gradients of rows 0-15 and 16-31
+   taken separately and averaged as the all-reduce averages them: its loss
+   at every step beside the 2-process run's and the one process's, within
+   CONTROL_TOL of the 2-process run (bit for bit logged), its rows and
+   final params compared too.
 6. The extraction path: h36x_torch.extract.pipeline.run_extract (what
    h36x_torch.cli.extract calls) over an in-memory video source made from a
    seed (SyntheticVideos: the machine has no OpenCV to decode mp4), at the
@@ -146,6 +154,19 @@ prediction paths and the matmul probe once on one NVIDIA GPU (H100).
    features within 2e-2; bit for bit logged), and a bf16 and a reference
    .pt copy of it read back through FeatureClipDataset and fed to the card
    in every --data.feed-dtype.
+   Then the tools (drive_tools_path), at the flagship width: a reference
+   PHD checkpoint (a torch copy of the reference's module, from a seed) and
+   an NPZ of its float32 predictions on 32 x 40 seeded features;
+   cli.convert --torch-ckpt and --to-torch-ckpt back (the state_dict bit
+   for bit); cli.parity with --torch-ckpt and with --ckpt (PASS at 0.1 mm,
+   exactly 4 B1 + 1 B3 each, the forward's device ms), and with the
+   predictions shifted 0.5 mm at one joint (must exit 1); parity --full
+   (run_full with the ingested tree's frames from memory: no OpenCV
+   there) extracting with a seeded torchvision-layout ResNet-50 (13 B5 a
+   dispatch, then 4 B1 + 1 B3), then PASS against the reference module's
+   predictions on the extracted features; cli.doctor with --root,
+   --verify-store, --ckpt, --artifact (the f32 artifact of the export
+   phase) and --dedup-estimate, exit 0 with the six kernels ready.
 7. The prediction path at full width, on a store that write_store makes
    and a seeded checkpoint: h36x_torch.cli.predict.main in its three modes
    (batch rollout of 8 clips x 25 steps; --streaming --freeze with a
@@ -180,6 +201,8 @@ import asyncio
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -224,11 +247,21 @@ LOSS_TOL = dict(rtol=1e-5, atol=0.0)  # fused vs plain step loss
 # Later steps: AdamW's first updates (m / sqrt(v) = sign(g)) turn that
 # rounding into whole steps on near-zero gradients, so every step's loss and
 # the metrics.jsonl rows are held at h36x's bound for its 2-process CLI rows
-# (tests/test_multiprocess.py:163-166), on the keys it compares there;
+# (tests/test_multiprocess.py:172-174), on the keys it compares there;
 # val_bone, a squared difference of bone lengths that magnifies the drift,
-# is logged.
+# is logged. The control run (check_split_control, on every call) shows
+# this cause: one process making each update from the two 16-row blocks'
+# gradients, averaged as the all-reduce averages them, equals the 2-process
+# run bit for bit (every step's loss, the train rows, the final params) and
+# parts from the one-process run exactly as it does (on an NVIDIA H100 80GB
+# HBM3, 700 W: val_bone 5.3e-5, val_loss 1.6e-5, step losses up to 2.0e-5).
 DIST_ROW_TOL = 1e-4
 DIST_ROW_KEYS = ("lr", "train_loss", "train_mpjpe", "val_loss", "val_mpjpe")
+# the control against the 2-process run, per step: the same arithmetic (each
+# block's kernels on 16 rows, the blocks' gradients summed in float32 and
+# halved), so equal bit for bit; the bound leaves room for float32
+# summation noise only
+CONTROL_TOL = 1e-6
 # the backward kernels' hopper routes: each float32 operand split into three
 # bf16 parts, six tensor-core passes a product
 SPLIT_PASSES = 6
@@ -2906,16 +2939,53 @@ def drive_partitioned_extract(dev, ingested, tmp, smi):
     return paths
 
 
-def train_worker(report, argv) -> int:
+def split_update(parts: int):
+    """TrainStep._update of a one-process control run: the fused step's
+    gradients (and metrics) of each of `parts` equal row blocks of the
+    batch taken separately, averaged as mean_across_processes averages
+    those of `parts` processes (one flat float32 buffer per block, the
+    blocks summed in rank order, divided by `parts`), then AdamW."""
+
+    def update(self, batch, generator=None):
+        rows = batch[0].shape[0] // parts
+        flats = []
+        for r in range(parts):
+            metrics = self.grads_fn(tuple(b[r * rows:(r + 1) * rows] for b in batch),
+                                    generator)
+            for p in self.trainable:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            tensors = [p.grad for p in self.trainable] + list(metrics.values())
+            flats.append(torch.cat([t.detach().reshape(-1).float() for t in tensors]))
+        flat = flats[0]
+        for f in flats[1:]:
+            flat = flat + f
+        flat.div_(parts)
+        offset = 0
+        for t in tensors:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+        self.optimizer.step()
+        return metrics
+
+    return update
+
+
+def train_worker(report, argv, split: int = 1) -> int:
     """One process of a data-parallel cli.train run (chip_smoke.py
     --train-worker REPORT ARGS...): the counts set to 0, cli.train.main
     (ARGS), then REPORT gets this process's launch counts, each epoch's
     train timing (fit's train_epoch, recorded), and each train step's loss
     and ms (host clock between two synchronisations: the step, its
-    all-reduce and any wait for the other rank)."""
+    all-reduce and any wait for the other rank). `split` > 1 (chip_smoke.py
+    --control-worker REPORT ARGS...: 2) makes every update the one-process
+    control's :func:`split_update`."""
     from h36x_torch.cli.train import main as train_main
     from h36x_torch.train import loop
     from h36x_torch.train.step import TrainStep
+
+    if split > 1:
+        TrainStep._update = split_update(split)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2985,6 +3055,66 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def max_param_diff(path_a, path_b) -> float:
+    """max |a - b| over the params of two msgpack checkpoints (inf when
+    their keys or a leaf's shape differ)."""
+    from h36x_torch.train.checkpoint import load_params_raw
+
+    def leaves(tree, path=""):
+        for k, v in tree.items():
+            yield from (leaves(v, f"{path}{k}.") if isinstance(v, dict) else [(path + k, v)])
+
+    a = dict(leaves(load_params_raw(path_a)))
+    b = dict(leaves(load_params_raw(path_b)))
+    if a.keys() != b.keys():
+        return float("inf")
+    return max(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+               if a[k].shape == b[k].shape else float("inf") for k in a)
+
+
+def check_split_control(ranks, rank0, rows, dist_dir, single, want, smi):
+    """The control of the 2-process rows: one process, the same store, init
+    and flags, each update made from the fused step's gradients of rows
+    0-15 and 16-31 taken separately and averaged as the 2 processes'
+    all-reduce averages them (:func:`split_update`). Logged per step beside
+    the 2-process run and the one-process run; the control must equal the
+    2-process run within CONTROL_TOL per step (whether bit for bit is
+    logged), and its params (last.msgpack) are compared with rank 0's."""
+    _, (control,), seconds, control_dirs = ranks("dist_control", 1,
+                                                 worker="--control-worker")
+    control_rows = read_rows(control_dirs[0])
+    vs_dist = [abs(a - b) / abs(b) for a, b in zip(control["losses"], rank0["losses"])]
+    vs_single = [abs(a - b) / abs(b) for a, b in zip(control["losses"], single["losses"])]
+    record = {
+        "phase": "train_dist_control", "card": smi, "seconds": seconds,
+        "control": "one process, each update from the gradients of rows 0-15 and "
+                   "16-31 taken separately, summed in float32 and halved",
+        "losses": {"control": control["losses"], "two_processes": rank0["losses"],
+                   "one_process": single["losses"]},
+        "step_rel_diff_vs_two_processes": vs_dist,
+        "step_rel_diff_vs_one_process": vs_single,
+        "bit_for_bit_vs_two_processes": control["losses"] == rank0["losses"],
+        "rows_rel_diff_vs_two_processes": {
+            k: max(abs(r[k] - w[k]) / abs(w[k]) for r, w in zip(control_rows, rows))
+            for k in ROW_KEYS},
+        "max_param_diff_vs_two_processes": max_param_diff(
+            os.path.join(control_dirs[0], "last.msgpack"),
+            os.path.join(dist_dir, "last.msgpack")),
+        "max_param_diff_vs_one_process": max_param_diff(
+            os.path.join(control_dirs[0], "last.msgpack"),
+            os.path.join(os.path.dirname(dist_dir), "dist_single", "last.msgpack")),
+        "launches": control["launches"], "tol": CONTROL_TOL}
+    log(record)
+    # the control's kernels run on 16-row blocks: twice the fused launches
+    # of the train steps, the eval's as one process's
+    if control["launches"]["gn_relu_cconv_bwd"] != 2 * want["gn_relu_cconv_bwd"]:
+        raise AssertionError(f"control launches {control['launches']}")
+    if len(vs_dist) != len(rank0["losses"]) or max(vs_dist) > CONTROL_TOL:
+        raise AssertionError(f"the split-gradient control differs from the 2-process "
+                             f"run: {vs_dist}")
+    return control["launches"]
+
+
 def drive_dist_train_path(tmp, base_rows, smi):
     """Two processes on the one card (--dist.num-processes 2, gloo through
     the host, 16 rows each) train like drive_train_path's single-process
@@ -3011,7 +3141,7 @@ def drive_dist_train_path(tmp, base_rows, smi):
                          joint_regressor=epochs * (steps + evals),
                          joint_regressor_bwd=epochs * steps)
 
-    def ranks(name, n, *flags, collectives="gloo", outdirs=None):
+    def ranks(name, n, *flags, collectives="gloo", outdirs=None, worker="--train-worker"):
         """cli.train in n worker processes (n 2: --dist.*, each rank its own
         --outdir); returns (their (rc, output tail)s, reports, seconds,
         outdirs)."""
@@ -3025,7 +3155,7 @@ def drive_dist_train_path(tmp, base_rows, smi):
             dist = ["--dist.num-processes", str(n), "--dist.coordinator", f"localhost:{port}"]
             if collectives:
                 dist += ["--dist.collectives", collectives]
-        argvs = [[sys.executable, os.path.abspath(__file__), "--train-worker", reports[i],
+        argvs = [[sys.executable, os.path.abspath(__file__), worker, reports[i],
                   *train_argv(store, outdirs[i], *flags, *dist,
                               *(["--dist.process-id", str(i)] if n > 1 else []))]
                  for i in range(n)]
@@ -3077,9 +3207,11 @@ def drive_dist_train_path(tmp, base_rows, smi):
         raise AssertionError(f"2-process step losses differ from one process's: {step_rel}")
     if len(rows) != len(base_rows) or max_rel > DIST_ROW_TOL:
         raise AssertionError(f"2-process rows differ from the single process's: {max_rel}")
+    control = check_split_control(ranks, reports[0], rows, outdirs[0], single, want, smi)
     paths = {"train_dist_single": single["launches"],
              "train_dist_rank0": reports[0]["launches"],
-             "train_dist_rank1": reports[1]["launches"]}
+             "train_dist_rank1": reports[1]["launches"],
+             "train_dist_control": control}
 
     cut = os.path.join(tmp, "dist_resume")
     _, first, s1, _ = ranks("dist_resume", 2, "--optim.stop-after-epochs", "1",
@@ -3103,6 +3235,354 @@ def drive_dist_train_path(tmp, base_rows, smi):
         raise AssertionError(f"NCCL with two ranks on one card was not refused: {result}")
     return paths
 
+
+# The tools phase (drive_tools_path): parity's verdict is BASELINE.json's
+# 0.1 mm on the predictions, and its control shifts one joint by 0.5 mm
+PARITY_TOL_MM = 0.1
+PARITY_SHIFT_M = 0.5e-3
+
+
+class TorchCausalConv1d(torch.nn.Module):
+    """The reference PHD's causal conv: replicate left pad, Conv1d."""
+
+    def __init__(self, channels, kernel_size=3):
+        super().__init__()
+        self.left_pad = kernel_size - 1
+        self.conv = torch.nn.Conv1d(channels, channels, kernel_size, padding=0)
+
+    def forward(self, x):  # (B, C, T)
+        x = torch.nn.functional.pad(x, (self.left_pad, 0), mode="replicate")
+        return self.conv(x)
+
+
+class TorchResidualBlock(torch.nn.Module):
+    def __init__(self, channels, groups=32):
+        super().__init__()
+        self.gn1 = torch.nn.GroupNorm(groups, channels)
+        self.conv1 = TorchCausalConv1d(channels)
+        self.gn2 = torch.nn.GroupNorm(groups, channels)
+        self.conv2 = TorchCausalConv1d(channels)
+
+    def forward(self, x):
+        r = x
+        x = self.conv1(torch.relu(self.gn1(x)))
+        x = self.conv2(torch.relu(self.gn2(x)))
+        return x + r
+
+
+class TorchCausalTemporalNet(torch.nn.Module):
+    def __init__(self, latent, num_blocks):
+        super().__init__()
+        self.blocks = torch.nn.Sequential(
+            *[TorchResidualBlock(latent) for _ in range(num_blocks)])
+
+    def forward(self, x):  # (B, T, D)
+        return self.blocks(x.permute(0, 2, 1)).permute(0, 2, 1)
+
+
+class TorchJointRegressor(torch.nn.Module):
+    def __init__(self, latent, joints=17, iters=3, hidden=1024):
+        super().__init__()
+        self.iters = iters
+        self.joints = joints
+        out = joints * 3
+        self.mlp = torch.nn.Sequential(
+            torch.nn.Linear(latent + out, hidden), torch.nn.ReLU(),
+            torch.nn.Linear(hidden, hidden), torch.nn.ReLU(),
+            torch.nn.Linear(hidden, out),
+        )
+        self.register_buffer("y0", torch.zeros(out))
+
+    def forward(self, phi):
+        b, t, _ = phi.shape
+        y = self.y0.view(1, 1, -1).expand(b, t, -1).contiguous()
+        for _ in range(self.iters):
+            y = y + self.mlp(torch.cat([phi, y], dim=-1))
+        return y.view(b, t, self.joints, 3)
+
+
+class TorchPHD(torch.nn.Module):
+    """A torch copy of the reference's PHD model (the module of
+    tests/test_trajectory_parity.py; dropout left out, as in eval), at the
+    flagship width by default."""
+
+    def __init__(self, latent=1024, feature=2048, number_blocks=2, ar_blocks=3):
+        super().__init__()
+        self.f_movie = TorchCausalTemporalNet(latent, number_blocks)
+        self.f_AR = TorchCausalTemporalNet(latent, ar_blocks)
+        self.f_3D = TorchJointRegressor(latent)
+        self.input_proj = torch.nn.Linear(feature, latent)
+
+    def forward(self, feats):
+        return self.f_3D(self.f_movie(self.input_proj(feats)))
+
+
+def to_reference_keys(sd) -> dict:
+    """TorchPHD's state_dict under the reference's keys: its regressor
+    Sequential holds a Dropout after the first ReLU, so the Linear layers
+    sit at indices 0, 3, 5 there (0, 2, 4 here)."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("f_3D.mlp."):
+            parts = k.split(".")
+            parts[2] = {"0": "0", "2": "3", "4": "5"}[parts[2]]
+            k = ".".join(parts)
+        out[k] = v.detach().cpu().clone()
+    return out
+
+
+def run_cli(fn, argv, expect_exit=0):
+    """fn(argv) with its standard output captured (and logged): (output,
+    seconds). Raises unless it exits with `expect_exit` (0: returns, or
+    SystemExit(0))."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    code = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        try:
+            fn(argv)
+        except SystemExit as e:  # a message exits 1, as the interpreter does
+            if isinstance(e.code, str):
+                print(e.code)
+            code = e.code if isinstance(e.code, int) else int(e.code is not None)
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    log({"cli": getattr(fn, "__module__", str(fn)), "argv": [str(a) for a in argv],
+         "exit": code, "seconds": seconds, "output": out.splitlines()})
+    if code != expect_exit:
+        raise AssertionError(f"{fn.__module__} {argv}: exit {code}, not {expect_exit}")
+    return out, seconds
+
+
+def parity_delta_mm(out: str) -> float:
+    import re
+
+    m = re.search(r"prediction delta: ([0-9.]+) mm", out)
+    if m is None:
+        raise AssertionError(f"parity printed no prediction delta:\n{out}")
+    return float(m.group(1))
+
+
+def drive_tools_path(dev, g, tmp, card, ingested, artifact):
+    """The tools at full width (the flagship ModelConfig, T 40; TF32 off):
+
+    - a reference PHD checkpoint: TorchPHD from a seed, saved as
+      {"model": state_dict} under the reference's keys, and a reference NPZ
+      of 32 x 40 x 2048 seeded features with its float32 predictions on
+      the card;
+    - cli.convert --torch-ckpt to a msgpack checkpoint, --to-torch-ckpt
+      back: the state_dict equal bit for bit, and converted again, the
+      params equal to the first conversion's;
+    - cli.parity --torch-ckpt and --ckpt: PASS at 0.1 mm, exit 0, exactly 4
+      B1 + 1 B3 each (the forward's device ms by CUDA events); with the
+      NPZ's predictions shifted by 0.5 mm at one joint it must exit 1;
+    - parity.run_full (--full) on the ingested tree: a seeded ResNet-50
+      state_dict in torchvision's layout, the frames from memory
+      (IngestedVideos: no OpenCV to decode the mp4s there), run once to
+      extract (13 B5 a dispatch, then 4 B1 + 1 B3), then with the
+      reference module's predictions on the extracted features in the
+      NPZ: PASS at 0.1 mm, the store reused (4 B1 + 1 B3);
+    - cli.doctor with --root, --verify-store, --ckpt, --artifact and
+      --dedup-estimate: exit 0, the six kernels reported ready.
+    Returns the tools' launch counts (every sub-run's, each checked)."""
+    import math
+
+    from h36x_torch.cli import convert, doctor, parity
+    from h36x_torch.data.features import FeatureClipDataset
+    from h36x_torch.extract import pipeline
+    from h36x_torch.models.resnet import ResNet50
+    from h36x_torch import infer
+
+    rec = {"phase": "tools", "card": card, "seconds": {}}
+    total = dict.fromkeys(counted(), 0)
+
+    def counted_run(name, fn, argv, want, expect_exit=0):
+        zero_counts()
+        out, seconds = run_cli(fn, argv, expect_exit)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        rec["seconds"][name] = seconds
+        rec.setdefault("launches", {})[name] = launches
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches} != {want}")
+        for k, v in launches.items():
+            total[k] += v
+        return out
+
+    # the reference checkpoint and NPZ
+    t0 = time.perf_counter()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(11)
+        ref = TorchPHD()
+    ref_sd = to_reference_keys(ref.state_dict())
+    ref_pt = os.path.join(tmp, "ref_best.pt")
+    torch.save({"model": ref_sd, "epoch": 0}, ref_pt)
+    ref = ref.to(dev).eval()
+    feats = torch.randn(32, 40, 2048, generator=g)
+    with torch.no_grad():
+        ref_pred = ref(feats.to(dev)).cpu().numpy()
+    npz = os.path.join(tmp, "reference_batch.npz")
+    np.savez(npz, video=feats.numpy(),
+             joints3d=(0.3 * torch.randn(32, 40, 17, 3, generator=g)).numpy(),
+             predicted3djoints=ref_pred)
+    rec["seconds"]["reference"] = time.perf_counter() - t0
+
+    # the round trip
+    ckdir = os.path.join(tmp, "converted")
+    run_cli(convert.main, ["--torch-ckpt", ref_pt, "--out", ckdir, "--name", "best"])
+    back_pt = os.path.join(tmp, "back.pt")
+    run_cli(convert.main, ["--to-torch-ckpt", os.path.join(ckdir, "best.msgpack"),
+                           "--out", back_pt])
+    run_cli(convert.main, ["--torch-ckpt", back_pt, "--out", ckdir, "--name", "again"])
+    back = torch.load(back_pt, map_location="cpu", weights_only=True)
+    same_sd = back.keys() == ref_sd.keys() and all(
+        back[k].dtype == ref_sd[k].dtype and torch.equal(back[k], ref_sd[k]) for k in ref_sd)
+    rec["round_trip"] = {
+        "state_dict_bit_for_bit": same_sd,
+        "params_max_diff_again": max_param_diff(os.path.join(ckdir, "best.msgpack"),
+                                                os.path.join(ckdir, "again.msgpack")),
+        "msgpack_bytes": os.path.getsize(os.path.join(ckdir, "best.msgpack"))}
+    if not (same_sd and rec["round_trip"]["params_max_diff_again"] == 0.0):
+        raise AssertionError(f"convert round trip: {rec['round_trip']}")
+
+    # the parity forward's device ms: CUDA events around each forward that
+    # make_fused_forward builds
+    made = infer.make_fused_forward
+    forward_ms = []
+
+    def timed_forward(*args, **kwargs):
+        fwd = made(*args, **kwargs)
+
+        def run(x):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fwd(x)
+            end.record()
+            end.synchronize()
+            forward_ms.append(start.elapsed_time(end))
+            return out
+
+        return run
+
+    one_forward = expect_counts(gn_relu_cconv=4, joint_regressor=1)
+    infer.make_fused_forward = timed_forward
+    try:
+        deltas = {}
+        for name, flags in (("torch_ckpt", ["--torch-ckpt", ref_pt]),
+                            ("ckpt", ["--ckpt", os.path.join(ckdir, "best.msgpack")])):
+            out = counted_run(f"parity_{name}", parity.main,
+                              ["--npz", npz, *flags, "--tol-mm", str(PARITY_TOL_MM)],
+                              one_forward)
+            deltas[name] = parity_delta_mm(out)
+            if "-> PASS" not in out:
+                raise AssertionError(f"parity --{name}: no PASS")
+        data = dict(np.load(npz))
+        data["predicted3djoints"] = data["predicted3djoints"].copy()
+        data["predicted3djoints"][:, :, 3, 0] += PARITY_SHIFT_M
+        shifted = os.path.join(tmp, "shifted.npz")
+        np.savez(shifted, **data)
+        out = counted_run("parity_shifted", parity.main,
+                          ["--npz", shifted, "--torch-ckpt", ref_pt], one_forward,
+                          expect_exit=1)
+        deltas["shifted_control"] = parity_delta_mm(out)
+        if "-> FAIL" not in out:
+            raise AssertionError("the shifted control did not FAIL")
+        rec["parity_max_delta_mm"] = deltas
+
+        # --full on the ingested tree, frames from memory
+        log({"note": "parity --full: the mp4 decode step is not run on the card "
+                     "(no OpenCV there); the frames come from memory (IngestedVideos)"})
+        videos = IngestedVideos(ingested)
+        rn = ResNet50(seed=5)
+        rn_sd = dict(rn.state_dict())
+        fc = torch.Generator().manual_seed(6)
+        rn_sd["fc.weight"] = 0.01 * torch.randn(1000, 2048, generator=fc)
+        rn_sd["fc.bias"] = torch.zeros(1000)
+        rn_pt = os.path.join(tmp, "resnet50_torchvision.pt")
+        torch.save(rn_sd, rn_pt)
+        meta, gts = [], []
+        for i, ci in enumerate(videos.clips):
+            meta.append({"subject": ci.subject, "action": ci.action, "cam": ci.cam,
+                         "start": ci.start})
+            gts.append(np.asarray(videos.clip_annotations(i)[0], np.float32) / 1000.0)
+        npz_full = os.path.join(tmp, "reference_full.npz")
+        np.savez(npz_full, joints3d=np.stack(gts), meta=np.array(meta, dtype=object))
+        work = os.path.join(tmp, "parity_work")
+        args = parity.make_parser().parse_args([
+            "--full", "--npz", npz_full, "--resnet-state-dict", rn_pt,
+            "--clips-root", ingested, "--torch-ckpt", ref_pt, "--workdir", work,
+            "--batch-size", "12", "--num-workers", "4"])
+        summaries = []
+        extract = pipeline.run_extract
+
+        def recorded_extract(*a, **kw):
+            summaries.append(extract(*a, **kw))
+            return summaries[-1]
+
+        pipeline.run_extract = recorded_extract
+        try:
+            zero_counts()
+            out, seconds = run_cli(lambda argv: parity.run_full(args, dataset=videos), [])
+        finally:
+            pipeline.run_extract = extract
+        torch.cuda.synchronize()
+        launches = read_counts()
+        (summary,) = summaries
+        dispatches = math.ceil(summary["backbone_frames"] / (12 * 40))
+        want = expect_counts(fused_bottleneck=13 * dispatches, gn_relu_cconv=4,
+                             joint_regressor=1)
+        rec["seconds"]["full_extract"] = seconds
+        rec["full_extract"] = {"launches": launches, "dispatches": dispatches,
+                               "clips": summary["n_clips"],
+                               "backbone_frames": summary["backbone_frames"],
+                               "extract_seconds": summary["seconds"],
+                               "clips_per_s": summary["clips_per_sec"]}
+        if launches != want or summary["n_clips"] != len(videos):
+            raise AssertionError(f"parity --full extract: {rec['full_extract']} != {want}")
+        for k, v in launches.items():
+            total[k] += v
+        gt_delta = re.search(r"GT-joints delta store-vs-npz: ([0-9.]+) mm", out)
+        rec["full_gt_delta_mm"] = float(gt_delta.group(1))
+        if rec["full_gt_delta_mm"] > 1e-3 or "prediction-delta check skipped" not in out:
+            raise AssertionError(f"parity --full, first run:\n{out}")
+
+        # the reference's predictions on the extracted features
+        store = FeatureClipDataset(os.path.join(work, "features"), test_set=True)
+        by_key = {(c["subject"], c["action"], int(c["start"]), c["cam"]): i
+                  for i, (c, _) in enumerate(store.items)}
+        rows = [by_key[(m["subject"], m["action"], m["start"], m["cam"])] for m in meta]
+        with torch.no_grad():
+            pred = ref(torch.from_numpy(store.get_batch(rows)[0]).to(dev)).cpu().numpy()
+        np.savez(npz_full, joints3d=np.stack(gts), meta=np.array(meta, dtype=object),
+                 predicted3djoints=pred)
+        out = counted_run("parity_full", lambda argv: parity.run_full(args, dataset=videos),
+                          [], one_forward)
+        deltas["full"] = parity_delta_mm(out)
+        if "-> PASS" not in out or "reusing existing feature store" not in out:
+            raise AssertionError(f"parity --full, second run:\n{out}")
+    finally:
+        infer.make_fused_forward = made
+    rec["parity_forward_device_ms"] = forward_ms
+    rec["parity_forward_batches"] = {"npz": 32, "full": len(videos)}
+
+    # the doctor
+    store_root = os.path.join(work, "features")
+    out = counted_run("doctor", doctor.main, [
+        "--root", store_root, "--verify-store", store_root,
+        "--ckpt", os.path.join(ckdir, "best.msgpack"), "--artifact", artifact,
+        "--dedup-estimate", ingested], expect_counts())
+    kernels = [ln.strip() for ln in out.splitlines() if ln.startswith("       - ")]
+    log({"check": "doctor hopper kernels", "entries": kernels})
+    from h36x_torch.ops import _build
+
+    if (len(kernels) != len(_build.SIGNATURES) or "[ok] hopper kernels" not in out
+            or "all required checks passed" not in out):
+        raise AssertionError(f"doctor:\n{out}")
+    log(rec)
+    return total
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3145,8 +3625,11 @@ def main() -> int:
     paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         paths["serve"] = drive_main_path(dev, g, tmp)
+    keep = tempfile.TemporaryDirectory()  # the f32 artifact, for the doctor
     with tempfile.TemporaryDirectory() as tmp:
         paths["serve_artifact"] = drive_artifact_path(dev, g, tmp, smi.splitlines()[0])
+        for kept in ("f32.pt2", "f32.pt2.json"):
+            shutil.copy(os.path.join(tmp, kept), keep.name)
     with tempfile.TemporaryDirectory() as tmp:
         paths["train"] = drive_train_path(g, tmp)
         base_rows = read_rows(os.path.join(tmp, "runs"))
@@ -3176,6 +3659,11 @@ def main() -> int:
         t0 = time.perf_counter()
         paths.update(drive_partitioned_extract(dev, ingested, tmp, smi.splitlines()[0]))
         log({"phase": "extract_partitioned total", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        paths["tools"] = drive_tools_path(dev, g, tmp, smi.splitlines()[0], ingested,
+                                          os.path.join(keep.name, "f32.pt2"))
+        log({"phase": "tools total", "seconds": time.perf_counter() - t0})
+    keep.cleanup()
     with tempfile.TemporaryDirectory() as tmp:
         paths["predict"] = drive_predict_path(dev, g, tmp)
     paths["probe"] = drive_probe_path()
@@ -3199,4 +3687,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == "--train-worker":
         sys.exit(train_worker(sys.argv[2], sys.argv[3:]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--control-worker":
+        sys.exit(train_worker(sys.argv[2], sys.argv[3:], split=2))
     sys.exit(main())

@@ -17,6 +17,7 @@ Hopper kernel, forward and backward (:mod:`h36x_torch.ops`); on a CPU
 tensor it runs the op's plain PyTorch version.
 """
 
+from h36x_torch import config as config  # noqa: F401
 from h36x_torch.config import FEATURE_DIM, JOINTS_NUM, LATENT_DIM, SEQ_LEN, ModelConfig
 
 __all__ = ["FEATURE_DIM", "JOINTS_NUM", "LATENT_DIM", "SEQ_LEN", "ModelConfig"]

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import typing
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
@@ -279,3 +280,7 @@ def parse_into(cfg, argv: Optional[Sequence[str]] = None, description: str = "")
     parser = argparse.ArgumentParser(description=description)
     add_fields(parser, cfg)
     return apply_namespace(cfg, parser.parse_args(argv))
+
+
+def to_json(cfg) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=2, sort_keys=True)

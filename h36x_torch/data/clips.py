@@ -6,7 +6,8 @@ camera_wext.pkl and one mp4. n_frames_sub = ceil(n_frames / frame_skip)
 subsampled frames per video, windowed into clips of seq_len at the given
 stride. Decoding uses OpenCV, imported only inside the decode functions, so
 the port imports without it; a host without cv2 extracts from a source
-that brings its own frames.
+that brings its own frames. :class:`PreprocessedClips` is the reference's
+clip dataset API over the same index.
 """
 
 from __future__ import annotations
@@ -211,6 +212,72 @@ def _decode_scan(video_path: str, start: int, end: int, frame_skip: int) -> np.n
         return np.ascontiguousarray(np.stack(frames[:target]))
     finally:
         cap.release()
+
+
+class PreprocessedClips:
+    """The reference's clip dataset API (its Human36MPreprocessedClips).
+
+    Items are preprocessed host arrays, channels-last:
+      augment=False -> (video (T,o,o,3) f32 ImageNet-normalized,
+                        joints3d (T,17,3), joints2d (T,17,2) cropped px,
+                        K (3,3) adjusted, box (4,))
+      augment=True  -> a list of the 4 variants [(video, j3d, j2d, K), ...]
+                       in the order (orig, cjitter, hflip, trev).
+
+    The extraction pipeline does not use this class (it keeps pixels u8);
+    it is the convenience API for users coming from the reference.
+    """
+
+    def __init__(self, root: str, subjects: List[int], seq_len: int = 40,
+                 stride: int = 10, frame_skip: int = 2,
+                 cams: Optional[List[int]] = None, resize: int = 224,
+                 crop_scale: float = 1.6, max_clips: Optional[int] = None,
+                 augment: bool = False, jitter_seed: int = 0):
+        self._ds = ClipDataset(root, subjects, seq_len, stride, frame_skip,
+                               cams, max_clips)
+        self.resize = resize
+        self.crop_scale = crop_scale
+        self.augment = augment
+        self.jitter_seed = jitter_seed
+
+    def __len__(self):
+        return len(self._ds)
+
+    @property
+    def clips(self):
+        return self._ds.clips
+
+    def __getitem__(self, idx: int):
+        from h36x_torch.data.augment import color_jitter_host, hflip_joints, reverse_joints
+        from h36x_torch.extract.pipeline import crop_resize_host
+        from h36x_torch.geometry.camera import adjust_camera_after_crop_and_resize
+        from h36x_torch.geometry.crop import adjust_joints2d_after_crop_and_resize
+        from h36x_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
+
+        frames, j3d, j2d_raw, cam, _ci = self._ds[idx]
+        small, box = crop_resize_host(frames, j2d_raw, self.resize,
+                                      crop_scale=self.crop_scale)
+        j2d = adjust_joints2d_after_crop_and_resize(j2d_raw, box, self.resize)
+        K = adjust_camera_after_crop_and_resize(cam["f"], cam["c"], box, self.resize)
+
+        video01 = small.astype(np.float32) / 255.0
+
+        def norm(v):
+            return (v - IMAGENET_MEAN) / IMAGENET_STD
+
+        if not self.augment:
+            return norm(video01), j3d, j2d, K, np.asarray(box)
+
+        rng = np.random.default_rng(self.jitter_seed * 1_000_003 + idx)
+        cj = color_jitter_host(video01, rng)
+        j3d_hf, j2d_hf, K_hf = hflip_joints(j3d, j2d, K, width=self.resize)
+        j3d_tr, j2d_tr = reverse_joints(j3d, j2d)
+        return [
+            (norm(video01), j3d, j2d, K),
+            (norm(cj), j3d, j2d, K),
+            (norm(video01[:, :, ::-1, :]), j3d_hf, j2d_hf, K_hf),
+            (norm(video01[::-1]), j3d_tr, j2d_tr, K),
+        ]
 
 
 class SequentialVideoCursor:

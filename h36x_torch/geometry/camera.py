@@ -1,7 +1,7 @@
 """Camera models (counterpart of h36x/geometry/camera.py): pinhole
-projection through intrinsics K (torch), and the host-side numpy helpers
-that ingest (the extrinsics' Euler rotation) and extraction (intrinsics)
-read."""
+projection through intrinsics K and H36M's radial + tangential projection
+(torch), and the host-side numpy helpers that ingest (the extrinsics'
+Euler rotation) and extraction (intrinsics) read."""
 
 from __future__ import annotations
 
@@ -63,3 +63,28 @@ def project_with_K(P_cam: torch.Tensor, K: torch.Tensor,
     P_h = torch.einsum("...ij,...j->...i", K.to(dtype), P_cam.to(dtype))
     z = torch.clamp(P_h[..., 2:3], min=eps)
     return P_h[..., 0:2] / z
+
+
+def project_point_radial(P, R, t, f, c, k_all) -> torch.Tensor:
+    """H36M's full projection with radial and tangential distortion, in
+    float32 on P's device (tensors or arrays).
+
+    P: (N,3) world points; R: (3,3); t: (3,); f, c: (2,); k_all: (5,) packed
+    as (k1, k2, p1, p2, k3), the H36M metadata layout. Returns (N,2)
+    pixels."""
+    P = torch.as_tensor(P, dtype=torch.float32)
+
+    def f32(x, *shape):
+        return torch.as_tensor(x, dtype=torch.float32, device=P.device).reshape(shape)
+
+    R, t, f, c, k_all = f32(R, 3, 3), f32(t, 3), f32(f, 2), f32(c, 2), f32(k_all, 5)
+    radial_k = torch.stack([k_all[0], k_all[1], k_all[4]])  # k1, k2, k3
+    tangential_p = k_all[2:4]  # p1, p2
+
+    X = (P - t) @ R.T  # camera frame, (N,3)
+    XX = X[:, :2] / X[:, 2:3]  # normalized image plane, (N,2)
+    r2 = torch.sum(XX ** 2, dim=1)
+    radial = 1.0 + radial_k[0] * r2 + radial_k[1] * r2 ** 2 + radial_k[2] * r2 ** 3
+    tan = tangential_p[0] * XX[:, 1] + tangential_p[1] * XX[:, 0]
+    XXX = XX * (radial + tan)[:, None] + torch.outer(r2, tangential_p.flip(0))
+    return f[None, :] * XXX + c[None, :]

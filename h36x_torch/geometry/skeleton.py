@@ -1,12 +1,21 @@
-"""Human3.6M 17-joint skeleton edges and left/right pairs (counterpart of
-h36x/geometry/skeleton.py, the parts the losses, the flip augmentation
-and ingest read)."""
+"""Human3.6M 17-joint skeleton: joint names, edges and left/right pairs
+(counterpart of h36x/geometry/skeleton.py)."""
 
 from __future__ import annotations
 
 import numpy as np
 
 NUM_JOINTS = 17
+
+# The 17 joints in model order.
+H36M_JOINT_NAMES = (
+    "pelvis",
+    "r_hip", "r_knee", "r_ankle",
+    "l_hip", "l_knee", "l_ankle",
+    "spine", "thorax", "nose", "head",
+    "l_shoulder", "l_elbow", "l_wrist",
+    "r_shoulder", "r_elbow", "r_wrist",
+)
 
 # Indices into the raw 32-joint H36M pose arrays selecting the 17-joint subset.
 H36M_RAW_JOINT_IDS = (0, 1, 2, 3, 6, 7, 8, 12, 13, 14, 15, 17, 18, 19, 25, 26, 27)

@@ -113,6 +113,20 @@ class ResNet50(nn.Module):
         return x.mean(dim=(2, 3)).float()
 
 
+def count_params(variables) -> int:
+    """The number of parameters (BatchNorm's running statistics excluded):
+    of a module, or of a flax variables tree's `params`."""
+    if isinstance(variables, nn.Module):
+        return sum(p.numel() for p in variables.parameters())
+
+    def size(tree) -> int:
+        if isinstance(tree, dict):
+            return sum(size(v) for v in tree.values())
+        return int(np.size(tree))
+
+    return size(variables["params"])
+
+
 def _t32(v) -> torch.Tensor:
     return torch.from_numpy(np.array(v, dtype=np.float32))  # a writable copy
 

@@ -1,6 +1,7 @@
 """ctypes loader for the port's native host library (counterpart of
 h36x/native/__init__.py): the threaded u8 crop + bilinear resize and the
-fused photometric jitter of the extraction decode workers.
+fused photometric jitter of the extraction decode workers, and the u8
+horizontal flip and brightness / contrast / saturation jitter.
 
 `h36xio.cpp` here is a copy of h36x's source. At first use it is compiled
 with g++ (the flags of h36x's Makefile) into `build/h36x_torch/` at the
@@ -103,6 +104,16 @@ def _load_locked() -> Optional[ctypes.CDLL]:
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ]
+        lib.h36x_hflip_clip_u8.restype = ctypes.c_int
+        lib.h36x_hflip_clip_u8.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int
+        ]
+        lib.h36x_bcs_jitter_u8.restype = ctypes.c_int
+        lib.h36x_bcs_jitter_u8.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ]
         lib.h36x_jitter_clip_u8.restype = ctypes.c_int
         lib.h36x_jitter_clip_u8.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p,
@@ -142,6 +153,38 @@ def crop_resize_clip(frames: np.ndarray, top: int, left: int, side: int,
     if rc != 0:
         raise ValueError(f"invalid crop box (top={top}, left={left}, side={side}) "
                          f"for frames {frames.shape}")
+    return out
+
+
+def hflip_clip(frames: np.ndarray, n_threads: int = 4) -> np.ndarray:
+    """Horizontally flip (T, H, W, 3) u8 frames (returns a new array)."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    out = np.array(frames, dtype=np.uint8, order="C")  # exactly one copy
+    t, h, w, _ = out.shape
+    lib.h36x_hflip_clip_u8(out.ctypes.data, t, h, w, n_threads)
+    return out
+
+
+def bcs_jitter_clip(frames: np.ndarray, fb: float, fc: float, fs: float, order,
+                    n_threads: int = 4) -> np.ndarray:
+    """Brightness / contrast / saturation jitter on a copy of (T, H, W, 3)
+    u8 frames, the ops in `order` (0, 1, 2; hue is host-side)."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    out = np.array(frames, dtype=np.uint8, order="C")
+    t, h, w, _ = out.shape
+    order_arr = np.ascontiguousarray(order, dtype=np.int32)
+    rc = lib.h36x_bcs_jitter_u8(
+        out.ctypes.data, t, h, w, float(fb), float(fc), float(fs),
+        order_arr.ctypes.data, len(order_arr), n_threads,
+    )
+    if rc != 0:
+        raise ValueError(
+            f"bcs_jitter_clip: unknown op in order={list(order_arr)} "
+            "(only 0=brightness, 1=contrast, 2=saturation; hue is host-side)")
     return out
 
 

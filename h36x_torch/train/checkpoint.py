@@ -25,7 +25,7 @@ from h36x_torch.models.phd import _nest, params_from_flax, params_to_flax
 from h36x_torch.utils import msgpack_lite
 
 _ORBAX_LATER = ("orbax checkpoint directories are not readable by h36x_torch "
-                "yet (they come with the port's checkpoint slice); save a "
+                "yet (ROADMAP A.4, a reader of h36x's orbax layout); save a "
                 ".msgpack checkpoint with h36x instead")
 
 

@@ -137,12 +137,21 @@ def _encode(obj, out: list) -> None:
     elif obj is True or obj is False:
         out.append(b"\xc3" if obj else b"\xc2")
     elif isinstance(obj, int):
+        # the smallest form, as msgpack-python (flax's packer) writes it
         if 0 <= obj <= 0x7F or -32 <= obj < 0:
             out.append(struct.pack(">b" if obj < 0 else ">B", obj))
         elif obj >= 0:
-            out.append(struct.pack(">BQ", 0xCF, obj))
+            for code, fmt, top in ((0xCC, ">BB", 1 << 8), (0xCD, ">BH", 1 << 16),
+                                   (0xCE, ">BI", 1 << 32), (0xCF, ">BQ", 1 << 64)):
+                if obj < top:
+                    out.append(struct.pack(fmt, code, obj))
+                    break
         else:
-            out.append(struct.pack(">Bq", 0xD3, obj))
+            for code, fmt, low in ((0xD0, ">Bb", -(1 << 7)), (0xD1, ">Bh", -(1 << 15)),
+                                   (0xD2, ">Bi", -(1 << 31)), (0xD3, ">Bq", -(1 << 63))):
+                if obj >= low:
+                    out.append(struct.pack(fmt, code, obj))
+                    break
     elif isinstance(obj, float):
         out.append(struct.pack(">Bd", 0xCB, obj))
     elif isinstance(obj, str):

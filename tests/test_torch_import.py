@@ -1,6 +1,7 @@
 """h36x_torch stands alone: importing every port module pulls in none of
-jax, flax, msgpack, ml_dtypes or h36x (nor OpenCV, h5py or spacepy, which
-the port imports only inside the functions that need them), and no port
+jax, flax, msgpack, ml_dtypes or h36x (nor OpenCV, h5py, spacepy or
+matplotlib, which the port imports only inside the functions that need
+them), and no port
 source (nor chip_smoke.py) names them in an import. The import checks run
 in subprocesses, since this test process already holds jax
 (tests/conftest.py imports it)."""
@@ -15,7 +16,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "ml_dtypes", "h36x")
-LAZY = ("cv2", "h5py", "spacepy")  # imported inside functions only
+LAZY = ("cv2", "h5py", "spacepy", "matplotlib")  # imported inside functions only
 PORT_FILES = sorted((ROOT / "h36x_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -27,8 +28,9 @@ def _modules():
 
 
 def test_importing_the_port_loads_no_jax_flax_msgpack_or_h36x():
-    """...nor OpenCV, h5py or spacepy, which the port imports only inside
-    the functions that need them (the machine with the card has none)."""
+    """...nor OpenCV, h5py, spacepy or matplotlib, which the port imports
+    only inside the functions that need them (the machine with the card
+    may have none of them)."""
     code = (
         "import importlib, json, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
@@ -48,7 +50,10 @@ def test_importing_the_port_loads_no_jax_flax_msgpack_or_h36x():
               "h36x_torch.cli.export", "h36x_torch.data.ingest", "h36x_torch.data.masks",
               "h36x_torch.cli.ingest", "h36x_torch.cli.merge_shards",
               "h36x_torch.ops.preprocess", "h36x_torch.ops.resize",
-              "h36x_torch.parallel.distributed", "h36x_torch.parallel.mesh"):
+              "h36x_torch.parallel.distributed", "h36x_torch.parallel.mesh",
+              "h36x_torch.models.torch_import", "h36x_torch.cli.convert",
+              "h36x_torch.cli.parity", "h36x_torch.cli.doctor", "h36x_torch.cli.show_batch",
+              "h36x_torch.viz", "h36x_torch.viz.anim"):
         assert m in loaded, m
 
 
@@ -56,12 +61,16 @@ NEW_MODULES = ("h36x_torch.data.ingest", "h36x_torch.data.masks", "h36x_torch.cl
                "h36x_torch.data.shards", "h36x_torch.cli.merge_shards",
                "h36x_torch.ops.preprocess", "h36x_torch.ops.resize",
                "h36x_torch.parallel.distributed", "h36x_torch.parallel.mesh",
-               "h36x_torch.cli.train")
+               "h36x_torch.cli.train", "h36x_torch.models.torch_import",
+               "h36x_torch.cli.convert", "h36x_torch.cli.parity", "h36x_torch.cli.doctor",
+               "h36x_torch.cli.show_batch", "h36x_torch.viz", "h36x_torch.viz.anim",
+               "h36x_torch.data.clips", "h36x_torch.data.augment")
 
 
 def test_new_modules_import_where_cv2_h5py_spacepy_and_ml_dtypes_are_missing():
-    """Each of this slice's modules imports with cv2, h5py, spacepy and
-    ml_dtypes made unimportable (as on the machine with the card), and
+    """Each of the later slices' modules imports with cv2, h5py, spacepy,
+    matplotlib and ml_dtypes made unimportable (as on the machine with the
+    card), and
     ingest's pose reader still reads an npz there."""
     code = (
         "import sys, importlib, tempfile, os, numpy as np\n"
