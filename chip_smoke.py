@@ -126,7 +126,21 @@ prediction paths, the tools and the matmul probe once on one NVIDIA GPU
    taken separately and averaged as the all-reduce averages them: its loss
    at every step beside the 2-process run's and the one process's, within
    CONTROL_TOL of the 2-process run (bit for bit logged), its rows and
-   final params compared too.
+   final params compared too. Then orbax checkpoints and tensor
+   parallelism (drive_orbax_tp_path) on the same store: the fused run with
+   --ckpt-backend orbax (B1-B4 as the msgpack run; rows and `last` equal
+   the msgpack run's bit for bit; stop + --resume from orbax equal to the
+   straight run), save / load seconds of the flagship state per backend
+   and the zstd decoder's MB/s (checkpoint_timing); 2 processes on the one
+   card over gloo with --mesh.model 2 (plain step, no kernel) against the
+   one-process plain run (first step at LOSS_TOL, every step and h36x's
+   row keys at DIST_ROW_TOL, rank 1 writing nothing, ms per step per rank,
+   bytes all-gathered and all-reduced per step), a resumed pair equal to
+   the straight TP run; the TP run's orbax `best` served through
+   make_fused_forward(precise=True) (4 B1 + 1 B3, E2E_TOL against the
+   plain engine) and converted by cli.convert --to-torch-ckpt (the bytes of
+   a msgpack save's); the golden orbax directory h36x wrote
+   (tests/golden/orbax_v1) read bit for bit against its npz.
 6. The extraction path: h36x_torch.extract.pipeline.run_extract (what
    h36x_torch.cli.extract calls) over an in-memory video source made from a
    seed (SyntheticVideos: the machine has no OpenCV to decode mp4), at the
@@ -199,6 +213,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -3115,6 +3130,42 @@ def check_split_control(ranks, rank0, rows, dist_dir, single, want, smi):
     return control["launches"]
 
 
+def train_ranks(tmp, name, n, *flags, collectives="gloo", outdirs=None,
+                worker="--train-worker"):
+    """cli.train over drive_train_path's store (tmp/store) in n worker
+    processes (this script as `worker` REPORT ARGS; n > 1: --dist.*, each
+    rank its own --outdir); returns (their (rc, output tail)s, reports,
+    seconds, outdirs)."""
+    store = os.path.join(tmp, "store")
+    logs_dir = os.path.join(tmp, "dist_logs")
+    os.makedirs(logs_dir, exist_ok=True)
+    port = free_port()
+    outdirs = outdirs or [os.path.join(tmp, name if i == 0 else f"{name}_rank{i}")
+                          for i in range(n)]
+    reports = [os.path.join(tmp, f"{name}_report{i}_{time.time_ns()}.json")
+               for i in range(n)]
+    dist = []
+    if n > 1:
+        dist = ["--dist.num-processes", str(n), "--dist.coordinator", f"localhost:{port}"]
+        if collectives:
+            dist += ["--dist.collectives", collectives]
+    argvs = [[sys.executable, os.path.abspath(__file__), worker, reports[i],
+              *train_argv(store, outdirs[i], *flags, *dist,
+                          *(["--dist.process-id", str(i)] if n > 1 else []))]
+             for i in range(n)]
+    t0 = time.perf_counter()
+    result = run_ranks(argvs, logs_dir)
+    seconds = time.perf_counter() - t0
+    got = []
+    for (rc, out), report in zip(result, reports):
+        if rc != 0 and collectives:
+            raise AssertionError(f"{name}: a rank failed (rc {rc}):\n{out}")
+        if rc == 0:
+            with open(report) as f:
+                got.append(json.load(f))
+    return result, got, seconds, outdirs
+
+
 def drive_dist_train_path(tmp, base_rows, smi):
     """Two processes on the one card (--dist.num-processes 2, gloo through
     the host, 16 rows each) train like drive_train_path's single-process
@@ -3130,9 +3181,6 @@ def drive_dist_train_path(tmp, base_rows, smi):
     {path: launch counts} (each rank its own path)."""
     import math
 
-    store = os.path.join(tmp, "store")
-    logs_dir = os.path.join(tmp, "dist_logs")
-    os.makedirs(logs_dir, exist_ok=True)
     steps = TRAIN["train_clips"] // TRAIN["batch"]
     evals = math.ceil(TRAIN["val_clips"] / TRAIN["batch"])
     epochs = TRAIN["epochs"]
@@ -3141,35 +3189,7 @@ def drive_dist_train_path(tmp, base_rows, smi):
                          joint_regressor=epochs * (steps + evals),
                          joint_regressor_bwd=epochs * steps)
 
-    def ranks(name, n, *flags, collectives="gloo", outdirs=None, worker="--train-worker"):
-        """cli.train in n worker processes (n 2: --dist.*, each rank its own
-        --outdir); returns (their (rc, output tail)s, reports, seconds,
-        outdirs)."""
-        port = free_port()
-        outdirs = outdirs or [os.path.join(tmp, name if i == 0 else f"{name}_rank{i}")
-                              for i in range(n)]
-        reports = [os.path.join(tmp, f"{name}_report{i}_{time.time_ns()}.json")
-                   for i in range(n)]
-        dist = []
-        if n > 1:
-            dist = ["--dist.num-processes", str(n), "--dist.coordinator", f"localhost:{port}"]
-            if collectives:
-                dist += ["--dist.collectives", collectives]
-        argvs = [[sys.executable, os.path.abspath(__file__), worker, reports[i],
-                  *train_argv(store, outdirs[i], *flags, *dist,
-                              *(["--dist.process-id", str(i)] if n > 1 else []))]
-                 for i in range(n)]
-        t0 = time.perf_counter()
-        result = run_ranks(argvs, logs_dir)
-        seconds = time.perf_counter() - t0
-        got = []
-        for (rc, out), report in zip(result, reports):
-            if rc != 0 and collectives:
-                raise AssertionError(f"{name}: a rank failed (rc {rc}):\n{out}")
-            if rc == 0:
-                with open(report) as f:
-                    got.append(json.load(f))
-        return result, got, seconds, outdirs
+    ranks = functools.partial(train_ranks, tmp)
 
     def median(xs):
         return float(np.median(xs)) if xs else float("nan")
@@ -3233,6 +3253,291 @@ def drive_dist_train_path(tmp, base_rows, smi):
     log({"check": "nccl two ranks on one card", "refused": refused, "seconds": secs})
     if not all(refused):
         raise AssertionError(f"NCCL with two ranks on one card was not refused: {result}")
+    return paths
+
+
+def recorded_cfg(ref):
+    """A TrainConfig whose model section is the one the manifest of
+    checkpoint `ref` (`outdir/last`) records."""
+    from h36x_torch.config import TrainConfig
+    from h36x_torch.train import checkpoint as ckpt
+
+    cfg = TrainConfig()
+    cfg.model = dataclasses.replace(cfg.model,
+                                    **ckpt.load_recorded_config(ref)["model"])
+    return cfg
+
+
+def state_of(outdir, name):
+    """(model, optimizer, manifest) of checkpoint `name` under `outdir`
+    (either backend), restored into a CPU model of the recorded config by
+    load_checkpoint."""
+    from h36x_torch.train import checkpoint as ckpt
+    from h36x_torch.train.loop import build_model
+    from h36x_torch.train.state import make_optimizer
+
+    cfg = recorded_cfg(os.path.join(outdir, name))
+    model = build_model(cfg, "cpu")
+    opt, _ = make_optimizer(model, cfg.optim.lr, cfg.optim.weight_decay)
+    manifest = ckpt.load_checkpoint(outdir, name, model, opt)
+    return model, opt, manifest
+
+
+def states_equal(a, b) -> bool:
+    """Params, AdamW's mu, nu, count and hyper-parameters, and the step of
+    two state_of() results, bit for bit."""
+    from h36x_torch.train.state import optimizer_tensors
+
+    (ma, oa, fa), (mb, ob, fb) = a, b
+    return (fa["step"] == fb["step"]
+            and all(torch.equal(x, y) for x, y in zip(ma.state_dict().values(),
+                                                      mb.state_dict().values()))
+            and all(torch.equal(x, y) for x, y in zip(optimizer_tensors(oa),
+                                                      optimizer_tensors(ob))))
+
+
+def time_checkpoints(tmp, dev, smi) -> dict:
+    """Save and load seconds of the flagship training state (the trained
+    phase-1 model of tmp/runs, on the card) with both backends, and the
+    zstd decoder's rate on the orbax store's chunk frames (raw blocks) and
+    on the golden directory's (compressed blocks, Huffman and FSE)."""
+    from h36x_torch.train import checkpoint as ckpt
+    from h36x_torch.train.loop import build_model
+    from h36x_torch.train.state import make_optimizer
+    from h36x_torch.utils import ocdbt, zstd
+
+    model, opt, _ = state_of(os.path.join(tmp, "runs"), "last")
+    model.to(dev)
+    opt_dev, _ = make_optimizer(model, 1e-4)
+    for p, q in zip(opt.param_groups[0]["params"], opt_dev.param_groups[0]["params"]):
+        for key in ("mu", "nu"):
+            opt_dev.state[q][key].copy_(opt.state[p][key])
+    out = os.path.join(tmp, "ckpt_timing")
+    rec = {"phase": "checkpoint_timing", "card": smi}
+    for backend, save in (("msgpack", ckpt.save_checkpoint),
+                          ("orbax", ckpt.save_checkpoint_orbax)):
+        d = os.path.join(out, backend)
+        t0 = time.perf_counter()
+        save(d, "last", model, opt_dev, 0, 1.0, 8)
+        rec[f"{backend}_save_s"] = time.perf_counter() - t0
+        again = build_model(recorded_cfg(os.path.join(tmp, "runs", "last")), "cpu")
+        aopt, _ = make_optimizer(again, 1e-4)
+        t0 = time.perf_counter()
+        ckpt.load_checkpoint(d, "last", again, aopt)
+        rec[f"{backend}_load_s"] = time.perf_counter() - t0
+    slot = os.path.join(out, "orbax", "last.0")
+    rec["orbax_bytes_on_disk"] = sum(os.path.getsize(os.path.join(r, f))
+                                     for r, _, fs in os.walk(slot) for f in fs)
+    for what, root, reps in (("raw_blocks", slot, 1),
+                             ("compressed_blocks", os.path.join(
+                                 os.path.dirname(os.path.abspath(__file__)), "tests",
+                                 "golden", "orbax_v1", "last.0"), 20)):
+        frames = [v for k, v in ocdbt.Store(root).read_all().items()
+                  if not k.endswith(b".zarray")]
+        t0 = time.perf_counter()
+        n = sum(len(zstd.decompress(f)) for _ in range(reps) for f in frames)
+        rec[f"zstd_{what}_MB_per_s"] = n / 1e6 / (time.perf_counter() - t0)
+        rec[f"zstd_{what}_MB"] = n / 1e6 / reps
+    rec["zstd_is"] = ("host decode of every chunk frame, the port's C++ decoder "
+                      "(h36x_torch/native/zstd.cpp), one thread")
+    log(rec)
+    return rec
+
+
+def drive_orbax_tp_path(dev, g, tmp, base_rows, smi):
+    """Orbax checkpoints and tensor parallelism at the flagship width, on
+    drive_train_path's store and flags (tmp/store, tmp/runs).
+
+    1. One process, fused, --ckpt-backend orbax (in this process, counted):
+       B1-B4 launched as drive_train_path's run, rows equal base_rows bit
+       for bit, and its `last` (load_checkpoint of the orbax directory)
+       equal to the msgpack run's `last`: params, mu, nu, count, the
+       hyper-parameters and step. A run stopped after epoch 1 and
+       --resume'd from orbax equals the straight run. Save and load
+       seconds of the flagship state by backend, and the decoder's MB/s.
+    2. Tensor parallelism: 2 processes on the one card over gloo (NCCL
+       refuses two ranks on one card), --mesh.model 2 --ckpt-backend orbax,
+       the plain step (h36x refuses the fused one), dropout 0, against the
+       one-process plain run on the same store and init: every step's loss
+       (the first at LOSS_TOL, the rest at DIST_ROW_TOL) and the rows on
+       DIST_ROW_KEYS at DIST_ROW_TOL; rank 1 writes nothing; a pair
+       --resume'd from the TP run's orbax `last` (stopped after epoch 1)
+       equals the straight TP run. ms per step per rank (host clock) and
+       the bytes each step all-gathers.
+    3. One process serves the TP run's orbax `best` through
+       infer.make_fused_forward(precise=True): 4 B1 + 1 B3 a call, within
+       E2E_TOL of the plain engine of the same params; cli.convert
+       --to-torch-ckpt of the orbax directory gives the bytes of a msgpack
+       save of the same params.
+    4. The golden orbax directory h36x wrote (tests/golden/orbax_v1) read
+       by the port equals tests/golden/orbax_v1.npz bit for bit: the C++
+       decoder's compressed-block path on this host.
+    Returns {path: launch counts}."""
+    import math
+
+    from h36x_torch.cli import convert
+    from h36x_torch.cli.train import main as train_main
+    from h36x_torch.infer import make_fused_forward
+    from h36x_torch.models.phd import param_tree
+    from h36x_torch.train import checkpoint as ckpt
+    from h36x_torch.train.loop import build_model
+
+    store = os.path.join(tmp, "store")
+    epochs, batch = TRAIN["epochs"], TRAIN["batch"]
+    steps = TRAIN["train_clips"] // batch
+    evals = math.ceil(TRAIN["val_clips"] / batch)
+    want = expect_counts(gn_relu_cconv=4 * epochs * (steps + evals),
+                         gn_relu_cconv_bwd=4 * epochs * steps,
+                         joint_regressor=epochs * (steps + evals),
+                         joint_regressor_bwd=epochs * steps)
+    paths = {}
+
+    # 1. orbax, one process, fused
+    orbax_dir = os.path.join(tmp, "orbax")
+    zero_counts()
+    t0 = time.perf_counter()
+    train_main(train_argv(store, orbax_dir, "--ckpt-backend", "orbax"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    rows = read_rows(orbax_dir)
+    straight = [{k: r[k] for k in ("epoch", *ROW_KEYS)} for r in rows]
+    base = [{k: r[k] for k in ("epoch", *ROW_KEYS)} for r in base_rows]
+    same_last = states_equal(state_of(orbax_dir, "last"),
+                             state_of(os.path.join(tmp, "runs"), "last"))
+    listing = sorted(os.listdir(orbax_dir))
+    log({"phase": "train_orbax", "seconds": seconds, "launches": launches,
+         "rows_equal_msgpack_run": straight == base, "last_equal_msgpack_last": same_last,
+         "files": listing, "ckpt_save_s": [r["ckpt_save_s"] for r in rows]})
+    if launches != want or straight != base or not same_last:
+        raise AssertionError("the orbax run differs from the msgpack run")
+    if not {"best.json", "last.json"} <= set(listing) or any(
+            n.endswith(".msgpack") for n in listing):
+        raise AssertionError(f"orbax run wrote {listing}")
+    paths["train_orbax"] = launches
+    cut = os.path.join(tmp, "orbax_resume")
+    zero_counts()
+    train_main(train_argv(store, cut, "--ckpt-backend", "orbax",
+                          "--optim.stop-after-epochs", "1"))
+    train_main(train_argv(store, cut, "--ckpt-backend", "orbax", "--resume", cut))
+    torch.cuda.synchronize()
+    legs = read_counts()
+    resumed = [{k: r[k] for k in ("epoch", *ROW_KEYS)} for r in read_rows(cut)]
+    same_last = states_equal(state_of(cut, "last"), state_of(orbax_dir, "last"))
+    log({"phase": "train_orbax_resume", "launches": legs, "rows_equal": resumed == straight,
+         "last_equal": same_last})
+    if legs != want or resumed != straight or not same_last:
+        raise AssertionError("orbax stop + --resume differs from the straight run")
+    paths["train_orbax_resume"] = legs
+    time_checkpoints(tmp, dev, smi)
+
+    # 2. tensor parallelism over 2 processes on the one card
+    plain = ("--optim.fused", "false", "--ckpt-backend", "orbax")
+    ranks = functools.partial(train_ranks, tmp)
+    _, (single,), s_single, single_dirs = ranks("tp_single", 1, *plain)
+    single_rows = read_rows(single_dirs[0])
+    _, reports, s_tp, tp_dirs = ranks("tp", 2, *plain, "--mesh.model", "2")
+    tp_rows = read_rows(tp_dirs[0])
+    step_rel = [[abs(a - b) / abs(b) for a, b in zip(r["losses"], single["losses"])]
+                for r in reports]
+    row_rel = {k: max(abs(r[k] - w[k]) / abs(w[k]) for r, w in zip(tp_rows, single_rows))
+               for k in ROW_KEYS}
+
+    def median(xs):
+        return float(np.median(xs)) if xs else float("nan")
+
+    gather_bytes = [r["tp_train_all_gather_bytes"] / (r["eager_steps"] or 1)
+                    for r in tp_rows]
+    reduce_bytes = [r["tp_train_all_reduce_bytes"] / (r["eager_steps"] or 1)
+                    for r in tp_rows]
+    log({"phase": "train_tp", "card": smi, "processes": 2, "mesh": "data 1 x model 2",
+         "collectives": "gloo through the host (two ranks share one card)",
+         "seconds": s_tp, "single_seconds": s_single,
+         "launches_per_rank": [r["launches"] for r in reports],
+         "step_ms_median_per_rank": [median(r["step_ms"][steps:]) for r in reports],
+         "step_ms_per_rank": [r["step_ms"] for r in reports],
+         "single_process_step_ms_median": median(single["step_ms"][steps:]),
+         "step_ms_is": "host clock between synchronisations around each train step "
+                       "(medians over epoch 2); the plain step, both runs",
+         "all_gather_bytes_per_step": gather_bytes,
+         "all_reduce_bytes_per_step": reduce_bytes,
+         "step_loss_rel_diff_per_rank": step_rel, "first_step_tol": LOSS_TOL["rtol"],
+         "rel_diff_by_key": row_rel, "tol": DIST_ROW_TOL, "metrics": tp_rows,
+         "rank1_outdir_exists": os.path.exists(tp_dirs[1])})
+    if any(r["launches"] != expect_counts() for r in reports + [single]):
+        raise AssertionError("the plain step launched a kernel")
+    if os.path.exists(tp_dirs[1]):
+        raise AssertionError("rank 1 wrote files")
+    if any(len(d) != epochs * steps or d[0] > LOSS_TOL["rtol"] or max(d) > DIST_ROW_TOL
+           for d in step_rel):
+        raise AssertionError(f"TP step losses differ from one process's: {step_rel}")
+    if len(tp_rows) != len(single_rows) or max(row_rel[k] for k in DIST_ROW_KEYS) > DIST_ROW_TOL:
+        raise AssertionError(f"TP rows differ from one process's: {row_rel}")
+    paths.update({"train_tp_single": single["launches"],
+                  "train_tp_rank0": reports[0]["launches"],
+                  "train_tp_rank1": reports[1]["launches"]})
+    cut = os.path.join(tmp, "tp_resume")
+    _, first, s1, _ = ranks("tp_resume", 2, *plain, "--mesh.model", "2",
+                            "--optim.stop-after-epochs", "1", outdirs=[cut, cut + "_rank1"])
+    _, second, s2, _ = ranks("tp_resume", 2, *plain, "--mesh.model", "2", "--resume", cut,
+                             outdirs=[cut, cut + "_rank1"])
+    resumed = [{k: r[k] for k in ("epoch", *ROW_KEYS)} for r in read_rows(cut)]
+    tp_straight = [{k: r[k] for k in ("epoch", *ROW_KEYS)} for r in tp_rows]
+    same_last = states_equal(state_of(cut, "last"), state_of(tp_dirs[0], "last"))
+    log({"phase": "train_tp_resume", "seconds": s1 + s2, "rows_equal": resumed == tp_straight,
+         "last_equal": same_last})
+    if resumed != tp_straight or not same_last or os.path.exists(cut + "_rank1"):
+        raise AssertionError("TP stop + --resume differs from the straight TP run")
+
+    # 3. serve the TP run's orbax best
+    cfg = recorded_cfg(os.path.join(tmp, "runs", "last"))
+    model = build_model(cfg, dev)
+    best = os.path.join(tp_dirs[0], "best")
+    model.load_state_dict(ckpt.load_params_only(best, model.state_dict()))
+    feats = torch.randn(batch, 40, cfg.model.feature_dim, generator=g).to(dev)
+    kw = dict(joints_num=model.joints_num, groups=model.groups,
+              regressor_iters=model.regressor_iters, precise=True)
+    fused = make_fused_forward(param_tree(model), **kw)
+    zero_counts()
+    got = fused(feats)
+    torch.cuda.synchronize()
+    served = read_counts()
+    want_plain = make_fused_forward(param_tree(model), use_kernels=False, **kw)(feats)
+    err = compare("serve the TP run's orbax best", got, want_plain, E2E_TOL)
+    if served != expect_counts(gn_relu_cconv=4, joint_regressor=1):
+        raise AssertionError(f"serving launches {served}")
+    paths["serve_tp_orbax"] = served
+    msg_dir = os.path.join(tmp, "tp_best_msgpack")
+    ckpt.save_params(msg_dir, "best", {k: v.cpu() for k, v in model.state_dict().items()})
+    outs = []
+    for ref in (best, os.path.join(msg_dir, "best.msgpack")):
+        out = os.path.join(tmp, f"sd_{len(outs)}", "best.pt")  # zip records carry the name
+        convert.main(["--to-torch-ckpt", ref, "--out", out])
+        with open(out, "rb") as f:
+            outs.append(f.read())
+    log({"phase": "serve_tp_orbax", "launches": served, "against_plain": err,
+         "convert_equal": outs[0] == outs[1]})
+    if outs[0] != outs[1]:
+        raise AssertionError("cli.convert of the orbax best differs from the msgpack one")
+
+    # 4. the golden orbax directory h36x wrote
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+    from h36x_torch.utils import zarr_lite
+
+    tree = zarr_lite.read_tree(os.path.join(golden, "orbax_v1", "last.0"))
+    want_npz = np.load(os.path.join(golden, "orbax_v1.npz"))
+
+    def leaf(path):
+        node = tree
+        for k in path.split("/"):
+            node = node[int(k)] if isinstance(node, list) else node[k]
+        return node
+
+    bad = [k for k in want_npz.files
+           if not (leaf(k).dtype == want_npz[k].dtype and np.array_equal(leaf(k), want_npz[k]))]
+    log({"phase": "golden_orbax", "arrays": len(want_npz.files), "bit_for_bit": not bad})
+    if bad:
+        raise AssertionError(f"golden orbax arrays differ: {bad[:5]}")
     return paths
 
 
@@ -3496,7 +3801,7 @@ def drive_tools_path(dev, g, tmp, card, ingested, artifact):
         log({"note": "parity --full: the mp4 decode step is not run on the card "
                      "(no OpenCV there); the frames come from memory (IngestedVideos)"})
         videos = IngestedVideos(ingested)
-        rn = ResNet50(seed=5)
+        rn = ResNet50(seed=5, device="cpu")
         rn_sd = dict(rn.state_dict())
         fc = torch.Generator().manual_seed(6)
         rn_sd["fc.weight"] = 0.01 * torch.randn(1000, 2048, generator=fc)
@@ -3637,6 +3942,10 @@ def main() -> int:
         t0 = time.perf_counter()
         paths.update(drive_dist_train_path(tmp, base_rows, smi.splitlines()[0]))
         log({"phase": "train_dist total", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        paths.update(drive_orbax_tp_path(dev, torch.Generator().manual_seed(12), tmp,
+                                         base_rows, smi.splitlines()[0]))
+        log({"phase": "orbax_tp total", "seconds": time.perf_counter() - t0})
         paths.update(drive_bf16_train_paths(dev, tmp, smi.splitlines()[0]))
     t0 = time.perf_counter()
     e = EXTRACT

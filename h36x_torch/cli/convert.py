@@ -18,10 +18,10 @@ And two exports back to the reference's formats:
     reference's torch store (shard_XXXXX.pt + index.pt, loadable with
     weights_only=True); array bytes pass through unchanged.
 
-  --to-torch-ckpt CKPT --out best.pt : an h36x msgpack checkpoint (full
-    training state or params-only) -> the reference's state_dict, which
-    its model loads with strict=True. Orbax directories are refused
-    (ROADMAP A.4).
+  --to-torch-ckpt CKPT --out best.pt : an h36x checkpoint (a msgpack
+    full training state or params-only, or an orbax directory / an
+    `outdir/best` reference to one) -> the reference's state_dict, which
+    its model loads with strict=True.
 
     python -m h36x_torch.cli.convert --torch-ckpt best.pt --out runs
 """
@@ -140,8 +140,9 @@ def export_shard_store(src: str, dst: str) -> int:
 
 
 def export_checkpoint(h36x_ckpt: str, out_pt: str) -> Path:
-    """An h36x msgpack checkpoint -> the reference's state_dict (best.pt).
-    An orbax directory raises NotImplementedError (ROADMAP A.4)."""
+    """An h36x checkpoint -> the reference's state_dict (best.pt): a
+    msgpack blob, an orbax directory, or an `outdir/best`-style reference
+    to a slotted orbax save."""
     import torch
 
     from h36x_torch.models.torch_import import export_phd_to_torch

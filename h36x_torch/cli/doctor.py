@@ -4,8 +4,9 @@ h36x/cli/doctor.py).
 One command that answers "why doesn't my setup work": the CUDA device and
 PyTorch build, the hand-written Hopper kernels (each built with nvcc or
 loaded from the build directory), the native host library, optional host
-dependencies (cv2 / spacepy / matplotlib / zstandard), and, when pointed at
-artifacts, shard store, checkpoint and export-artifact sanity, the dedup
+dependencies (cv2 / spacepy / matplotlib), and, when pointed at
+artifacts, shard store, checkpoint (msgpack, or orbax: every array read and
+every CRC-32C checked) and export-artifact sanity, the dedup
 estimate of an ingested tree and the preflight of a raw H36M drop.
 
     python -m h36x_torch.cli.doctor --root STORE --ckpt runs/best.msgpack
@@ -234,17 +235,31 @@ def _ckpt_info(path):
             return ("; arch " + " ".join(f"{k}={v}" for k, v in shown.items())
                     if shown else "")
 
+        def orbax(slot: Path) -> str:
+            from h36x_torch.train.checkpoint import inspect_orbax
+
+            info = inspect_orbax(slot)
+            return (f"orbax {slot.name}: {info['arrays']} arrays, "
+                    f"{info['bytes'] / 1e6:.1f} MB, {info['crc_checked']} "
+                    "manifests/nodes CRC-32C verified")
+
         p = Path(path)
-        orbax = "not readable by the port (ROADMAP A.4)"
         if p.is_dir():  # a run directory, or an orbax one
             for name in ("last", "best"):
                 if (p / f"{name}.json").exists():
                     man = json.loads((p / f"{name}.json").read_text())
-                    if "dir" in man or not (p / f"{name}.msgpack").exists():
-                        raise RuntimeError(f"{name}: an orbax checkpoint, {orbax}")
-                    return f"{name}: {describe(man)}{arch(man)}"
-            if next(p.glob("*.ocdbt"), None) or (p / "_METADATA").exists():
-                raise RuntimeError(f"an orbax checkpoint directory, {orbax}")
+                    detail = f"{name}: {describe(man)}{arch(man)}"
+                    if man.get("backend") == "orbax" or "dir" in man:
+                        from h36x_torch.train.checkpoint import _orbax_dir
+
+                        slot = _orbax_dir(p, name)
+                        if slot is None:
+                            raise RuntimeError(f"{name}: the manifest names orbax "
+                                               f"slot {man.get('dir')!r}, which is gone")
+                        detail += "; " + orbax(slot)
+                    return detail
+            if (p / "_METADATA").exists():
+                return orbax(p)
             raise FileNotFoundError("no last.json/best.json manifest found")
         man_path = p.with_suffix(".json")
         if not p.exists():
@@ -690,8 +705,7 @@ def main(argv=None):
     _check("hopper kernels", _kernels_info(args.device), problems)
     _check("native library", _native_info, problems, required=False)
     for mod, why in (("cv2", "video decode"), ("spacepy", "raw CDF ingest"),
-                     ("matplotlib", "show_batch / viz"),
-                     ("zstandard", "orbax checkpoints, ROADMAP A.4")):
+                     ("matplotlib", "show_batch / viz")):
         _check(f"{mod} ({why})", _optional(mod), problems, required=False)
     if args.root:
         _check(f"store {args.root}", _store_info(args.root), problems)

@@ -14,8 +14,9 @@ through the hand-written kernels (and the regressor too at
 (`--optim.input-len`, `--optim.pred-len`, `--optim.curriculum-steps`,
 `--optim.lambda-future`), usually `--init-from` a phase-1 checkpoint, on
 the plain path (it refuses `--optim.fused`); phase 0 trains everything.
-`--resume OUTDIR` continues from OUTDIR/last.msgpack, written by this
-package or by h36x. `--optim.steps-per-dispatch K` makes K updates per
+`--resume OUTDIR` continues from OUTDIR's `last` (last.msgpack, or the
+orbax directory last.json names), written by this package or by h36x;
+`--ckpt-backend orbax` saves orbax directories. `--optim.steps-per-dispatch K` makes K updates per
 stacked group of batches, on the card one replay of a CUDA graph of the K
 steps; `--optim.grad-accum K` one update over the mean gradient of K
 microbatches. `--profile-dir` writes a torch.profiler trace of the first
@@ -28,8 +29,9 @@ Data-parallel: every process runs this CLI with the same flags plus
 (one device per process: card I % the card count; NCCL on CUDA, gloo on
 the CPU or with `--dist.collectives gloo`); each process takes its 1/N of
 every batch, and rank 0 alone logs and writes. `--resume` works the same.
-Orbax checkpoints, tensor parallelism (`--mesh.model` > 1) and several
-devices per process come with later slices and raise.
+`--mesh.model M` splits the wide layers over M processes (tensor
+parallelism, the plain step, `--ckpt-backend orbax`; the processes are
+slices x data x M). Several devices per process raise.
 """
 
 import argparse
@@ -96,7 +98,7 @@ def _train(cfg, device):
         log(f"AR window: input {o.input_len} | horizon 1 -> {o.pred_len} over "
             f"{o.curriculum_steps} epochs | lambda_future {o.lambda_future}")
     if cfg.resume:
-        log(f"Resuming from {cfg.resume}/last.msgpack")
+        log(f"Resuming from {cfg.resume}/last")
     log(f"Train clips: {len(train_set)} | Val clips: {len(val_set)}")
     log(f"Batch size: {cfg.optim.batch_size} | LR: {cfg.optim.lr} | "
         f"Epochs: {cfg.optim.epochs}")

@@ -110,9 +110,11 @@ class OptimConfig:
 @dataclass
 class MeshConfig:
     """Device layout (h36x's names): `data` and `slices` split the batch,
-    `model` is tensor parallelism. One process drives one device, so
-    data x slices must equal the number of processes (data -1: the number
-    of processes / slices); model > 1 raises
+    `model` is tensor parallelism over processes
+    (:mod:`h36x_torch.parallel.tensor`: the plain step, orbax checkpoints).
+    One process drives one device, so slices x data x model must equal the
+    number of processes (data -1: the number of processes / (slices x
+    model)); more devices than processes raise
     (:mod:`h36x_torch.parallel.mesh`)."""
 
     data: int = -1

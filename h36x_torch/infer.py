@@ -53,7 +53,7 @@ from h36x_torch.ops import regressor as _reg
 from h36x_torch.ops import temporal as _tmp
 from h36x_torch.ops.regressor import _reference_forward, fused_joint_regressor
 from h36x_torch.ops.temporal import fused_residual_block, reference_gn_relu_cconv
-from h36x_torch.parallel.distributed import process_info
+from h36x_torch.parallel.distributed import data_info
 
 
 def sorted_blocks(net_params: dict):
@@ -226,12 +226,13 @@ def make_fused_forward(params: dict, joints_num: int = 17, groups: int = 32,
 def dropout_mask(shape, keep: float, generator: torch.Generator, like: torch.Tensor):
     """Inverted-dropout mask (Bernoulli(keep) / keep) in `like`'s dtype,
     drawn in float32 from `generator`, which lives on the tensors' device.
-    In a data-parallel process group of several processes, each holding an
-    equal block of the global batch's rows, it draws the global batch's
-    mask (the leading dim batch-major: (B, ...) or (B * T, ...)) and keeps
-    this process's block: every process's generator seeded alike, the
-    masks are those of a one-process run of the global batch."""
-    rank, processes = process_info()
+    When the batch is split over the data axis of several processes, each
+    holding an equal block of the global batch's rows, it draws the global
+    batch's mask (the leading dim batch-major: (B, ...) or (B * T, ...))
+    and keeps this process's block (by data index: every rank of a model
+    group the same one): every process's generator seeded alike, the masks
+    are those of a one-process run of the global batch."""
+    rank, processes = data_info()
     rows = shape[0]
     u = torch.rand((rows * processes, *shape[1:]), generator=generator,
                    device=like.device, dtype=torch.float32)[rank * rows:(rank + 1) * rows]

@@ -128,6 +128,11 @@ class PHDFor3DJoints(nn.Module):
     `use_kernels` is False (:mod:`h36x_torch.infer` says what it casts).
     The parameters stay float32; the kernels compute in float32 whatever
     it is, as h36x's fused step does.
+
+    `tp` is None, or the model's tensor-parallel split
+    (:func:`h36x_torch.parallel.tensor.shard_model`): the params are then
+    this process's slices and every forward runs
+    :func:`h36x_torch.parallel.tensor.forward`, plain ops only.
     """
 
     def __init__(self, latent_dim: int = 1024, feature_dim: int = 2048,
@@ -144,6 +149,7 @@ class PHDFor3DJoints(nn.Module):
         self.groups = groups
         self.dropout = dropout
         self.regressor_iters = regressor_iters
+        self.tp = None
         self.input_proj = Dense(feature_dim, latent_dim)
         self.f_movie = CausalTemporalNet(latent_dim, number_blocks, kernel_size)
         self.f_AR = CausalTemporalNet(latent_dim, ar_blocks, kernel_size)
@@ -158,6 +164,13 @@ class PHDFor3DJoints(nn.Module):
     def forward(self, feats: torch.Tensor, predict_future: bool = False, *,
                 use_kernels: bool = True, train: bool = False,
                 dropout_generator: Optional[torch.Generator] = None):
+        if self.tp is not None:
+            if use_kernels and train:
+                raise ValueError("a tensor-parallel model trains on the plain ops "
+                                 "(h36x refuses --optim.fused with --mesh.model > 1)")
+            from h36x_torch.parallel import tensor
+            return tensor.forward(self, feats, predict_future, train=train,
+                                  dropout_generator=dropout_generator)
         if train and predict_future:
             if use_kernels:
                 raise ValueError(

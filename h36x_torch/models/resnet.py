@@ -19,6 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from h36x_torch.utils.runtime import resolve_device
+
 STAGE_SIZES = (3, 4, 6, 3)  # ResNet-50
 
 
@@ -54,11 +56,13 @@ class ResNet50(nn.Module):
 
     Weights are drawn on the CPU from `seed` with torchvision's init
     (Kaiming-normal convs, BatchNorm scale 1 and bias 0), without touching
-    the global random state, then moved to `device` and `dtype`."""
+    the global random state, then moved to `device` (cuda unless the caller
+    asks for another) and `dtype`."""
 
-    def __init__(self, dtype: torch.dtype = torch.float32, device="cpu",
+    def __init__(self, dtype: torch.dtype = torch.float32, device=None,
                  seed: int = 0, stage_sizes=STAGE_SIZES):
         super().__init__()
+        device = resolve_device(device)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)

@@ -1,17 +1,21 @@
 """ctypes loader for the port's native host library (counterpart of
 h36x/native/__init__.py): the threaded u8 crop + bilinear resize and the
-fused photometric jitter of the extraction decode workers, and the u8
-horizontal flip and brightness / contrast / saturation jitter.
+fused photometric jitter of the extraction decode workers, the u8
+horizontal flip and brightness / contrast / saturation jitter, and the zstd
+frame decoder of the orbax checkpoint reader (`zstd.cpp`,
+:mod:`h36x_torch.utils.zstd`).
 
-`h36xio.cpp` here is a copy of h36x's source. At first use it is compiled
+`h36xio.cpp` here is a copy of h36x's source; `zstd.cpp` is the port's own.
+At first use both are compiled into one library
 with g++ (the flags of h36x's Makefile) into `build/h36x_torch/` at the
 repository root, under a name keyed by a hash of the source and the flags,
 and moved into place by an atomic rename: a concurrent build never loads
 a half-written library and a changed source never loads a stale one.
 Nothing is built into h36x's tree. Where the build fails every entry point
-reports itself unavailable and the callers take their numpy/cv2 path; a
-store records which backend wrote it (`crop_backend`, `jitter_backend`),
-since the two differ by +-1 u8 on some pixels.
+reports itself unavailable and the extraction callers take their numpy/cv2
+path; a store records which backend wrote it (`crop_backend`,
+`jitter_backend`), since the two differ by +-1 u8 on some pixels. The zstd
+decoder has no other path: without the library it raises.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Optional
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "h36xio.cpp"
+SOURCES = (SOURCE, SOURCE.with_name("zstd.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "h36x_torch"
 # -ffp-contract=off: no fused multiply-adds, so every f32 expression rounds
 # as numpy's does (the jitter's parity with the numpy chain depends on it);
@@ -55,7 +60,8 @@ def _arch_flags() -> tuple:
 
 
 def _lib_path(flags) -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    key = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES)
+                         + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"libh36xio-{key}.so"
 
 
@@ -67,7 +73,8 @@ def _build() -> Optional[Path]:
     try:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-        subprocess.run([_compiler(), *flags, "-shared", "-o", str(tmp), str(SOURCE)],
+        subprocess.run([_compiler(), *flags, "-shared", "-o", str(tmp),
+                        *map(str, SOURCES)],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, out)
         return out
@@ -121,6 +128,13 @@ def _load_locked() -> Optional[ctypes.CDLL]:
             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ]
+        lib.h36x_zstd_decompress.restype = ctypes.c_int
+        lib.h36x_zstd_decompress.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p, ctypes.c_int,
+        ]
+        lib.h36x_zstd_free.restype = None
+        lib.h36x_zstd_free.argtypes = [ctypes.c_void_p]
     _lib = lib
     _tried = True  # after _lib: the unlocked fast path keys on _tried
     return _lib

@@ -106,6 +106,27 @@ def bf16_kernel(kernel: torch.Tensor) -> torch.Tensor:
     return kernel.detach().to(torch.bfloat16).contiguous()
 
 
+def reference_gn_relu(x, scale, bias, groups: int = 32, eps: float = 1e-5,
+                      valid_len=None, dtype: Optional[torch.dtype] = None):
+    """GN -> ReLU, the first half of :func:`reference_gn_relu_cconv` (its
+    statistics, `valid_len` and `dtype` rules)."""
+    if dtype is not None and dtype.itemsize < 4:
+        x = x.float()
+    b, t_len, d = x.shape
+    xg = x.reshape(b, t_len, groups, d // groups)
+    if valid_len is None:
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = ((xg - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    else:
+        mask = (torch.arange(t_len, device=x.device) < valid_len).to(x.dtype)
+        mask = mask[None, :, None, None]
+        cnt = valid_len * (d // groups)
+        mean = (xg * mask).sum(dim=(1, 3), keepdim=True) / cnt
+        var = (((xg - mean) ** 2) * mask).sum(dim=(1, 3), keepdim=True) / cnt
+    xn = ((xg - mean) / torch.sqrt(var + eps)).reshape(b, t_len, d)
+    return torch.relu(xn * scale + bias)
+
+
 def reference_gn_relu_cconv(x, scale, bias, kernel, conv_bias, residual=None,
                             groups: int = 32, eps: float = 1e-5,
                             valid_len=None, precise: bool = True,
@@ -126,21 +147,7 @@ def reference_gn_relu_cconv(x, scale, bias, kernel, conv_bias, residual=None,
     takes float32 statistics and gives a float32 output; the conv casts its
     input, kernel and bias to `dtype`; the residual is cast to the conv's
     dtype. None computes in the operands' own dtypes."""
-    if dtype is not None and dtype.itemsize < 4:
-        x = x.float()
-    b, t_len, d = x.shape
-    xg = x.reshape(b, t_len, groups, d // groups)
-    if valid_len is None:
-        mean = xg.mean(dim=(1, 3), keepdim=True)
-        var = ((xg - mean) ** 2).mean(dim=(1, 3), keepdim=True)
-    else:
-        mask = (torch.arange(t_len, device=x.device) < valid_len).to(x.dtype)
-        mask = mask[None, :, None, None]
-        cnt = valid_len * (d // groups)
-        mean = (xg * mask).sum(dim=(1, 3), keepdim=True) / cnt
-        var = (((xg - mean) ** 2) * mask).sum(dim=(1, 3), keepdim=True) / cnt
-    xn = ((xg - mean) / torch.sqrt(var + eps)).reshape(b, t_len, d)
-    xn = torch.relu(xn * scale + bias)
+    xn = reference_gn_relu(x, scale, bias, groups, eps, valid_len, dtype)
     if not precise:
         xn, kernel = bf16_pair(xn), _bf16_round(kernel)
     if dtype is not None:

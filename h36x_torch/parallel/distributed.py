@@ -1,13 +1,22 @@
-"""Multi-process data parallelism on torch.distributed (counterpart of
+"""Multi-process parallelism on torch.distributed (counterpart of
 h36x/parallel/distributed.py): one process per device, every process
 running the same CLI with its own `--dist.process-id`.
 
-Each process walks the same seeded sampler order and gathers only its
-:func:`local_batch_slice` rows of every global batch; the trainer averages
-the gradients (and the step's metrics) with one flat all-reduce per update
-(:func:`mean_across_processes`) and sums the eval's per-batch sums, so the
-updates and the logged means are those of the global batch. Rank 0 alone
-prints, writes metrics.jsonl and checkpoints.
+The processes form h36x's (slice, data, model) mesh
+(:func:`h36x_torch.parallel.mesh.make_mesh`): rank = (slice index x data +
+data index) x model + model index, the row-major order of h36x's
+`np.array(devices).reshape(data, model)`. :func:`init_groups` makes a
+process group for each `model` axis (the ranks that hold the shards of
+one set of params, :mod:`h36x_torch.parallel.tensor`) and each data axis
+(slice x data: the ranks that split the batch).
+
+Each data index walks the same seeded sampler order and gathers only its
+:func:`local_batch_slice` rows of every global batch (every rank of one
+model group the same rows); the trainer averages the gradients (and the
+step's metrics) over the data group with one flat all-reduce per update
+(:func:`mean_across_processes`) and sums the eval's per-batch sums there,
+so the updates and the logged means are those of the global batch. Rank 0
+alone prints, writes metrics.jsonl and checkpoints.
 
 Collectives: NCCL on CUDA, gloo on the CPU; `--dist.collectives gloo`
 forces gloo on CUDA too (gloo reduces CUDA tensors through the host). NCCL
@@ -63,12 +72,70 @@ def is_main_process() -> bool:
     return process_info()[0] == 0
 
 
+class _Groups:
+    """The mesh's axes as process groups (:func:`init_groups`)."""
+
+    def __init__(self, mesh, rank: int):
+        m = mesh.model
+        self.model_index, self.model_size = rank % m, m
+        self.data_index, self.data_size = rank // m, mesh.slices * mesh.data
+        # every rank makes every group, in one order (torch.distributed's rule)
+        self.model_group = self.data_group = None
+        if m > 1:
+            for first in range(0, self.data_size * m, m):
+                g = dist.new_group(list(range(first, first + m)))
+                if first == self.data_index * m:
+                    self.model_group = g
+            for mi in range(m):
+                g = dist.new_group(list(range(mi, self.data_size * m, m)))
+                if mi == self.model_index:
+                    self.data_group = g
+
+
+_groups: Optional[_Groups] = None
+
+
+def init_groups(mesh) -> None:
+    """Make the process groups of `mesh`'s model and data axes (every rank
+    calls it, after :func:`initialize`). Without a model axis the data group
+    is every process and no group is made."""
+    global _groups
+    rank, world = process_info()
+    if mesh.slices * mesh.data * mesh.model != world:
+        raise ValueError(f"mesh {mesh.slices}x{mesh.data}x{mesh.model} != {world} "
+                         "processes")
+    _groups = _Groups(mesh, rank) if mesh.model > 1 else None
+
+
+def model_info() -> Tuple[int, int]:
+    """(this process's index on the model axis, the model axis's size)."""
+    return (_groups.model_index, _groups.model_size) if _groups else (0, 1)
+
+
+def data_info() -> Tuple[int, int]:
+    """(this process's index on the batch axis (slice x data), its size):
+    the rank and the process count without a model axis."""
+    return (_groups.data_index, _groups.data_size) if _groups else process_info()
+
+
+def model_group():
+    """The process group of this process's model axis (None without one)."""
+    return _groups.model_group if _groups else None
+
+
+def data_group():
+    """The process group of this process's data axis (None: every process)."""
+    return _groups.data_group if _groups else None
+
+
 def local_batch_slice(global_batch: int, process_id: Optional[int] = None,
                       process_count: Optional[int] = None) -> slice:
-    """The half-open row range of the global batch this process owns."""
-    rank, world = process_info()
-    pid = rank if process_id is None else process_id
-    pcount = world if process_count is None else process_count
+    """The half-open row range of the global batch this process owns: its
+    block by data index (:func:`data_info`; every rank of a model group the
+    same rows)."""
+    index, count = data_info()
+    pid = index if process_id is None else process_id
+    pcount = count if process_count is None else process_count
     if global_batch % pcount != 0:
         raise ValueError(f"global batch {global_batch} not divisible by "
                          f"{pcount} processes")
@@ -155,19 +222,21 @@ def _check_one_rank_per_device(device: torch.device) -> None:
 
 def shutdown() -> None:
     """Leave the process group, when there is one."""
+    global _groups
+    _groups = None
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
 
 def mean_across_processes(tensors: List[torch.Tensor]) -> None:
-    """Replace each tensor, in place, by its mean over the processes, with
-    one all-reduce of a flat float32 buffer of them all (a no-op with one
-    process). The tensors lie on one device."""
-    _, world = process_info()
+    """Replace each tensor, in place, by its mean over the data axis's
+    processes, with one all-reduce of a flat float32 buffer of them all (a
+    no-op with one process there). The tensors lie on one device."""
+    _, world = data_info()
     if world <= 1 or not tensors:
         return
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=data_group())
     flat.div_(world)
     offset = 0
     for t in tensors:
@@ -177,7 +246,8 @@ def mean_across_processes(tensors: List[torch.Tensor]) -> None:
 
 
 def sum_across_processes(t: torch.Tensor) -> torch.Tensor:
-    """`t` summed over the processes, in place (a no-op with one process)."""
-    if process_info()[1] > 1:
-        dist.all_reduce(t)
+    """`t` summed over the data axis's processes, in place (a no-op with
+    one process there)."""
+    if data_info()[1] > 1:
+        dist.all_reduce(t, group=data_group())
     return t

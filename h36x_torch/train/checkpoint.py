@@ -1,13 +1,34 @@
 """Checkpoints (counterpart of h36x/train/checkpoint.py).
 
-Reads the params of h36x's msgpack checkpoints — a full TrainState blob
-(its `params` entry) or a bare params blob — without jax or the `msgpack`
-package. Writes the port's params blob, or a full training checkpoint
-{params, opt_state, step} (:func:`save_checkpoint`) in the tree that
-`flax.serialization.to_bytes` gives for h36x's TrainState, next to the
-same JSON manifest, and resumes either package's full checkpoint
-(:func:`load_checkpoint`): a `last` written by one package resumes in the
-other. Orbax checkpoint directories come with a later slice of the port.
+Both of h36x's backends, without jax, flax, msgpack, orbax or
+tensorstore:
+
+- **msgpack**: a full TrainState blob {params, opt_state, step} in the
+  tree `flax.serialization.to_bytes` gives for h36x's TrainState
+  (:func:`save_checkpoint`), or a bare params blob (:func:`save_params`),
+  next to the JSON manifest <name>.json;
+- **orbax** (`--ckpt-backend orbax`, :func:`save_checkpoint_orbax`): the
+  directory `orbax.checkpoint.StandardCheckpointer` writes for that
+  TrainState (OCDBT store, zarr arrays, its JSON files:
+  :mod:`h36x_torch.utils.zarr_lite`), in h36x's slot scheme
+  <name>.0 / <name>.1 with the manifest's "dir" naming the live one.
+
+:func:`load_checkpoint` resumes either package's full checkpoint of
+either backend (the manifest's "backend" decides, as h36x's does), and
+:func:`load_params_raw` / :func:`load_params_only` read the params of any
+of them, an `outdir/last`-style reference to a slotted orbax save
+included. In memory the optimizer state is always the msgpack tree
+(:func:`opt_state_tree`); an orbax tree differs only where optax's
+structure shows: the AdamW chain's `inner_state` is a sequence, empty
+optax nodes (`MaskedNode`, `EmptyState`) are None and
+`hyperparams_states` an empty dict.
+
+A tensor-parallel model (:mod:`h36x_torch.parallel.tensor`) saves its full
+arrays, gathered over its model group (every rank calls the save; rank 0
+writes one process's OCDBT layout), and loads them whole, keeping its
+slices. This departs from h36x, whose multi-process orbax saves write one
+b-tree per process; both layouts are valid orbax directories, and both
+packages read both.
 """
 
 from __future__ import annotations
@@ -15,6 +36,8 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import shutil
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -22,11 +45,10 @@ import numpy as np
 import torch
 
 from h36x_torch.models.phd import _nest, params_from_flax, params_to_flax
-from h36x_torch.utils import msgpack_lite
+from h36x_torch.parallel.distributed import is_main_process
+from h36x_torch.utils import msgpack_lite, ocdbt, zarr_lite
 
-_ORBAX_LATER = ("orbax checkpoint directories are not readable by h36x_torch "
-                "yet (ROADMAP A.4, a reader of h36x's orbax layout); save a "
-                ".msgpack checkpoint with h36x instead")
+MANIFEST = "manifest.json"  # h36x's name (h36x/train/checkpoint.py)
 
 
 def _orbax_dir(directory: Path, name: str) -> Optional[Path]:
@@ -83,13 +105,78 @@ def load_recorded_model_config(model_path) -> dict:
     return dict(model_cfg) if isinstance(model_cfg, dict) else {}
 
 
+def _from_orbax(node):
+    """An orbax tree (:func:`h36x_torch.utils.zarr_lite.read_tree`) in the
+    msgpack tree's form: sequences as {"0": ...}, None as {}."""
+    if node is None:
+        return {}
+    if isinstance(node, list):
+        return {str(i): _from_orbax(v) for i, v in enumerate(node)}
+    if isinstance(node, dict):
+        return {k: _from_orbax(v) for k, v in node.items()}
+    return node
+
+
+def _to_orbax(node, key: str = ""):
+    """The msgpack form of an optax state -> the tree orbax saves for it:
+    a map indexed "0".."n-1" (a tuple of transforms) a sequence, an empty
+    map None (optax's MaskedNode and EmptyState) except
+    `hyperparams_states`, an empty dict."""
+    if isinstance(node, dict):
+        if not node:
+            return {} if key == "hyperparams_states" else None
+        if sorted(node) == [str(i) for i in range(len(node))]:
+            return [_to_orbax(node[str(i)], str(i)) for i in range(len(node))]
+        return {k: _to_orbax(v, k) for k, v in node.items()}
+    return node
+
+
+def read_orbax(path) -> dict:
+    """The tree of the orbax directory `path`, in the msgpack tree's form
+    (:func:`_from_orbax`)."""
+    return _from_orbax(zarr_lite.read_tree(path))
+
+
+def inspect_orbax(path) -> dict:
+    """Read every array of the orbax directory `path`, checking every
+    manifest's and node's CRC-32C and every chunk's zstd frame: {"arrays":
+    the arrays read, "bytes": their bytes, "crc_checked": the manifests and
+    nodes whose CRC held}. A corrupt directory raises."""
+    store = ocdbt.Store(path)
+    tree = zarr_lite.read_tree(path, store)
+    arrays = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+        elif node is not None:
+            arrays.append(node)
+
+    walk(tree)
+    return {"arrays": len(arrays), "bytes": sum(a.nbytes for a in arrays),
+            "crc_checked": store.checked}
+
+
 def load_params_raw(path) -> dict:
-    """The params of a msgpack checkpoint as a flax tree of numpy arrays:
-    the `params` entry of a full TrainState blob, or a bare params blob."""
+    """The params of a checkpoint as a flax tree of numpy arrays: the
+    `params` entry of a full TrainState (msgpack blob or orbax directory,
+    `outdir/last` resolving to its live slot), or a bare params blob."""
     path = Path(path)
-    if path.is_dir() or (not path.exists()
-                         and _orbax_dir(path.parent, path.name) is not None):
-        raise NotImplementedError(f"{path}: {_ORBAX_LATER}")
+    if not path.exists():
+        resolved = _orbax_dir(path.parent, path.name)
+        if resolved is not None:
+            path = resolved
+    if path.is_dir():
+        raw = read_orbax(path)
+        if isinstance(raw, dict) and "params" in raw:
+            raw = raw["params"]
+        if not isinstance(raw, dict):
+            raise ValueError(f"{path}: not a params checkpoint")
+        return raw
     raw = msgpack_lite.unpackb(path.read_bytes())
     if isinstance(raw, dict) and "params" in raw and "opt_state" in raw:
         raw = raw["params"]
@@ -103,18 +190,18 @@ def load_params_only(path, state_dict: dict) -> dict:
     """Params of the checkpoint at `path` as a `state_dict` of CPU tensors,
     held against `state_dict` (the model's): every key must be there, no
     other, and every leaf must have the model's shape."""
-    return _match_params(path, params_from_flax(load_params_raw(path)), state_dict)
+    shapes = {k: tuple(v.shape) for k, v in state_dict.items()}
+    return _match_params(path, params_from_flax(load_params_raw(path)), shapes)
 
 
-def _match_params(path, got: dict, state_dict: dict) -> dict:
-    missing = sorted(set(state_dict) - set(got))
-    extra = sorted(set(got) - set(state_dict))
+def _match_params(path, got: dict, shapes: dict) -> dict:
+    missing = sorted(set(shapes) - set(got))
+    extra = sorted(set(got) - set(shapes))
     if missing or extra:
         raise ValueError(f"{path}: params do not match the model: missing "
                          f"{missing[:5]}, unexpected {extra[:5]}")
-    bad = [f"{k}: checkpoint {tuple(got[k].shape)} vs model "
-           f"{tuple(state_dict[k].shape)}"
-           for k in state_dict if tuple(got[k].shape) != tuple(state_dict[k].shape)]
+    bad = [f"{k}: checkpoint {tuple(got[k].shape)} vs model {shapes[k]}"
+           for k in shapes if tuple(got[k].shape) != shapes[k]]
     if bad:
         raise ValueError(f"{path}: param shapes do not match the model:\n  "
                          + "\n  ".join(bad))
@@ -160,6 +247,25 @@ def _f32(t) -> np.ndarray:
     return np.asarray(t.detach().cpu().numpy(), dtype=np.float32)
 
 
+def _full(model, name: str, t: torch.Tensor) -> torch.Tensor:
+    """Tensor `t` of param `name` at its full shape: gathered over the model
+    group of a tensor-parallel model (a collective), else `t`."""
+    return model.tp.gather(name, t) if model.tp is not None else t
+
+
+def _shapes(model) -> dict:
+    """The full shape of every param (a tensor-parallel model holds
+    slices)."""
+    tp = model.tp
+    return {n: tp.full_shape(n, p.shape) if tp is not None else tuple(p.shape)
+            for n, p in model.named_parameters()}
+
+
+def params_tree(model) -> dict:
+    """The model's params as a flax tree of full numpy arrays."""
+    return params_to_flax({n: _full(model, n, p) for n, p in model.state_dict().items()})
+
+
 def opt_state_tree(model, optimizer) -> dict:
     """The optimizer's state in the tree `flax.serialization.to_bytes` gives
     for h36x's optax state (h36x/train/state.py::make_optimizer):
@@ -168,13 +274,14 @@ def opt_state_tree(model, optimizer) -> dict:
     wrapped, when a module is frozen, in multi_transform's
     {inner_states: {trainable: {inner_state: ...}, frozen: {inner_state:
     {}}}}. A frozen leaf of mu/nu is an empty map (optax's MaskedNode);
-    counts are int32 and hyper-parameters float32 0-d arrays."""
+    counts are int32 and hyper-parameters float32 0-d arrays. A
+    tensor-parallel model's moments are gathered to full shape."""
     trainable = {id(p) for p in optimizer.param_groups[0]["params"]}
     named = dict(model.named_parameters())
-    mu = {n: _f32(optimizer.state[p]["mu"]) if id(p) in trainable else {}
-          for n, p in named.items()}
-    nu = {n: _f32(optimizer.state[p]["nu"]) if id(p) in trainable else {}
-          for n, p in named.items()}
+    mu = {n: _f32(_full(model, n, optimizer.state[p]["mu"])) if id(p) in trainable
+          else {} for n, p in named.items()}
+    nu = {n: _f32(_full(model, n, optimizer.state[p]["nu"])) if id(p) in trainable
+          else {} for n, p in named.items()}
     count = np.asarray(optimizer.count.cpu().numpy(), dtype=np.int32)
     hyper = {name: (_f32(optimizer.hyper[key]) if key else np.zeros((), np.float32))
              for name, key in OPTAX_HYPER}
@@ -196,7 +303,7 @@ def save_checkpoint(directory, name: str, model, optimizer, epoch: int,
     <name>.json: epoch, best_val, step, config, sha256, nbytes and the
     `extra` entries."""
     blob = msgpack_lite.packb({
-        "params": params_to_flax(model.state_dict()),
+        "params": params_tree(model),
         "opt_state": opt_state_tree(model, optimizer),
         "step": np.asarray(step, dtype=np.int32),
     })
@@ -242,33 +349,57 @@ def _leaf(tree: dict, name: str):
     return node
 
 
-def load_checkpoint(directory, name: str, model, optimizer) -> dict:
-    """Restore checkpoint <directory>/<name>.msgpack — written by the port
-    or by h36x — into `model` and `optimizer` (an
-    :class:`h36x_torch.train.state.AdamW` of the same phase), in place:
-    params, AdamW's mu, nu and count and its hyper-parameters (the learning
-    rate among them). Returns the manifest, its "step" the blob's. A layout
-    that does not fit the optimizer's phase (a module trainable here but
-    frozen there, or the other way) raises ValueError naming what is
-    missing, as h36x's `from_bytes` refuses it."""
-    directory = Path(directory)
-    path = directory / f"{name}.msgpack"
+def _read_state(directory: Path, name: str):
+    """(the raw TrainState tree in the msgpack form, its path) of checkpoint
+    `name`, by h36x's rules: the manifest's "backend" decides, and a
+    backend whose files are gone raises rather than falling back to a
+    stale file of the other."""
     manifest_path = directory / f"{name}.json"
+    msgpack = directory / f"{name}.msgpack"
     if manifest_path.exists():
         with open(manifest_path) as f:
             backend = json.load(f).get("backend", "msgpack")
         if backend == "orbax":
-            raise NotImplementedError(f"{directory}/{name}: {_ORBAX_LATER}")
-    if not path.exists():
-        if (directory / name).is_dir():
-            raise NotImplementedError(f"{directory}/{name}: {_ORBAX_LATER}")
-        raise FileNotFoundError(f"no checkpoint '{name}' under {directory} "
-                                f"(no {name}.msgpack)")
-    raw = msgpack_lite.unpackb(path.read_bytes())
+            slot = _orbax_dir(directory, name)
+            if slot is None:
+                raise FileNotFoundError(
+                    f"manifest {manifest_path} records backend=orbax but no orbax "
+                    f"checkpoint directory for '{name}' exists under {directory} "
+                    "(crashed save or partial sync?); refusing to fall back to a "
+                    "stale msgpack file")
+            return read_orbax(slot), slot
+        if not msgpack.exists():
+            raise FileNotFoundError(
+                f"manifest {manifest_path} records backend=msgpack but "
+                f"{name}.msgpack is missing under {directory} (deleted or partial "
+                "sync?); refusing to fall back to a stale orbax directory")
+    if msgpack.exists():
+        return msgpack_lite.unpackb(msgpack.read_bytes()), msgpack
+    if (directory / name).is_dir():
+        return read_orbax(directory / name), directory / name
+    raise FileNotFoundError(f"no checkpoint '{name}' under {directory} "
+                            f"(neither {name}.msgpack nor an orbax {name}/ directory)")
+
+
+def load_checkpoint(directory, name: str, model, optimizer) -> dict:
+    """Restore checkpoint `name` under `directory` — a msgpack blob or an
+    orbax directory, written by the port or by h36x (:func:`_read_state`)
+    — into `model` and `optimizer` (an :class:`h36x_torch.train.state.AdamW`
+    of the same phase), in place: params, AdamW's mu, nu and count and its
+    hyper-parameters (the learning rate among them). Returns the manifest,
+    its "step" the checkpoint's. A layout that does not fit the optimizer's
+    phase (a module trainable here but frozen there, or the other way)
+    raises ValueError naming what is missing, as h36x's `from_bytes`
+    refuses it. A tensor-parallel model reads the full arrays and keeps its
+    slices."""
+    directory = Path(directory)
+    raw, path = _read_state(directory, name)
     if not (isinstance(raw, dict) and {"params", "opt_state", "step"} <= set(raw)):
         raise ValueError(f"{path}: not a full training checkpoint (params, "
                          "opt_state, step); --init-from takes a params blob")
-    params = _match_params(path, params_from_flax(raw["params"]), model.state_dict())
+    tp = model.tp
+    shapes = _shapes(model)
+    params = _match_params(path, params_from_flax(raw["params"]), shapes)
     trainable = {id(p) for p in optimizer.param_groups[0]["params"]}
     named = dict(model.named_parameters())
     what = str(path)
@@ -292,18 +423,18 @@ def load_checkpoint(directory, name: str, model, optimizer) -> dict:
                     raise ValueError(f"{what}: opt_state holds {key} of {n}, which "
                                      "this optimizer freezes")
                 continue
-            if not isinstance(leaf, np.ndarray) or leaf.shape != tuple(p.shape):
+            if not isinstance(leaf, np.ndarray) or leaf.shape != shapes[n]:
                 raise ValueError(f"{what}: opt_state has no {key} of {n} "
-                                 f"(shape {tuple(p.shape)}; a checkpoint of "
+                                 f"(shape {shapes[n]}; a checkpoint of "
                                  "another phase's optimizer?)")
-            moments[(id(p), key)] = leaf
+            moments[(id(p), key)] = leaf if tp is None else tp.local(n, leaf)
     for k, key in OPTAX_HYPER:
         if k not in hyper:
             raise ValueError(f"{what}: opt_state has no hyperparams/{k}")
     with torch.no_grad():
         state = model.state_dict()
         for n, value in params.items():
-            state[n].copy_(value)
+            state[n].copy_(value if tp is None else tp.local(n, value))
         for p in optimizer.param_groups[0]["params"]:
             for key in ("mu", "nu"):
                 optimizer.state[p][key].copy_(torch.from_numpy(
@@ -316,3 +447,60 @@ def load_checkpoint(directory, name: str, model, optimizer) -> dict:
     manifest = _read_manifest(directory, name)
     manifest["step"] = int(raw["step"])
     return manifest
+
+
+_slot_counters: dict = {}  # (directory, name) -> saves issued this process
+
+
+def save_checkpoint_orbax(directory, name: str, model, optimizer, epoch: int,
+                          best_val: float, step: int, config: Optional[dict] = None,
+                          extra: Optional[dict] = None) -> Path:
+    """h36x's orbax backend: write <directory>/<name>.<slot>/, the
+    directory orbax's StandardCheckpointer writes for h36x's TrainState
+    {params, opt_state, step}, then the manifest <name>.json with
+    "backend": "orbax" and "dir": the slot.
+
+    Saves alternate between the slots <name>.0 and <name>.1 (h36x's
+    crash-atomic scheme): a per-(directory, name) counter of this process,
+    its first value taken from the live slot on disk so that the first
+    save never replaces it. The directory is written under a temporary name
+    and renamed into its slot; the manifest is swapped after it.
+
+    Every process calls it, as h36x's collective save; a tensor-parallel
+    model gathers its arrays over its model group here (module docstring),
+    and rank 0 alone writes."""
+    directory = Path(directory)
+    key = (str(directory.absolute()), name)
+    if key not in _slot_counters:
+        start = 0
+        live = _orbax_dir(directory, name)
+        if live is not None and live.name.rsplit(".", 1)[-1] in ("0", "1"):
+            start = 1 - int(live.name.rsplit(".", 1)[-1])
+        _slot_counters[key] = start
+    slot = _slot_counters[key] % 2
+    _slot_counters[key] += 1
+    slot_name = f"{name}.{slot}"
+    path = (directory / slot_name).absolute()
+    main = is_main_process()
+    if not main and model.tp is None:
+        return path  # nothing to gather: rank 0 holds every array
+    tree = {"params": params_tree(model),
+            "opt_state": _to_orbax(opt_state_tree(model, optimizer)),
+            "step": np.asarray(step, dtype=np.int32)}
+    if not main:
+        return path
+    directory.mkdir(parents=True, exist_ok=True)
+    tmp = directory / f"{slot_name}.orbax-checkpoint-tmp-{time.time_ns()}"
+    zarr_lite.write_tree(tmp, tree, device=str(next(model.parameters()).device))
+    if path.exists():
+        shutil.rmtree(path)
+    os.replace(tmp, path)
+    manifest = {"epoch": int(epoch), "best_val": float(best_val), "step": int(step),
+                "config": config or {}, "backend": "orbax", "dir": slot_name,
+                **(extra or {})}
+    mpath = directory / f"{name}.json"
+    tmp_m = f"{mpath}.tmp"
+    with open(tmp_m, "w") as f:
+        json.dump(manifest, f, indent=2)
+    os.replace(tmp_m, mpath)
+    return path

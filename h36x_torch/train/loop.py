@@ -1,6 +1,6 @@
 """Epoch-level training loop (counterpart of h36x/train/loop.py, phases 1,
-2 and 0), on one device or data-parallel over a process group, one device
-per process (:mod:`h36x_torch.parallel.distributed`).
+2 and 0), on one device or over the (slice, data, model) mesh of a process
+group, one device per process (:mod:`h36x_torch.parallel.distributed`).
 
 Per epoch: the sampler reshuffles (`set_epoch`), the cosine learning rate
 is set (and in phase 2 the curriculum horizon), the train pass runs
@@ -8,16 +8,24 @@ is set (and in phase 2 the curriculum horizon), the train pass runs
 steps), then the weighted eval pass; `best` is saved on a val-MPJPE
 improvement before `last`, a record goes to <outdir>/metrics.jsonl, and
 early stopping and `stop_after_epochs` end the run. `--resume` continues
-from a `last` checkpoint of either package; `--profile-dir` traces the
-first (resumed) epoch. What the port does not run yet raises
-(:func:`check_supported`).
+from a `last` checkpoint of either package and either backend
+(`--ckpt-backend msgpack | orbax`); `--profile-dir` traces the first
+(resumed) epoch. What the port does not run raises (:func:`check_supported`).
 
-Data-parallel: every process walks the same seeded sampler order and
+Data-parallel: every data index walks the same seeded sampler order and
 gathers only its rows of each global batch, a batch whose rows do not
-divide among the processes padded by repeating its last index (weight 0 in
-the eval); the steps average gradients and metrics over the processes, the
-eval's per-batch sums are summed over them, and rank 0 alone prints and
-writes metrics.jsonl and checkpoints.
+divide among them padded by repeating its last index (weight 0 in the
+eval); the steps average gradients and metrics over the data axis, the
+eval's per-batch sums are summed there, and rank 0 alone prints and writes
+metrics.jsonl and checkpoints.
+
+Tensor-parallel (`--mesh.model M > 1`, M processes per model group): each
+process keeps its slices of the split params
+(:func:`h36x_torch.parallel.tensor.shard_model`) and runs the plain step on
+them. As in h36x, the fused step and msgpack checkpoints are refused (a
+model axis spans processes); an orbax save gathers the full arrays to rank
+0, and `--resume` and `--init-from` read full arrays and keep each rank's
+slices.
 """
 
 from __future__ import annotations
@@ -36,12 +44,15 @@ from h36x_torch.config import TrainConfig
 from h36x_torch.models.phd import PHDFor3DJoints
 from h36x_torch.parallel.distributed import (
     check_local_devices,
+    data_info,
+    init_groups,
     local_batch_slice,
     process_info,
     sum_across_processes,
 )
 from h36x_torch.parallel.feed import feed_dtype, prefetch_to_device
-from h36x_torch.parallel.mesh import data_axis_size, make_mesh
+from h36x_torch.parallel.mesh import Mesh, data_axis_size, make_mesh
+from h36x_torch.parallel.tensor import shard_model
 from h36x_torch.train import checkpoint as ckpt
 from h36x_torch.train.state import cosine_lr, make_optimizer, set_learning_rate
 from h36x_torch.train.step import (
@@ -55,24 +66,20 @@ from h36x_torch.utils.profiling import maybe_trace, step_annotation
 from h36x_torch.utils.runtime import resolve_device
 from h36x_torch.utils.timers import PhaseTimers
 
-_LATER = "is not ported to h36x_torch yet (it comes with a later slice)"
-
 # --model.dtype -> the model's compute dtype (h36x's names: h36x/config.py)
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
                   "bf16": torch.bfloat16}
 
 
-def check_supported(cfg: TrainConfig) -> None:
-    """Raise for every setting this slice of the port does not run, rather
-    than run something else: the process layout is
+def check_supported(cfg: TrainConfig) -> Mesh:
+    """Raise for every setting the port does not run, rather than run
+    something else; return the mesh. The process layout is
     :func:`h36x_torch.parallel.mesh.make_mesh` over --dist.num-processes,
     one device each, and must split the batch evenly."""
     o, m = cfg.optim, cfg.model
     if o.phase not in (0, 1, 2):
         raise ValueError(f"unknown --optim.phase {o.phase} (0, 1 or 2)")
-    if cfg.ckpt_backend == "orbax":
-        raise NotImplementedError(f"--ckpt-backend orbax {_LATER}")
-    if cfg.ckpt_backend != "msgpack":
+    if cfg.ckpt_backend not in ("msgpack", "orbax"):
         raise ValueError(f"unknown ckpt_backend {cfg.ckpt_backend!r}")
     if m.dtype not in COMPUTE_DTYPES:
         raise ValueError(f"unknown --model.dtype {m.dtype!r} "
@@ -85,6 +92,16 @@ def check_supported(cfg: TrainConfig) -> None:
         raise ValueError(
             f"the batch axis splits {rows} ways (--mesh.data x --mesh.slices, one "
             f"per process) and must divide the batch size ({cfg.optim.batch_size})")
+    if mesh.model > 1 and cfg.ckpt_backend == "msgpack":
+        # h36x's refusal: rank 0 cannot device_get the other processes' shards
+        raise ValueError(
+            f"model axis {mesh.model} spans processes (local devices: 1); use "
+            "--ckpt-backend orbax, whose saves are collective")
+    if mesh.model > 1 and o.fused:
+        raise ValueError(
+            "--optim.fused does not support --mesh.model > 1; use the default "
+            "plain step for tensor parallelism")
+    return mesh
 
 
 def build_model(cfg: TrainConfig, device=None,
@@ -122,7 +139,7 @@ def _batches(dataset, sampler, device, feats_dtype, with_weights: bool = False,
     and rides a group of its own; the last group of an epoch may be
     shorter."""
 
-    rank, processes = process_info()
+    rank, processes = data_info()
 
     def gen():
         for idx_batch in sampler:
@@ -251,7 +268,7 @@ def evaluate(eval_step, dataset, sampler, device, feats_dtype):
     timers.stop("data")
     timers.start("drain")
     totals = {"loss": 0.0, "l3d": 0.0, "mpjpe": 0.0, "bone": 0.0, "n": 0.0}
-    if process_info()[1] > 1 and pending:
+    if data_info()[1] > 1 and pending:
         sums = sum_across_processes(
             torch.stack([torch.stack([m[k].float() for k in totals]) for m in pending]))
         pending = [dict(zip(totals, row)) for row in sums]
@@ -283,11 +300,12 @@ def _append_metrics(outdir, record: dict) -> None:
 def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
         device=None):
     """Full training run on one device (cuda unless the caller asks for
-    another), or one process's part of a data-parallel run over the
-    process group (--dist.num-processes of them, joined by
+    another), or one process's part of a run over the process group
+    (--dist.num-processes of them, joined by
     :func:`h36x_torch.parallel.distributed.setup_from_config`); returns
-    (model, best_val)."""
-    check_supported(cfg)
+    (model, best_val). Under tensor parallelism the model holds this
+    process's slices (`model.tp`)."""
+    mesh = check_supported(cfg)
     rank, processes = process_info()
     if processes != max(1, cfg.dist.num_processes):
         raise ValueError(f"--dist.num-processes {cfg.dist.num_processes} but the "
@@ -297,12 +315,17 @@ def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
     device = resolve_device(device)
     o = cfg.optim
     phase = o.phase
+    init_groups(mesh)
     model = build_model(cfg, device, torch.Generator().manual_seed(o.seed))
-    optimizer, _ = make_optimizer(model, o.lr, o.weight_decay, freeze_ar=o.freeze_ar,
-                                  phase=phase if phase != 1 else None)
     if cfg.init_from:
         model.load_state_dict(ckpt.load_params_only(cfg.init_from, model.state_dict()))
         _log(f"Initialized model weights from {cfg.init_from}")
+    if mesh.model > 1:
+        tp = shard_model(model, mesh)
+        _log(f"mesh: data={data_axis_size(mesh)}, model={mesh.model}; "
+             f"{len(tp.dims)} params split over the model axis")
+    optimizer, _ = make_optimizer(model, o.lr, o.weight_decay, freeze_ar=o.freeze_ar,
+                                  phase=phase if phase != 1 else None)
     if phase == 2:
         if o.fused:
             # no fused phase-2 step exists; training the plain path while the
@@ -326,6 +349,11 @@ def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
             scan_steps=o.steps_per_dispatch, accum_steps=o.grad_accum)
         eval_step = make_weighted_eval_step(model, use_kernels=o.fused)
     feats_dtype = feed_dtype(cfg.data.feed_dtype)
+    save = (ckpt.save_checkpoint_orbax if cfg.ckpt_backend == "orbax"
+            else ckpt.save_checkpoint)
+    # msgpack: rank 0 writes one file. orbax: every process calls the save,
+    # as h36x's collective one (a tensor-parallel model gathers there)
+    write_ckpt = cfg.ckpt_backend == "orbax" or main
 
     start_epoch = 0
     best_val = float("inf")
@@ -361,11 +389,14 @@ def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
             _log(f"\nEpoch {epoch+1}/{o.epochs} (lr {lr:.2e})", flush=True)
         t0 = time.perf_counter()
         gen.manual_seed(o.seed * 1_000_003 + epoch)
+        tp_before = dict(model.tp.stats) if model.tp is not None else {}
         with maybe_trace(cfg.profile_dir if epoch == start_epoch else None, device):
             tr = train_epoch(train_step, train_set, train_sampler, device,
                              feats_dtype, gen, log_every=o.log_every,
                              horizon=horizon)
         steps += tr["_graph_replays"] * train_step.scan_steps + tr["_eager_steps"]
+        # the bytes the model group's collectives moved in the train pass
+        tp_train = {f"tp_train_{k}": model.tp.stats[k] - v for k, v in tp_before.items()}
         va = evaluate(eval_step, val_set, val_sampler, device, feats_dtype)
 
         _log(f"Train: loss={tr['loss']:.6f}"
@@ -378,19 +409,20 @@ def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
         # `best` commits before `last`, so a crash between the two saves
         # never pairs a new best_val with stale best params
         improved = (best_val - va["mpjpe"]) > o.early_stop_min_delta
-        # (rank 0 writes; every rank holds the same params)
+        t_save = time.perf_counter()
         if improved:
             best_val = va["mpjpe"]
             no_improve = 0
-            if main:
-                ckpt.save_checkpoint(cfg.outdir, "best", model, optimizer, epoch,
-                                     best_val, steps, cfg_json)
+            if write_ckpt:
+                save(cfg.outdir, "best", model, optimizer, epoch, best_val, steps,
+                     cfg_json)
         else:
             no_improve += 1
+        if write_ckpt:
+            save(cfg.outdir, "last", model, optimizer, epoch, best_val, steps, cfg_json,
+                 extra={"no_improve": no_improve})
+        t_save = time.perf_counter() - t_save
         if main:
-            ckpt.save_checkpoint(cfg.outdir, "last", model, optimizer, epoch,
-                                 best_val, steps, cfg_json,
-                                 extra={"no_improve": no_improve})
             _append_metrics(cfg.outdir, {
                 "epoch": epoch,
                 "lr": lr,
@@ -408,6 +440,8 @@ def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
                 "val_drain_s": va["_timing"].get("drain"),
                 "graph_replays": tr["_graph_replays"],
                 "eager_steps": tr["_eager_steps"],
+                "ckpt_save_s": t_save,
+                **tp_train,
             })
 
         if improved:

@@ -352,7 +352,11 @@ def make_forward(model, use_kernels: bool = True) -> Callable:
     """forward(feats) -> joints_pred (B,T,J,3), eval mode, f_AR skipped, at
     precise=True: the trainer's eval and the results stage keep float32.
     A model with a compute dtype runs the plain engine in it (h36x's eval is
-    `model.apply` at the model's dtype), whatever `use_kernels` says."""
+    `model.apply` at the model's dtype), whatever `use_kernels` says; a
+    tensor-parallel one its slices' plain forward."""
+    if model.tp is not None:
+        from h36x_torch.parallel import tensor
+        return lambda feats: tensor.joints(model, feats.float())
     use_kernels = use_kernels and model.dtype is None
 
     def forward(feats):

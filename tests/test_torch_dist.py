@@ -176,10 +176,18 @@ def test_mesh_layout_checks():
 
 @pytest.mark.parametrize("field, value", [("mesh.model", 2), ("dist.local_devices", 2)])
 def test_tensor_parallel_and_local_devices_raise(field, value):
+    """Two local devices per process raise. A model axis of 2 over 2
+    processes, refused until tensor parallelism was ported, now makes a
+    1 x 1 x 2 mesh (with orbax checkpoints; tests/test_torch_tp.py runs it)."""
     cfg = TrainConfig()
     cfg.dist.num_processes = 2
     head, _, leaf = field.rpartition(".")
     setattr(getattr(cfg, head), leaf, value)
+    if field == "mesh.model":
+        cfg.ckpt_backend = "orbax"
+        assert check_supported(cfg).shape == {"slice": 1, "data": 1, "model": 2}
+        assert make_mesh(cfg.mesh.data, cfg.mesh.model, n_processes=2).model == 2
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         check_supported(cfg)
     with pytest.raises(NotImplementedError, match="later slice"):

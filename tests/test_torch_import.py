@@ -15,7 +15,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "ml_dtypes", "h36x")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "ml_dtypes", "h36x",
+             "zstandard", "tensorstore")
 LAZY = ("cv2", "h5py", "spacepy", "matplotlib")  # imported inside functions only
 PORT_FILES = sorted((ROOT / "h36x_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -53,7 +54,9 @@ def test_importing_the_port_loads_no_jax_flax_msgpack_or_h36x():
               "h36x_torch.parallel.distributed", "h36x_torch.parallel.mesh",
               "h36x_torch.models.torch_import", "h36x_torch.cli.convert",
               "h36x_torch.cli.parity", "h36x_torch.cli.doctor", "h36x_torch.cli.show_batch",
-              "h36x_torch.viz", "h36x_torch.viz.anim"):
+              "h36x_torch.viz", "h36x_torch.viz.anim", "h36x_torch.utils.zstd",
+              "h36x_torch.utils.ocdbt", "h36x_torch.utils.zarr_lite",
+              "h36x_torch.parallel.tensor"):
         assert m in loaded, m
 
 
@@ -64,22 +67,30 @@ NEW_MODULES = ("h36x_torch.data.ingest", "h36x_torch.data.masks", "h36x_torch.cl
                "h36x_torch.cli.train", "h36x_torch.models.torch_import",
                "h36x_torch.cli.convert", "h36x_torch.cli.parity", "h36x_torch.cli.doctor",
                "h36x_torch.cli.show_batch", "h36x_torch.viz", "h36x_torch.viz.anim",
-               "h36x_torch.data.clips", "h36x_torch.data.augment")
+               "h36x_torch.data.clips", "h36x_torch.data.augment",
+               "h36x_torch.utils.zstd", "h36x_torch.utils.ocdbt",
+               "h36x_torch.utils.zarr_lite", "h36x_torch.parallel.tensor",
+               "h36x_torch.train.checkpoint")
+MISSING_THERE = LAZY + ("ml_dtypes", "zstandard", "tensorstore", "orbax")
 
 
 def test_new_modules_import_where_cv2_h5py_spacepy_and_ml_dtypes_are_missing():
     """Each of the later slices' modules imports with cv2, h5py, spacepy,
-    matplotlib and ml_dtypes made unimportable (as on the machine with the
-    card), and
-    ingest's pose reader still reads an npz there."""
+    matplotlib, ml_dtypes, zstandard, tensorstore and orbax made
+    unimportable (as on the machine with the card), ingest's pose reader
+    still reads an npz there, and the orbax reader the golden directory."""
     code = (
         "import sys, importlib, tempfile, os, numpy as np\n"
-        f"for m in {LAZY + ('ml_dtypes',)!r}: sys.modules[m] = None\n"
+        f"for m in {MISSING_THERE!r}: sys.modules[m] = None\n"
         f"for m in {NEW_MODULES!r}: importlib.import_module(m)\n"
         "from h36x_torch.data.ingest import read_poses\n"
         "d = tempfile.mkdtemp(); p = os.path.join(d, 'x.npz')\n"
         "np.savez(p, Pose=np.zeros((1, 3, 64), np.float32))\n"
         "assert read_poses(p[:-4] + '.cdf').shape == (3, 17, 2)\n"
+        "from h36x_torch.train.checkpoint import load_params_raw\n"
+        "k = load_params_raw('tests/golden/orbax_v1/last')['input_proj']['kernel']\n"
+        "assert np.array_equal(k, np.load('tests/golden/orbax_v1.npz')"
+        "['params/input_proj/kernel'])\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
                          capture_output=True, timeout=120)

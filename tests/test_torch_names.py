@@ -215,11 +215,6 @@ def test_preprocessed_clips_match_h36x(clip_tree, augment):
 
 # -- the subpackages' re-exports -------------------------------------------------
 
-# h36x names with no counterpart yet: the sharding rules place jax.Arrays on a
-# device mesh (ROADMAP A.3, tensor parallelism)
-NOT_YET = {"parallel": {"batch_sharding", "param_sharding_rules", "shard_params"}}
-
-
 @pytest.mark.parametrize("sub", ["geometry", "data", "extract", "models", "ops",
                                  "parallel", "train", "utils", "viz"])
 def test_subpackage_reexports_resolve(sub):
@@ -231,9 +226,9 @@ def test_subpackage_reexports_resolve(sub):
              if isinstance(node, ast.ImportFrom) for a in node.names}
     assert names
     port = importlib.import_module(f"h36x_torch.{sub}")
-    missing = sorted(n for n in names - NOT_YET.get(sub, set()) if not hasattr(port, n))
+    missing = sorted(n for n in names if not hasattr(port, n))
     assert not missing, f"h36x_torch.{sub} lacks {missing}"
-    for n in names - NOT_YET.get(sub, set()):
+    for n in names:
         obj = getattr(port, n)
         assert getattr(obj, "__module__", None) in (None, "builtins") or \
             obj.__module__.startswith("h36x_torch"), n

@@ -69,7 +69,7 @@ def backbone():
     variables = _randomize_stats(
         jax.jit(lambda k: init_resnet_params(model, k, input_hw=32))(jax.random.key(0)),
         rng)
-    port = ResNet50()
+    port = ResNet50(device="cpu")
     port.load_state_dict(params_from_flax(variables))
     return model, variables, port
 
@@ -126,7 +126,7 @@ def test_module_matches_flax_apply(backbone):
 
 def test_torchvision_state_dict_loads_like_h36x_converts_it():
     sd = torchvision_state_dict()
-    port = load_torchvision(ResNet50(seed=5), sd)
+    port = load_torchvision(ResNet50(seed=5, device="cpu"), sd)
     model = FlaxResNet50()
     variables = convert_torch_resnet50(sd)
     x = np.random.default_rng(2).normal(size=(2, 32, 32, 3)).astype(np.float32)
@@ -135,7 +135,7 @@ def test_torchvision_state_dict_loads_like_h36x_converts_it():
         got = port(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
     with pytest.raises(KeyError, match="not a ResNet-50"):
-        load_torchvision(ResNet50(), {k: v for k, v in sd.items() if "layer4.2" not in k})
+        load_torchvision(ResNet50(device="cpu"), {k: v for k, v in sd.items() if "layer4.2" not in k})
 
 
 def test_folds_match_h36x(backbone):
@@ -240,7 +240,7 @@ def test_bf16_opt_engine_folds_float32_like_h36x(backbone):
     params: the folds agree bit for bit, and the two bfloat16 `opt` engines
     agree by relative norm."""
     model, variables, _ = backbone
-    port = ResNet50(dtype=torch.bfloat16)
+    port = ResNet50(dtype=torch.bfloat16, device="cpu")
     port.load_state_dict(params_from_flax(variables))
     assert next(port.parameters()).dtype == torch.bfloat16
     want_f, _ = jax_pb.fold_resnet50(variables)
@@ -254,3 +254,15 @@ def test_bf16_opt_engine_folds_float32_like_h36x(backbone):
     got = make_feature_fn(port, engine="opt")(torch.from_numpy(frames)).numpy()
     rel = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert rel <= BF16_BACKBONE_REL_NORM, rel
+
+
+def test_resnet50_without_a_device_asks_for_cuda():
+    """ResNet50() resolves its device as the port's other entry points do:
+    cuda unless the caller names another, and on a host without CUDA that
+    raises, naming the CPU option, before any weight is drawn."""
+    if torch.cuda.is_available():
+        assert next(ResNet50(stage_sizes=(1,)).parameters()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ResNet50()
+    assert next(ResNet50(stage_sizes=(1,), device="cpu").parameters()).device.type == "cpu"

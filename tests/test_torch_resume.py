@@ -115,10 +115,24 @@ def test_checkpoint_of_another_phase_raises(tmp_path, written, read, match):
 
 
 def test_orbax_checkpoint_raises(tmp_path):
-    (tmp_path / "last.json").write_text(json.dumps({"backend": "orbax", "dir": "last.0"}))
+    """Refused before the port read orbax; now the port's orbax `last`
+    round-trips exactly as its msgpack one does, and a manifest naming an
+    orbax slot that is gone raises rather than read a stale file."""
+    (tmp_path / "gone").mkdir()
+    (tmp_path / "gone" / "last.json").write_text(json.dumps({"backend": "orbax",
+                                                             "dir": "last.0"}))
     model, opt = _stepped(1)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        checkpoint.load_checkpoint(tmp_path, "last", model, opt)
+    with pytest.raises(FileNotFoundError, match="no orbax checkpoint directory"):
+        checkpoint.load_checkpoint(tmp_path / "gone", "last", model, opt)
+    checkpoint.save_checkpoint_orbax(tmp_path, "last", model, opt, epoch=2, best_val=1.5,
+                                     step=9, extra={"no_improve": 1})
+    other, oopt = _stepped(1, seed=7)
+    manifest = checkpoint.load_checkpoint(tmp_path, "last", other, oopt)
+    assert (manifest["epoch"], manifest["step"], manifest["no_improve"]) == (2, 9, 1)
+    for a, b in zip(optimizer_tensors(opt), optimizer_tensors(oopt)):
+        assert torch.equal(a, b)
+    for (name, a), b in zip(model.state_dict().items(), other.state_dict().values()):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("phase_flags", [[], PHASE2_FLAGS], ids=["phase1", "phase2"])

@@ -90,10 +90,19 @@ def test_load_params_only_refuses_shape_mismatch(flax_state, tmp_path):
         ckpt.load_params_only(tmp_path / "last.msgpack", wider.state_dict())
 
 
-def test_orbax_directory_raises(tmp_path):
-    (tmp_path / "last").mkdir()
-    with pytest.raises(NotImplementedError, match="orbax"):
-        ckpt.load_params_raw(tmp_path / "last")
+def test_orbax_directory_raises(flax_state, tmp_path):
+    """Refused before the port read orbax; now h36x's orbax save, named by
+    its `outdir/last` reference or its slot, loads bit for bit as the
+    msgpack one does (every CLI that serves a checkpoint reads it here)."""
+    jax_ckpt.save_checkpoint_orbax(tmp_path, "last", flax_state, epoch=1, best_val=0.5,
+                                   config={"model": {"latent_dim": 64}})
+    for ref in (tmp_path / "last", tmp_path / "last.0"):
+        assert ckpt.checkpoint_ref_exists(ref)
+        _assert_tree_bits_equal(ckpt.load_params_raw(ref),
+                                jax.device_get(flax_state.params))
+    model = PHDFor3DJoints(**ARCH, device="cpu")
+    model.load_state_dict(ckpt.load_params_only(tmp_path / "last", model.state_dict()))
+    assert ckpt.load_recorded_model_config(tmp_path / "last") == {"latent_dim": 64}
 
 
 @pytest.mark.parametrize("value", [

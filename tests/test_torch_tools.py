@@ -159,13 +159,24 @@ def test_convert_checkpoints_byte_for_byte_and_read_across(tmp_path, rng):
 
 
 def test_to_torch_ckpt_refuses_an_orbax_directory(tmp_path):
+    """Refused before the port read orbax; now `--to-torch-ckpt` of an orbax
+    save (its `outdir/last` reference) gives the bytes it gives for a
+    msgpack save of the same params."""
     from h36x_torch.cli import convert
+    from h36x_torch.models.phd import PHDFor3DJoints
+    from h36x_torch.train import checkpoint
+    from h36x_torch.train.state import make_optimizer
 
-    (tmp_path / "last.0").mkdir()
-    (tmp_path / "last.json").write_text(json.dumps({"dir": "last.0"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        convert.main(["--to-torch-ckpt", str(tmp_path / "last"), "--out",
-                      str(tmp_path / "x.pt")])
+    model = PHDFor3DJoints(**SMALL, device="cpu")
+    opt, _ = make_optimizer(model, 1e-3)
+    checkpoint.save_checkpoint_orbax(tmp_path / "o", "last", model, opt, 0, 1.0, 0)
+    checkpoint.save_checkpoint(tmp_path / "m", "last", model, opt, 0, 1.0, 0)
+    outs = []
+    for ref in (tmp_path / "o" / "last", tmp_path / "m" / "last.msgpack"):
+        out = ref.parent / "sd" / "best.pt"  # one file name: zip records carry it
+        convert.main(["--to-torch-ckpt", str(ref), "--out", str(out)])
+        outs.append(_bytes(out))
+    assert outs[0] == outs[1]
     with pytest.raises(SystemExit, match="provide"):
         convert.main(["--out", str(tmp_path)])
 
@@ -383,11 +394,18 @@ def test_doctor_store_ckpt_and_bad_paths_match_h36x(tmp_path, capsys):
         assert code is not None and "problems" in code and jax_code is not None, argv
         assert "[FAIL]" in out
 
+    # an orbax run: both doctors pass it, the port's after reading every array
+    from h36x_torch.models.phd import PHDFor3DJoints
+    from h36x_torch.train import checkpoint
+    from h36x_torch.train.state import make_optimizer
+
     orbax = tmp_path / "orbax_run"
-    orbax.mkdir()
-    (orbax / "last.json").write_text(json.dumps({"dir": "last.0", "epoch": 1}))
-    code, out, _ = _doctor_both(["--ckpt", str(orbax)], capsys)
-    assert code is not None and "not readable by the port (ROADMAP A.4)" in out
+    model = PHDFor3DJoints(**SMALL, device="cpu")
+    checkpoint.save_checkpoint_orbax(orbax, "last", model, make_optimizer(model, 1e-3)[0],
+                                     1, 0.5, 3)
+    code, out, jax_code = _doctor_both(["--ckpt", str(orbax)], capsys)
+    assert code is None and jax_code is None
+    assert "last: epoch 1, step 3" in out and "orbax last.0" in out
 
 
 def test_doctor_checks_an_artifact(tmp_path, capsys):

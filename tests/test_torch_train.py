@@ -361,12 +361,19 @@ def test_checkpoint_params_read_by_h36x(flax_small, tmp_path):
     ("mesh.model", 2), ("dist.local_devices", 2),
 ])
 def test_trainer_refuses_what_this_slice_does_not_run(field, value):
-    """Orbax, tensor parallelism, and more devices than processes (mesh.data
-    2 on one process; two local devices) come with later slices;
-    --dist.num-processes > 1 runs (tests/test_torch_dist.py)."""
+    """More devices than processes (mesh.data 2 on one process; two local
+    devices) raise. Orbax checkpoints and tensor parallelism, refused until
+    they were ported, now pass the check (a model axis of 2 on 2 processes,
+    orbax: tests/test_torch_tp.py runs it)."""
     cfg = TrainConfig()
     head, _, leaf = field.rpartition(".")
     setattr(getattr(cfg, head) if head else cfg, leaf, value)
+    if field in ("ckpt_backend", "mesh.model"):
+        cfg.ckpt_backend = "orbax"
+        cfg.dist.num_processes = value if field == "mesh.model" else 1
+        mesh = check_supported(cfg)
+        assert mesh.model == (value if field == "mesh.model" else 1)
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         check_supported(cfg)
 
