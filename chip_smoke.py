@@ -140,7 +140,20 @@ prediction paths, the tools and the matmul probe once on one NVIDIA GPU
    make_fused_forward(precise=True) (4 B1 + 1 B3, E2E_TOL against the
    plain engine) and converted by cli.convert --to-torch-ckpt (the bytes of
    a msgpack save's); the golden orbax directory h36x wrote
-   (tests/golden/orbax_v1) read bit for bit against its npz.
+   (tests/golden/orbax_v1) read bit for bit against its npz. Then the
+   single-process device mesh (drive_local_mesh_path) on the same store:
+   devices [cuda:0, cuda:0] (one card named twice: virtual devices, not a
+   speed of several cards) through make_mesh(..., devices=...);
+   fit(mesh=data 2) fused, bit for bit the C.1 control (every step's loss,
+   the train rows, `last`; the eval rows at CONTROL_TOL, the replicas'
+   B1/B3 launches covering 16 rows to the control's 32), within
+   DIST_ROW_TOL of one process, B1-B4 launched twice the one-process run's,
+   step ms beside the control's run in this process; fit(mesh=data 1 x model 2) on the plain
+   step against the one-process plain run (first step LOSS_TOL, rows
+   DIST_ROW_TOL), its msgpack `last` reloaded and served (4 B1 + 1 B3);
+   evaluate_test(mesh=data 2) on 63 clips against mesh=None (rtol 1e-6);
+   make_feature_fn(mesh=data 2) on 481 frames, both engines, against the
+   single device (the padded tail); step ms per replica pair, seconds.
 6. The extraction path: h36x_torch.extract.pipeline.run_extract (what
    h36x_torch.cli.extract calls) over an in-memory video source made from a
    seed (SyntheticVideos: the machine has no OpenCV to decode mp4), at the
@@ -2393,9 +2406,10 @@ def check_backbone(dev, n):
     gd = torch.Generator(device=dev).manual_seed(6)
     frames = torch.randint(0, 256, (n, 224, 224, 3), generator=gd, device=dev,
                            dtype=torch.uint8)
-    ref = make_feature_fn(ResNet50(dtype=torch.float32, device=dev), "flax")(frames)
+    ref = make_feature_fn(ResNet50(dtype=torch.float32, device=dev), engine="flax")(frames)
     model = ResNet50(dtype=torch.bfloat16, device=dev)
-    engines = {"opt": make_feature_fn(model, "opt"), "flax": make_feature_fn(model, "flax")}
+    engines = {"opt": make_feature_fn(model, engine="opt"),
+               "flax": make_feature_fn(model, engine="flax")}
     before = fused_bottleneck.launches
     before_hopper = fused_bottleneck.launches_by_route["hopper"]
     got = {name: fn(frames) for name, fn in engines.items()}
@@ -3038,6 +3052,12 @@ def train_worker(report, argv, split: int = 1) -> int:
     return 0
 
 
+# what later phases hold their runs to: the C.1 control (check_split_control)
+# and the one-process plain run (drive_orbax_tp_path), each its report and
+# outdir
+REFERENCE: dict = {}
+
+
 def run_ranks(argvs, logs_dir, timeout=600) -> list:
     """Start one process per argv, wait for all (each under `timeout`),
     kill any left; returns their (returncode, output tail)."""
@@ -3098,6 +3118,7 @@ def check_split_control(ranks, rank0, rows, dist_dir, single, want, smi):
     _, (control,), seconds, control_dirs = ranks("dist_control", 1,
                                                  worker="--control-worker")
     control_rows = read_rows(control_dirs[0])
+    REFERENCE["control"] = dict(control, dir=control_dirs[0])
     vs_dist = [abs(a - b) / abs(b) for a, b in zip(control["losses"], rank0["losses"])]
     vs_single = [abs(a - b) / abs(b) for a, b in zip(control["losses"], single["losses"])]
     record = {
@@ -3436,6 +3457,7 @@ def drive_orbax_tp_path(dev, g, tmp, base_rows, smi):
     ranks = functools.partial(train_ranks, tmp)
     _, (single,), s_single, single_dirs = ranks("tp_single", 1, *plain)
     single_rows = read_rows(single_dirs[0])
+    REFERENCE["plain"] = dict(single, dir=single_dirs[0])
     _, reports, s_tp, tp_dirs = ranks("tp", 2, *plain, "--mesh.model", "2")
     tp_rows = read_rows(tp_dirs[0])
     step_rel = [[abs(a - b) / abs(b) for a, b in zip(r["losses"], single["losses"])]
@@ -3538,6 +3560,278 @@ def drive_orbax_tp_path(dev, g, tmp, base_rows, smi):
     log({"phase": "golden_orbax", "arrays": len(want_npz.files), "bit_for_bit": not bad})
     if bad:
         raise AssertionError(f"golden orbax arrays differ: {bad[:5]}")
+    return paths
+
+
+class recorded_steps:
+    """Within it, every train step's loss is recorded, with its ms by the
+    host clock between synchronisations and by CUDA events (`steps`)."""
+
+    def __enter__(self):
+        from h36x_torch.train.step import TrainStep
+
+        self.call, self.steps = TrainStep.__call__, []
+        call, steps = self.call, self.steps
+
+        def timed(step, *args, **kwargs):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = call(step, *args, **kwargs)
+            end.record()
+            torch.cuda.synchronize()
+            steps.append({"loss": out["loss"].tolist(), "ms": (time.perf_counter() - t0) * 1e3,
+                          "device_ms": start.elapsed_time(end)})
+            return out
+
+        TrainStep.__call__ = timed
+        return self
+
+    def __exit__(self, *exc):
+        from h36x_torch.train.step import TrainStep
+
+        TrainStep.__call__ = self.call
+        return False
+
+
+LOCAL_FRAMES = 481  # make_feature_fn over data 2: one frame padded
+
+
+def drive_local_mesh_path(dev, g, tmp, base_rows, smi):
+    """The single-process device mesh at the flagship width on
+    drive_train_path's store and flags: a mesh over devices [cuda:0,
+    cuda:0], built through h36x's API (make_mesh(..., devices=...)), one
+    card named twice: the replicas queue their kernels on it in turn, so no
+    number here is a speed of several cards.
+
+    1. fit(mesh=data 2), fused, dropout 0, 2 epochs: every step's loss,
+       the train rows and `last` equal the C.1 control's (each update from
+       the gradients of rows 0-15 and 16-31, summed in float32 and halved)
+       bit for bit, the eval rows within CONTROL_TOL (a replica's B1/B3
+       launch covers 16 rows, the control's 32, and the kernels round a row
+       alike only at one batch); rows within DIST_ROW_TOL of the
+       one-process run; B1-B4 launched twice the one-process run's (each
+       replica's steps and eval forwards on 16 rows). The control runs
+       again in this process for step times taken beside the mesh run's.
+    2. fit(mesh=data 1 x model 2), the plain step, msgpack: every step's
+       loss against the one-process plain run (the first at LOSS_TOL, the
+       rest at DIST_ROW_TOL) and the rows at DIST_ROW_TOL; its `last.msgpack`
+       reloaded equals the model, and serving it through
+       make_fused_forward(precise=True) launches 4 B1 + 1 B3, within
+       E2E_TOL of the plain engine.
+    3. evaluate_test(mesh=data 2) on 63 val clips (a tail of 31 rows, one
+       padded): rtol 1e-6 against mesh=None.
+    4. make_feature_fn(mesh=data 2) on LOCAL_FRAMES host frames at 224 px:
+       `flax` on a float32 module against its single device (relative norm
+       1e-5), `opt` (bf16, B5) against its single device, bit for bit where
+       it is, else at BACKBONE_REL_NORM (the record says which); 26 B5
+       launches (13 a replica).
+    Step ms per replica pair (host clock and CUDA events), seconds per
+    check. The control and the one-process plain run come from the earlier
+    phases (REFERENCE), or are run here when this phase runs alone.
+    Returns {path: launch counts}."""
+    from h36x_torch.cli.train import datasets
+    from h36x_torch.config import TrainConfig, parse_into
+    from h36x_torch.data.features import FeatureClipDataset
+    from h36x_torch.extract.pipeline import make_feature_fn
+    from h36x_torch.infer import make_fused_forward
+    from h36x_torch.models.phd import param_tree
+    from h36x_torch.models.resnet import ResNet50
+    from h36x_torch.parallel.mesh import make_mesh
+    from h36x_torch.train import checkpoint as ckpt
+    from h36x_torch.train.loop import build_model, fit
+    from h36x_torch.train.results import evaluate_test
+
+    store = os.path.join(tmp, "store")
+    ranks = functools.partial(train_ranks, tmp)
+    if "control" not in REFERENCE:
+        _, (control,), _, dirs = ranks("dist_control", 1, worker="--control-worker")
+        REFERENCE["control"] = dict(control, dir=dirs[0])
+    if "plain" not in REFERENCE:
+        _, (plain,), _, dirs = ranks("tp_single", 1, "--optim.fused", "false",
+                                     "--ckpt-backend", "orbax")
+        REFERENCE["plain"] = dict(plain, dir=dirs[0])
+    control, plain = REFERENCE["control"], REFERENCE["plain"]
+    virtual = [torch.device("cuda", 0)] * 2
+    epochs, batch = TRAIN["epochs"], TRAIN["batch"]
+    steps = epochs * (TRAIN["train_clips"] // batch)
+    evals = epochs * -(-TRAIN["val_clips"] // batch)
+    one = expect_counts(gn_relu_cconv=4 * (steps + evals), gn_relu_cconv_bwd=4 * steps,
+                        joint_regressor=steps + evals, joint_regressor_bwd=steps)
+    paths = {}
+
+    def median(xs):
+        return float(np.median(xs)) if xs else float("nan")
+
+    def train(name, mesh, *flags):
+        outdir = os.path.join(tmp, name)
+        cfg = parse_into(TrainConfig(), train_argv(store, outdir, *flags))
+        zero_counts()
+        t0 = time.perf_counter()
+        with recorded_steps() as rec:
+            model, _ = fit(cfg, *datasets(cfg), mesh=mesh)
+        torch.cuda.synchronize()
+        return model, outdir, rec.steps, read_counts(), time.perf_counter() - t0
+
+    # 1. data 2, fused, against the C.1 control
+    model, outdir, rec, launches, seconds = train("mesh_data2", make_mesh(2, 1, devices=virtual))
+    rows = read_rows(outdir)
+    losses = [r["loss"] for r in rec]
+    ctrl_rows = read_rows(control["dir"])
+    train_keys = ("epoch", "lr", "train_loss", "train_mpjpe")
+    same_train_rows = [{k: r[k] for k in train_keys} for r in rows] == [
+        {k: r[k] for k in train_keys} for r in ctrl_rows]
+    val_rel = {k: max(abs(r[k] - w[k]) / abs(w[k]) for r, w in zip(rows, ctrl_rows))
+               for k in ROW_KEYS if k.startswith("val_")}
+    same_last = max_param_diff(os.path.join(outdir, "last.msgpack"),
+                               os.path.join(control["dir"], "last.msgpack"))
+    max_rel = max(abs(r[k] - w[k]) / abs(w[k]) for r, w in zip(rows, base_rows)
+                  for k in DIST_ROW_KEYS)
+    want = {k: 2 * v for k, v in one.items()}
+    # the control again, in this process, for step times taken beside the
+    # mesh run's (the subprocess's host differs)
+    from h36x_torch.train.step import TrainStep
+
+    update, TrainStep._update = TrainStep._update, split_update(2)
+    try:
+        _, _, ctrl_rec, _, _ = train("mesh_control", None)
+    finally:
+        TrainStep._update = update
+    log({"phase": "mesh_fit_data2", "card": smi, "mesh": "data 2 over [cuda:0, cuda:0]",
+         "devices": "one card named twice (virtual devices), not a speed of multi-GPU",
+         "seconds": seconds, "launches": launches, "want_launches": want,
+         "losses_equal_control": losses == control["losses"],
+         "losses_equal_in_process_control": losses == [r["loss"] for r in ctrl_rec],
+         "train_rows_equal_control": same_train_rows,
+         "val_rows_rel_diff_vs_control": val_rel, "val_tol": CONTROL_TOL,
+         "last_max_param_diff_vs_control": same_last,
+         "max_rel_diff_vs_one_process": max_rel, "tol": DIST_ROW_TOL,
+         "step_ms_per_replica_pair_median": median([r["ms"] for r in rec[steps // epochs:]]),
+         "step_device_ms_per_replica_pair_median": median(
+             [r["device_ms"] for r in rec[steps // epochs:]]),
+         "in_process_control_step_ms_median": median(
+             [r["ms"] for r in ctrl_rec[steps // epochs:]]),
+         "in_process_control_step_device_ms_median": median(
+             [r["device_ms"] for r in ctrl_rec[steps // epochs:]]),
+         "control_worker_step_ms_median": median(control["step_ms"][steps // epochs:]),
+         "step_ms_is": "host clock between synchronisations around each train step, "
+                       "and CUDA events (medians over epoch 2)",
+         "losses": losses, "metrics": rows})
+    if launches != want:
+        raise AssertionError(f"mesh data 2 launches {launches} != {want}")
+    # the eval's rows: each replica's B1/B3 launch covers 16 rows where the
+    # control's covers 32, and the kernels round a row alike only at one
+    # batch: held at CONTROL_TOL
+    if (losses != control["losses"] or not same_train_rows or same_last != 0.0
+            or max(val_rel.values()) > CONTROL_TOL):
+        raise AssertionError("fit(mesh=data 2) differs from the split-gradient control")
+    if len(rows) != len(base_rows) or max_rel > DIST_ROW_TOL:
+        raise AssertionError(f"fit(mesh=data 2) rows differ from one process's: {max_rel}")
+    paths["mesh_fit_data2"] = launches
+
+    # 3. evaluate_test over data 2, the model of 1
+    ds = FeatureClipDataset(store, subjects=[5], max_clips=TRAIN["val_clips"] - 1)
+    zero_counts()
+    t0 = time.perf_counter()
+    got = evaluate_test(model, ds, batch, mesh=make_mesh(2, 1, devices=virtual))
+    torch.cuda.synchronize()
+    t_mesh, eval_launches = time.perf_counter() - t0, read_counts()
+    want_eval = evaluate_test(model, ds, batch)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got[:3], want_eval[:3]))
+    n_batches = -(-len(ds) // batch)
+    want = expect_counts(gn_relu_cconv=2 * 4 * n_batches, joint_regressor=2 * n_batches)
+    log({"phase": "mesh_evaluate_test", "card": smi, "clips": len(ds), "mesh": "data 2",
+         "metrics": got, "one_device": want_eval, "max_rel_diff": rel, "tol": 1e-6,
+         "bit_for_bit": list(got) == list(want_eval), "seconds": t_mesh,
+         "launches": eval_launches})
+    if eval_launches != want or rel > 1e-6 or not all(np.isfinite(got)):
+        raise AssertionError(f"evaluate_test(mesh=data 2): {rel}, {eval_launches}")
+    paths["mesh_evaluate_test"] = eval_launches
+    del model
+
+    # 2. data 1 x model 2, plain, msgpack
+    model, outdir, rec, launches, seconds = train(
+        "mesh_model2", make_mesh(1, 2, devices=virtual), "--optim.fused", "false")
+    rows, plain_rows = read_rows(outdir), read_rows(plain["dir"])
+    step_rel = [abs(r["loss"] - b) / abs(b) for r, b in zip(rec, plain["losses"])]
+    row_rel = {k: max(abs(r[k] - w[k]) / abs(w[k]) for r, w in zip(rows, plain_rows))
+               for k in ROW_KEYS}
+    saved = {k: v.cpu() for k, v in model.state_dict().items()}
+    last = ckpt.load_params_only(os.path.join(outdir, "last.msgpack"), saved)
+    same_last = all(torch.equal(last[k], saved[k]) for k in saved)
+    cfg = recorded_cfg(os.path.join(outdir, "last"))
+    served_model = build_model(cfg, dev)
+    served_model.load_state_dict(last)
+    feats = torch.randn(batch, 40, cfg.model.feature_dim, generator=g).to(dev)
+    kw = dict(joints_num=served_model.joints_num, groups=served_model.groups,
+              regressor_iters=served_model.regressor_iters, precise=True)
+    fused = make_fused_forward(param_tree(served_model), **kw)
+    zero_counts()
+    out = fused(feats)
+    torch.cuda.synchronize()
+    served = read_counts()
+    err = compare("serve the mesh model-2 run's msgpack last", out,
+                  make_fused_forward(param_tree(served_model), use_kernels=False, **kw)(feats),
+                  E2E_TOL)
+    log({"phase": "mesh_fit_model2", "card": smi, "mesh": "data 1 x model 2 over "
+         "[cuda:0, cuda:0]", "devices": "one card named twice (virtual devices), not a "
+         "speed of multi-GPU", "seconds": seconds, "launches": launches,
+         "step_loss_rel_diff": step_rel, "first_step_tol": LOSS_TOL["rtol"],
+         "rel_diff_by_key": row_rel, "tol": DIST_ROW_TOL,
+         "step_ms_per_replica_pair_median": median([r["ms"] for r in rec[steps // epochs:]]),
+         "step_device_ms_median": median([r["device_ms"] for r in rec[steps // epochs:]]),
+         "one_process_plain_step_ms_median": median(plain["step_ms"][steps // epochs:]),
+         "bytes_joined_per_step": [r["tp_train_all_gather_bytes"] / (r["eager_steps"] or 1)
+                                   for r in rows],
+         "last_msgpack_equal_model": same_last, "serve_launches": served,
+         "serve_against_plain": err, "metrics": rows})
+    if launches != expect_counts():
+        raise AssertionError("the plain step over the model axis launched a kernel")
+    if (len(step_rel) != steps or step_rel[0] > LOSS_TOL["rtol"] or max(step_rel) > DIST_ROW_TOL
+            or max(row_rel[k] for k in DIST_ROW_KEYS) > DIST_ROW_TOL or not same_last):
+        raise AssertionError(f"fit(mesh=model 2) differs from one process's: {step_rel}, "
+                             f"{row_rel}")
+    if served != expect_counts(gn_relu_cconv=4, joint_regressor=1):
+        raise AssertionError(f"serving launches {served}")
+    paths["mesh_fit_model2"] = launches
+    paths["mesh_serve_model2"] = served
+    del model, served_model
+
+    # 4. the data-parallel backbone over data 2, LOCAL_FRAMES frames
+    frames = np.random.default_rng(13).integers(0, 256, (LOCAL_FRAMES, 224, 224, 3),
+                                                dtype=np.uint8)
+    mesh = make_mesh(2, 1, devices=virtual)
+    rec = {"phase": "mesh_feature_fn", "card": smi, "frames": LOCAL_FRAMES, "mesh": "data 2",
+           "devices": "one card named twice (virtual devices), not a speed of multi-GPU"}
+    for engine, dtype in (("flax", torch.float32), ("opt", torch.bfloat16)):
+        torch.manual_seed(14)
+        backbone = ResNet50(dtype=dtype, device=dev)
+        single = make_feature_fn(backbone, engine=engine)
+        sharded = make_feature_fn(backbone, mesh=mesh, engine=engine)
+        zero_counts()
+        t0 = time.perf_counter()
+        got = sharded(frames)
+        torch.cuda.synchronize()
+        seconds, launches = time.perf_counter() - t0, read_counts()
+        want_f = single(torch.from_numpy(frames).to(dev))
+        exact = bool(torch.equal(got, want_f))
+        tol = 1e-5 if engine == "flax" else (None if exact else BACKBONE_REL_NORM)
+        err = compare(f"make_feature_fn(mesh=data 2) {engine} vs one device", got, want_f,
+                      None, tol)
+        want = expect_counts(fused_bottleneck=2 * 13 if engine == "opt" else 0)
+        rec[engine] = {"rows": list(got.shape), "module_dtype": str(dtype),
+                       "bit_for_bit": exact, "held_at": "bit for bit" if tol is None
+                       else f"relative norm {tol}", "rel_norm_err": err["rel_norm_err"],
+                       "first_call_seconds": seconds, "launches": launches,
+                       "ms_from_host": time_ms(lambda: sharded(frames), reps=3),
+                       "single_device_ms_from_host": time_ms(
+                           lambda: single(torch.from_numpy(frames).to(dev)), reps=3)}
+        if got.shape != (LOCAL_FRAMES, 2048) or launches != want:
+            raise AssertionError(f"make_feature_fn(mesh=) {engine}: {rec[engine]}")
+        paths[f"mesh_feature_fn_{engine}"] = launches
+        del backbone, single, sharded
+    log(rec)
     return paths
 
 
@@ -3946,6 +4240,10 @@ def main() -> int:
         paths.update(drive_orbax_tp_path(dev, torch.Generator().manual_seed(12), tmp,
                                          base_rows, smi.splitlines()[0]))
         log({"phase": "orbax_tp total", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        paths.update(drive_local_mesh_path(dev, torch.Generator().manual_seed(15), tmp,
+                                           base_rows, smi.splitlines()[0]))
+        log({"phase": "local_mesh total", "seconds": time.perf_counter() - t0})
         paths.update(drive_bf16_train_paths(dev, tmp, smi.splitlines()[0]))
     t0 = time.perf_counter()
     e = EXTRACT

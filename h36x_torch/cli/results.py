@@ -1,5 +1,6 @@
-"""CLI: test-subject evaluation + one-batch NPZ dump on one GPU
-(counterpart of h36x/cli/results.py).
+"""CLI: test-subject evaluation + one-batch NPZ dump on the GPU
+(counterpart of h36x/cli/results.py); the evaluation runs data-parallel
+over every visible card when there is more than one.
 
     python -m h36x_torch.cli.results --features-root STORE \\
         --preprocessed-root INGESTED --model-path runs/best.msgpack \\
@@ -50,7 +51,7 @@ def main(argv=None):
     from h36x_torch.data.features import FeatureClipDataset
     from h36x_torch.train.checkpoint import checkpoint_ref_exists, load_params_only
     from h36x_torch.train.results import dump_result_batch, evaluate_test
-    from h36x_torch.utils.runtime import resolve_device
+    from h36x_torch.utils.runtime import local_devices, resolve_device
 
     device = resolve_device(args.device)
     if not checkpoint_ref_exists(args.model_path):
@@ -75,7 +76,14 @@ def main(argv=None):
     model.load_state_dict(load_params_only(args.model_path, model.state_dict()))
     model.to(device)  # one upload, not one per eval batch
 
-    loss, mp, l3d, l2d = evaluate_test(model, test_set, args.batch_size)
+    mesh = None
+    devices = local_devices(device)
+    if len(devices) > 1:
+        from h36x_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(data=-1, model=1, devices=devices)
+        print(f"Test eval over {mesh.shape['data']} devices (data-parallel)")
+    loss, mp, l3d, l2d = evaluate_test(model, test_set, args.batch_size, mesh=mesh)
     print(
         f"Test metrics | loss: {loss:.6f} | mpjpe (m): {mp:.6f} "
         f"| mpjpe (mm): {mp*1000.0:.2f} | l3d: {l3d:.6f} "

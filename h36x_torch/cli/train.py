@@ -26,12 +26,17 @@ Data-parallel: every process runs this CLI with the same flags plus
 
     --dist.num-processes N --dist.process-id I --dist.coordinator HOST:PORT
 
-(one device per process: card I % the card count; NCCL on CUDA, gloo on
+(one card per process: card I % the card count; NCCL on CUDA, gloo on
 the CPU or with `--dist.collectives gloo`); each process takes its 1/N of
 every batch, and rank 0 alone logs and writes. `--resume` works the same.
-`--mesh.model M` splits the wide layers over M processes (tensor
-parallelism, the plain step, `--ckpt-backend orbax`; the processes are
-slices x data x M). Several devices per process raise.
+
+One process drives every visible card (h36x's mesh over `jax.devices()`),
+and on the CPU `--dist.platform cpu --dist.local-devices N` makes N
+virtual devices (h36x's `jax_num_cpu_devices`, CPU only): the batch splits
+over them too (`--mesh.data`, `--mesh.slices`; the automatic data axis
+shrinks to a divisor of the batch). `--mesh.model M` splits the wide
+layers over M devices (tensor parallelism, the plain step; over
+processes of one device each with `--ckpt-backend orbax`).
 """
 
 import argparse
@@ -56,15 +61,16 @@ def main(argv=None):
     cfg = apply_namespace(TrainConfig(), ns, skip=("device",))
     check_supported(cfg)
     try:
-        device = setup_from_config(cfg.dist, ns.device)
-        return _train(cfg, device)
+        devices = setup_from_config(cfg.dist, ns.device)
+        return _train(cfg, devices)
     finally:
         shutdown()
 
 
-def _train(cfg, device):
-    if not cfg.train_root:
-        raise SystemExit("--train-root is required")
+def datasets(cfg):
+    """(train set, val set, train sampler, val sampler) of a config, as
+    h36x's CLI makes them (what :func:`h36x_torch.train.loop.fit` takes
+    after the config)."""
     val_root = cfg.val_root or cfg.train_root
     train_set = FeatureClipDataset(
         cfg.train_root,
@@ -82,14 +88,26 @@ def _train(cfg, device):
         seed=cfg.optim.seed,
     )
     val_sampler = SequentialBatchSampler(val_set, batch_size=cfg.optim.batch_size)
+    return train_set, val_set, train_sampler, val_sampler
+
+
+def _train(cfg, devices):
+    if not cfg.train_root:
+        raise SystemExit("--train-root is required")
+    train_set, val_set, train_sampler, val_sampler = datasets(cfg)
 
     o = cfg.optim
     log = print if is_main_process() else (lambda *a, **k: None)
     log(f"===== Phase-{o.phase} training =====")
-    log(f"Device: {device} | fused kernels: {o.fused}"
-        + (f" | processes: {cfg.dist.num_processes}" if cfg.dist.num_processes > 1 else ""))
+    log(f"Device: {devices[0]} | fused kernels: {o.fused}"
+        + (f" | processes: {cfg.dist.num_processes}" if cfg.dist.num_processes > 1 else "")
+        + (f" | local devices: {len(devices)}" if len(devices) > 1 else ""))
+    if cfg.dist.num_processes > 1:
+        log(f"Processes: {cfg.dist.num_processes} | global devices: "
+            f"{cfg.dist.num_processes * len(devices)}")
     if o.steps_per_dispatch > 1:
-        graphed = device.type == "cuda" and cfg.dist.num_processes <= 1
+        graphed = (devices[0].type == "cuda" and cfg.dist.num_processes <= 1
+                   and len(devices) == 1)
         log(f"Grouped: {o.steps_per_dispatch} steps per dispatch"
             + (" (one CUDA graph replay per group)" if graphed else ""))
     if o.grad_accum > 1:
@@ -103,7 +121,7 @@ def _train(cfg, device):
     log(f"Batch size: {cfg.optim.batch_size} | LR: {cfg.optim.lr} | "
         f"Epochs: {cfg.optim.epochs}")
     log("============================")
-    return fit(cfg, train_set, val_set, train_sampler, val_sampler, device=device)
+    return fit(cfg, train_set, val_set, train_sampler, val_sampler)
 
 
 if __name__ == "__main__":

@@ -124,16 +124,16 @@ class MeshConfig:
 
 @dataclass
 class DistConfig:
-    """Multi-process data-parallel launch (h36x's fields): every process
-    runs the same CLI with its own process_id and drives one device
-    (:mod:`h36x_torch.parallel.distributed`); the store lies on storage
-    all of them read."""
+    """Multi-process launch and local devices (h36x's fields): every
+    process runs the same CLI with its own process_id and drives its local
+    devices (:mod:`h36x_torch.parallel.distributed`); the store lies on
+    storage all of them read."""
 
     coordinator: str = ""  # host:port of process 0 (the rendezvous)
     num_processes: int = 1
     process_id: int = -1  # -1: from the RANK environment variable
     platform: str = ""  # '' | 'cpu' | 'cuda' ('gpu'): the device to run on
-    local_devices: int = 0  # devices per process: 0 or 1 (one device each)
+    local_devices: int = 0  # >0: virtual CPU devices per process (cpu only)
     collectives: str = ""  # '' (nccl on cuda, gloo on cpu) | 'gloo' | 'nccl'
 
 

@@ -348,9 +348,10 @@ class _Assembler:
         self.on_clip_done()
 
 
-def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
-    """Unique-frame extraction on `device` (default cuda); the same store
-    contract as pipeline.run_extract."""
+def run_extract_dedup(cfg: ExtractConfig, dataset, device=None, devices=None) -> dict:
+    """Unique-frame extraction on `device` (default cuda), the backbone
+    data-parallel over `devices` (default: every visible card) when there
+    is more than one; the same store contract as pipeline.run_extract."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
@@ -362,6 +363,7 @@ def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
         _clip_key,
         _load_backbone,
         _parse_partition,
+        feature_mesh,
         finalize_store,
         frames_to_device,
         make_feature_fn,
@@ -372,7 +374,7 @@ def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
         validate_extract_config,
     )
     from h36x_torch.extract.writer import AsyncWriter
-    from h36x_torch.utils.runtime import resolve_device
+    from h36x_torch.utils.runtime import local_devices, resolve_device
 
     validate_extract_config(cfg)  # one validator for both schedulers
     # direct callers may pass 'auto' sentinels; this scheduler's auto = the
@@ -413,7 +415,8 @@ def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
     )
 
     model = _load_backbone(cfg, device)
-    feature_fn = make_feature_fn(model, engine=cfg.engine)
+    mesh = feature_mesh(local_devices(device) if devices is None else devices)
+    feature_fn = make_feature_fn(model, mesh=mesh, engine=cfg.engine)
 
     async_writer = AsyncWriter()
     shard_writer = ShardWriter(out_root, n_vars, async_writer=async_writer)
@@ -485,7 +488,9 @@ def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
                 (frames_per_dispatch - n,) + frames.shape[1:], np.uint8
             )
             frames = np.concatenate([frames, padder])
-        feats_dev = DeviceFeatures(feature_fn(frames_to_device(frames, device)))
+        # over a mesh each device's block goes to it from the host
+        feats_dev = DeviceFeatures(feature_fn(frames if mesh else
+                                              frames_to_device(frames, device)))
         assembler.backbone_rows += n
         new = (feats_dev, [t for t, _ in chunk], n)
         if inflight is not None:

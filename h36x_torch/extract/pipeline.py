@@ -47,12 +47,12 @@ from h36x_torch.geometry.crop import (
 )
 from h36x_torch.models.resnet import ResNet50, load_torchvision_file
 from h36x_torch.ops.preprocess import imagenet_normalize
-from h36x_torch.utils.runtime import resolve_device
+from h36x_torch.utils.runtime import local_devices, resolve_device
 
 ENGINES = ("flax", "opt")
 
 
-def make_feature_fn(model: ResNet50, engine: str = "flax"):
+def make_feature_fn(model: ResNet50, mesh=None, engine: str = "flax"):
     """Device step: frames_u8 (N, out, out, 3) uint8 tensor on the model's
     device -> (N, 2048) float32 features on that device.
 
@@ -62,6 +62,14 @@ def make_feature_fn(model: ResNet50, engine: str = "flax"):
     weights, space-to-depth stem), whose 13 stride-1 blocks each launch the
     fused bottleneck kernel B5 on the card; the fold runs once per weight
     set, at the first call. Same function, a bf16-level numeric difference.
+
+    With a `mesh` (h36x's data-parallel backbone): the step takes frames
+    as a host array or a tensor, pads them with zero frames to a multiple
+    of the data axis (this process's local devices), sends each block to
+    its device, runs the backbone there (the module, or for `opt` the
+    folded weights, placed on each device once: a device the model lives
+    on uses the model itself) and returns the features in order on the
+    first device, `[:N]`.
     """
     if engine == "opt":
         from h36x_torch.ops.resnet_opt import (
@@ -89,7 +97,42 @@ def make_feature_fn(model: ResNet50, engine: str = "flax"):
                 return model(video.to(model.dtype))
     else:
         raise ValueError(f"--engine must be {'|'.join(ENGINES)}, got {engine!r}")
-    return fn
+    if mesh is None:
+        return fn
+
+    import copy
+
+    from h36x_torch.parallel.local import merge_rows, pad_rows, same_device, split_rows
+
+    devices = [g[0] for g in mesh.local_groups()]
+    home = next(model.parameters()).device
+    fns: dict = {}  # device -> its step, the weights placed there once
+
+    def fn_on(device):
+        key = str(home if same_device(device, home) else torch.device(device))
+        if key not in fns:
+            fns[key] = fn if key == str(home) else make_feature_fn(
+                copy.deepcopy(model).to(device), engine=engine)
+        return fns[key]
+
+    def sharded_fn(frames_u8):
+        n = frames_u8.shape[0]
+        blocks = split_rows(pad_rows(frames_u8, len(devices)), devices)
+        return merge_rows([fn_on(d)(b) for d, b in zip(devices, blocks)], n, devices[0])
+
+    return sharded_fn
+
+
+def feature_mesh(devices):
+    """h36x's extraction mesh: a data axis over `devices` when there is
+    more than one (None otherwise), said on stdout."""
+    if len(devices) <= 1:
+        return None
+    from h36x_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=-1, model=1, devices=devices)
+    print(f"Extraction over {mesh.shape['data']} devices (data-parallel backbone)")
+    return mesh
 
 
 def frames_to_device(frames: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -502,9 +545,11 @@ def finalize_store(out_root, cfg, pool, shard_writer, n_vars, aug_names,
         progress_path.unlink()
 
 
-def run_extract(cfg: ExtractConfig, dataset=None, device=None) -> dict:
+def run_extract(cfg: ExtractConfig, dataset=None, device=None, devices=None) -> dict:
     """Run the extraction stage on `device` (default cuda); returns a
-    summary dict.
+    summary dict. The backbone runs data-parallel over `devices` (default:
+    :func:`h36x_torch.utils.runtime.local_devices` of `device`, every
+    visible card) when there is more than one (:func:`make_feature_fn`).
 
     Resumable: after every shard flush a progress file records which clips
     landed in which shard rows; a run restarted with resume=True skips
@@ -532,7 +577,7 @@ def run_extract(cfg: ExtractConfig, dataset=None, device=None) -> dict:
         from h36x_torch.extract.dedup import run_extract_dedup
 
         return run_extract_dedup(resolve_extract_modes(cfg, production=True),
-                                 dataset, device)
+                                 dataset, device, devices)
     cfg = resolve_extract_modes(cfg, production=False)  # auto -> 'clip'
     # this scheduler only implements the default semantics: a flag asking
     # for a dedup-path mode must not silently degrade to them
@@ -561,7 +606,8 @@ def run_extract(cfg: ExtractConfig, dataset=None, device=None) -> dict:
     )
 
     model = _load_backbone(cfg, device)
-    feature_fn = make_feature_fn(model, engine=cfg.engine)
+    mesh = feature_mesh(local_devices(device) if devices is None else devices)
+    feature_fn = make_feature_fn(model, mesh=mesh, engine=cfg.engine)
 
     async_writer = AsyncWriter()
     shard_writer = ShardWriter(out_root, n_vars, async_writer=async_writer)
@@ -605,7 +651,8 @@ def run_extract(cfg: ExtractConfig, dataset=None, device=None) -> dict:
         frames = np.stack([it[0] for it in items])  # (B,V,T,o,o,3) u8
         shape = frames.shape[:3]
         flat = frames.reshape((-1,) + frames.shape[3:])
-        feats = DeviceFeatures(feature_fn(frames_to_device(flat, device)))
+        # over a mesh each device's block goes to it from the host
+        feats = DeviceFeatures(feature_fn(flat if mesh else frames_to_device(flat, device)))
         return feats, items, shape
 
     def finalize_batch(inflight):

@@ -54,6 +54,7 @@ from h36x_torch.ops import temporal as _tmp
 from h36x_torch.ops.regressor import _reference_forward, fused_joint_regressor
 from h36x_torch.ops.temporal import fused_residual_block, reference_gn_relu_cconv
 from h36x_torch.parallel.distributed import data_info
+from h36x_torch.parallel.local import replica_position
 
 
 def sorted_blocks(net_params: dict):
@@ -226,16 +227,19 @@ def make_fused_forward(params: dict, joints_num: int = 17, groups: int = 32,
 def dropout_mask(shape, keep: float, generator: torch.Generator, like: torch.Tensor):
     """Inverted-dropout mask (Bernoulli(keep) / keep) in `like`'s dtype,
     drawn in float32 from `generator`, which lives on the tensors' device.
-    When the batch is split over the data axis of several processes, each
-    holding an equal block of the global batch's rows, it draws the global
-    batch's mask (the leading dim batch-major: (B, ...) or (B * T, ...))
-    and keeps this process's block (by data index: every rank of a model
-    group the same one): every process's generator seeded alike, the masks
-    are those of a one-process run of the global batch."""
+    When the batch is split over a data axis (processes, each holding an
+    equal block of the global batch's rows, and within a process its local
+    data replicas, :func:`h36x_torch.parallel.local.running`), it draws the
+    global batch's mask (the leading dim batch-major: (B, ...) or
+    (B * T, ...)) and keeps this replica's block (by data index: every rank
+    of a model group the same one): every generator seeded alike, the masks
+    are those of a one-device run of the global batch."""
     rank, processes = data_info()
+    replica, replicas = replica_position()
+    index, count = rank * replicas + replica, processes * replicas
     rows = shape[0]
-    u = torch.rand((rows * processes, *shape[1:]), generator=generator,
-                   device=like.device, dtype=torch.float32)[rank * rows:(rank + 1) * rows]
+    u = torch.rand((rows * count, *shape[1:]), generator=generator,
+                   device=like.device, dtype=torch.float32)[index * rows:(index + 1) * rows]
     return (u < keep).to(like.dtype) / keep
 
 

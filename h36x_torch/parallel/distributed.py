@@ -1,22 +1,29 @@
 """Multi-process parallelism on torch.distributed (counterpart of
-h36x/parallel/distributed.py): one process per device, every process
-running the same CLI with its own `--dist.process-id`.
+h36x/parallel/distributed.py): every process runs the same CLI with its
+own `--dist.process-id` and drives its local devices (one card per process
+on CUDA; `--dist.local-devices N` virtual devices on the CPU, h36x's
+`jax_num_cpu_devices`).
 
-The processes form h36x's (slice, data, model) mesh
-(:func:`h36x_torch.parallel.mesh.make_mesh`): rank = (slice index x data +
-data index) x model + model index, the row-major order of h36x's
-`np.array(devices).reshape(data, model)`. :func:`init_groups` makes a
-process group for each `model` axis (the ranks that hold the shards of
-one set of params, :mod:`h36x_torch.parallel.tensor`) and each data axis
-(slice x data: the ranks that split the batch).
+The processes' devices form h36x's (slice, data, model) mesh
+(:func:`h36x_torch.parallel.mesh.make_mesh`): global device p x L + l for
+process p's local device l, in the row-major order of h36x's
+`np.array(devices).reshape(slices, data, model)`. A model axis spans
+processes only when each holds one device: then rank = (slice index x data
++ data index) x model + model index, and :func:`init_groups` makes a
+process group for each `model` axis (the ranks that hold the shards of one
+set of params, :mod:`h36x_torch.parallel.tensor`) and each data axis (the
+ranks that split the batch). Otherwise the model axis lies inside each
+process and the processes are the data axis's blocks, in rank order.
 
 Each data index walks the same seeded sampler order and gathers only its
 :func:`local_batch_slice` rows of every global batch (every rank of one
-model group the same rows); the trainer averages the gradients (and the
-step's metrics) over the data group with one flat all-reduce per update
-(:func:`mean_across_processes`) and sums the eval's per-batch sums there,
-so the updates and the logged means are those of the global batch. Rank 0
-alone prints, writes metrics.jsonl and checkpoints.
+model group the same rows), which its local data replicas split again
+(:mod:`h36x_torch.parallel.local`); the trainer averages the gradients
+(and the step's metrics) over the whole data axis, local replicas first,
+then the processes with one flat all-reduce per update
+(:func:`mean_across_processes`), and sums the eval's per-batch sums over
+the processes, so the updates and the logged means are those of the
+global batch. Rank 0 alone prints, writes metrics.jsonl and checkpoints.
 
 Collectives: NCCL on CUDA, gloo on the CPU; `--dist.collectives gloo`
 forces gloo on CUDA too (gloo reduces CUDA tensors through the host). NCCL
@@ -29,14 +36,15 @@ from __future__ import annotations
 
 import os
 import socket
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from h36x_torch.utils.runtime import resolve_device
+from h36x_torch.utils.runtime import local_devices, resolve_device
 
-LATER = "is not ported to h36x_torch yet (it comes with a later slice)"
+# this process's devices (setup_from_config); None: one device, unnamed
+_process_devices: Optional[List[torch.device]] = None
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -73,23 +81,22 @@ def is_main_process() -> bool:
 
 
 class _Groups:
-    """The mesh's axes as process groups (:func:`init_groups`)."""
+    """The mesh's axes as process groups (:func:`init_groups`): a model
+    axis of `size` processes (one device each)."""
 
-    def __init__(self, mesh, rank: int):
-        m = mesh.model
-        self.model_index, self.model_size = rank % m, m
-        self.data_index, self.data_size = rank // m, mesh.slices * mesh.data
+    def __init__(self, rank: int, world: int, size: int):
+        self.model_index, self.model_size = rank % size, size
+        self.data_index, self.data_size = rank // size, world // size
         # every rank makes every group, in one order (torch.distributed's rule)
         self.model_group = self.data_group = None
-        if m > 1:
-            for first in range(0, self.data_size * m, m):
-                g = dist.new_group(list(range(first, first + m)))
-                if first == self.data_index * m:
-                    self.model_group = g
-            for mi in range(m):
-                g = dist.new_group(list(range(mi, self.data_size * m, m)))
-                if mi == self.model_index:
-                    self.data_group = g
+        for first in range(0, world, size):
+            g = dist.new_group(list(range(first, first + size)))
+            if first == self.data_index * size:
+                self.model_group = g
+        for mi in range(size):
+            g = dist.new_group(list(range(mi, world, size)))
+            if mi == self.model_index:
+                self.data_group = g
 
 
 _groups: Optional[_Groups] = None
@@ -97,14 +104,23 @@ _groups: Optional[_Groups] = None
 
 def init_groups(mesh) -> None:
     """Make the process groups of `mesh`'s model and data axes (every rank
-    calls it, after :func:`initialize`). Without a model axis the data group
-    is every process and no group is made."""
+    calls it, after :func:`initialize`). A model axis inside each process,
+    or none, makes no group: the data axis's processes are all of them. A
+    model axis over processes of several devices each raises
+    NotImplementedError."""
     global _groups
     rank, world = process_info()
-    if mesh.slices * mesh.data * mesh.model != world:
+    local = 1 if mesh.devices is None else mesh.local_count
+    if mesh.slices * mesh.data * mesh.model != world * local:
         raise ValueError(f"mesh {mesh.slices}x{mesh.data}x{mesh.model} != {world} "
-                         "processes")
-    _groups = _Groups(mesh, rank) if mesh.model > 1 else None
+                         f"processes x {local} device(s)")
+    if mesh.model > local and local > 1:
+        raise NotImplementedError(
+            f"a model axis of {mesh.model} over processes of {local} devices each; "
+            "the model axis must lie inside one process or span processes of "
+            "one device each")
+    size = mesh.model if local == 1 else 1
+    _groups = _Groups(rank, world, size) if size > 1 else None
 
 
 def model_info() -> Tuple[int, int]:
@@ -163,41 +179,54 @@ def backend_for(collectives: str, device: torch.device) -> str:
     return collectives or ("nccl" if device.type == "cuda" else "gloo")
 
 
-def check_local_devices(dist_cfg) -> None:
-    """Raise unless --dist.local-devices is 0 or 1: one process drives one
-    device."""
-    if dist_cfg.local_devices > 1:
-        raise NotImplementedError(
-            f"--dist.local-devices {dist_cfg.local_devices}: more than one device "
-            f"per process (a single-process multi-device mesh) {LATER}; run one "
-            "process per device")
+def check_local_devices(dist_cfg, device=None) -> None:
+    """Raise for a --dist.local-devices that cannot be: below 0, or above 1
+    on CUDA (the count is the CPU's virtual devices, as h36x's
+    `jax_num_cpu_devices`; on CUDA every visible card is a local device, or
+    one card per process)."""
     if dist_cfg.local_devices < 0:
         raise ValueError(f"--dist.local-devices {dist_cfg.local_devices} < 0")
+    if dist_cfg.local_devices > 1 and device is not None and \
+            torch.device(device).type != "cpu":
+        raise ValueError(
+            f"--dist.local-devices {dist_cfg.local_devices} is the CPU's virtual "
+            f"device count (--dist.platform cpu); on {torch.device(device).type} "
+            "every visible card is a local device")
 
 
-def setup_from_config(dist_cfg, device=None) -> torch.device:
+def setup_from_config(dist_cfg, device=None) -> List[torch.device]:
     """Apply a :class:`h36x_torch.config.DistConfig`, first thing in a CLI's
-    main: the process's device (`device`, else `--dist.platform`, else cuda;
-    under several processes on CUDA, card rank % the card count) and, with
-    more than one process, the process group. Returns the device. The
-    default single-process config only resolves the device."""
-    check_local_devices(dist_cfg)
+    main: the process's devices and, with more than one process, the
+    process group. Returns the local device list (also what
+    :func:`process_devices` returns afterwards): `device`, else
+    `--dist.platform`, else cuda; on the CPU `--dist.local-devices`
+    virtual devices (at least one); on CUDA every visible card for one
+    process, and card rank % the card count for each of several. The
+    default single-process config joins nothing."""
+    global _process_devices
     device = resolve_device(_device_of_platform(dist_cfg.platform, device))
+    check_local_devices(dist_cfg, device)
     n = dist_cfg.num_processes
-    if n <= 1:
-        return device
-    rank = dist_cfg.process_id if dist_cfg.process_id >= 0 else int(os.environ["RANK"])
-    if not 0 <= rank < n:
-        raise ValueError(f"--dist.process-id {rank} outside [0, {n})")
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", rank % torch.cuda.device_count())
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    backend = backend_for(dist_cfg.collectives, device)
-    initialize(dist_cfg.coordinator or None, n, rank, backend=backend)
-    if backend == "nccl":
-        _check_one_rank_per_device(device)
-    return device
+    if n > 1:
+        rank = dist_cfg.process_id if dist_cfg.process_id >= 0 else int(os.environ["RANK"])
+        if not 0 <= rank < n:
+            raise ValueError(f"--dist.process-id {rank} outside [0, {n})")
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        backend = backend_for(dist_cfg.collectives, device)
+        initialize(dist_cfg.coordinator or None, n, rank, backend=backend)
+        if backend == "nccl":
+            _check_one_rank_per_device(device)
+    _process_devices = local_devices(device, dist_cfg.local_devices)
+    return list(_process_devices)
+
+
+def process_devices() -> List[Optional[torch.device]]:
+    """This process's devices as :func:`setup_from_config` set them; one
+    unnamed device (None) before that."""
+    return list(_process_devices) if _process_devices is not None else [None]
 
 
 def _check_one_rank_per_device(device: torch.device) -> None:
@@ -221,23 +250,37 @@ def _check_one_rank_per_device(device: torch.device) -> None:
 
 
 def shutdown() -> None:
-    """Leave the process group, when there is one."""
-    global _groups
-    _groups = None
+    """Leave the process group, when there is one, and forget the devices."""
+    global _groups, _process_devices
+    _groups = _process_devices = None
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
 
-def mean_across_processes(tensors: List[torch.Tensor]) -> None:
-    """Replace each tensor, in place, by its mean over the data axis's
-    processes, with one all-reduce of a flat float32 buffer of them all (a
-    no-op with one process there). The tensors lie on one device."""
+def _flat(tensors: List[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+
+
+def mean_across_processes(tensors: List[torch.Tensor],
+                          others: Sequence[List[torch.Tensor]] = ()) -> None:
+    """Replace each tensor of `tensors`, in place, by its mean over the
+    whole data axis, through one flat float32 buffer: first over this
+    process's local data replicas (`tensors`, then each list of `others`:
+    the same tensors of the other replicas, on their devices), their
+    buffers summed in replica order on `tensors`' device and divided by
+    their count; then one all-reduce over the data axis's processes,
+    divided by their count. A no-op with one replica and one process."""
     _, world = data_info()
-    if world <= 1 or not tensors:
+    if (world <= 1 and not others) or not tensors:
         return
-    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, group=data_group())
-    flat.div_(world)
+    flat = _flat(tensors)
+    for ts in others:
+        flat = flat + _flat(ts).to(flat.device)
+    if others:
+        flat.div_(len(others) + 1)
+    if world > 1:
+        dist.all_reduce(flat, group=data_group())
+        flat.div_(world)
     offset = 0
     for t in tensors:
         n = t.numel()
@@ -251,3 +294,14 @@ def sum_across_processes(t: torch.Tensor) -> torch.Tensor:
     if data_info()[1] > 1:
         dist.all_reduce(t, group=data_group())
     return t
+
+
+def make_multislice_mesh(slices: int, data: int = -1, model: int = 1, devices=None):
+    """h36x's (slice, data, model) mesh: :func:`h36x_torch.parallel.mesh.make_mesh`
+    with `slices`. The slice axis is a TPU pod's DCN hop in h36x; here it
+    is one more split of the batch rows (processes, or their local
+    devices), with the same rows, gradients and params as a data axis of
+    slices x data."""
+    from h36x_torch.parallel.mesh import make_mesh
+
+    return make_mesh(data, model, devices, slices=slices)

@@ -1,69 +1,142 @@
-"""The process mesh and h36x's sharding rules (counterpart of
+"""The device mesh and h36x's sharding rules (counterpart of
 h36x/parallel/mesh.py).
 
 h36x builds a (slice, data, model) device mesh; `data` and `slice` both
 split the batch, `model` splits the wide layers (tensor parallelism). The
-port runs one process per device, so its mesh is a description of the
-processes: slices x data x model must equal the number of processes, rank
-(slice x data + data index) x model + model index
-(:mod:`h36x_torch.parallel.distributed`), and :func:`data_axis_size` is the
-number of ways the global batch splits. More devices than processes (a
-single-process multi-device mesh) raises.
+port's :class:`Mesh` holds the same array of devices, in h36x's row-major
+order over the global device list: process 0's local devices first, then
+process 1's, and so on (`jax.devices()`'s order), so the device of
+process p, local index l is global device p x L + l (L devices per
+process), at mesh coordinates (slice, data, model) of that index.
+
+A device may appear more than once (a virtual device: `cpu` named N times
+under `--dist.local-devices N`, or `cuda:0` named twice on one card), the
+counterpart of XLA's forced host devices. Each entry is a
+:class:`MeshDevice` (process, local index, torch.device; the device is
+None in the entries of other processes, which this process cannot name).
+
+:func:`data_axis_size` is the number of ways the global batch splits. A
+model axis lies inside one process (L divisible by `model`: the process's
+devices run the split products, :mod:`h36x_torch.parallel.tensor`) or
+spans processes of one device each (process groups,
+:mod:`h36x_torch.parallel.distributed`); a model axis over several
+processes of several devices each raises (:meth:`Mesh.local_groups`).
 
 The sharding rules are h36x's `_TP_RULES`, matched on the same
 '/'-joined flax paths ('f_movie/block0/conv1/kernel'): for each param the
 dimension that splits over `model`, or None (replicated). A dimension
 that the model axis does not divide stays replicated, with h36x's WARNING
-printed once. :func:`shard_params` takes each process's slice;
-:mod:`h36x_torch.parallel.tensor` runs the model on those slices.
+printed once. :func:`shard_params` takes one model index's slice.
 """
 
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
-from h36x_torch.parallel.distributed import LATER, model_info, process_info
+import numpy as np
+import torch
+
+from h36x_torch.parallel.distributed import model_info, process_devices, process_info
+
+
+class MeshDevice(NamedTuple):
+    """One entry of a mesh's device array."""
+    process: int
+    index: int  # local index on its process
+    device: Optional[torch.device]  # None on another process's entry
 
 
 @dataclass(frozen=True)
 class Mesh:
+    """A (slice, data, model) mesh. `devices`, the (slices, data, model)
+    array of :class:`MeshDevice`, is None for a layout alone (the sharding
+    rules read only the axis sizes)."""
     slices: int
     data: int
     model: int
+    devices: Optional[np.ndarray] = field(default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> dict:
         return {"slice": self.slices, "data": self.data, "model": self.model}
 
+    @property
+    def local_count(self) -> int:
+        """Devices per process."""
+        flat = self.devices.reshape(-1)
+        return sum(1 for d in flat if d.process == flat[0].process)
 
-def make_mesh(data: int = -1, model: int = 1, slices: int = 1,
+    def local_groups(self, rank: Optional[int] = None) -> List[List[torch.device]]:
+        """This process's devices by batch-axis row (slice x data index), in
+        row order, each row's devices in model order: one list per local
+        data replica, each of the local model axis's length (1 where the
+        model axis spans processes). Raises NotImplementedError for a model
+        axis over several processes of several devices each."""
+        rank = process_info()[0] if rank is None else rank
+        groups = []
+        for row in self.devices.reshape(-1, self.model):
+            own = [d.device for d in row if d.process == rank]
+            if own and len(own) != len(row) and len(own) > 1:
+                raise NotImplementedError(
+                    f"a model axis of {self.model} over processes of "
+                    f"{self.local_count} devices each; the model axis must lie "
+                    "inside one process or span processes of one device each")
+            if own:
+                groups.append(own)
+        return groups
+
+
+def global_devices(local: Sequence, n_processes: Optional[int] = None,
+                   rank: Optional[int] = None) -> List[MeshDevice]:
+    """The global device list of `n_processes` processes (default: the
+    process group's size) of len(`local`) devices each, process by
+    process; this process's entries carry its `local` devices."""
+    r, n = process_info()
+    n = n if n_processes is None else n_processes
+    r = r if rank is None else rank
+    return [MeshDevice(p, i, torch.device(d) if p == r and d is not None else None)
+            for p in range(n) for i, d in enumerate(local)]
+
+
+def make_mesh(data: int = -1, model: int = 1, devices=None, *, slices: int = 1,
               n_processes: Optional[int] = None) -> Mesh:
-    """The (slice, data, model) layout over `n_processes` (default: the
-    process group's size), one device each; data -1 uses every process
-    left: processes / (slices x model). Raises ValueError for a layout
-    that does not cover the processes and NotImplementedError for one that
-    needs more devices than processes."""
-    n = process_info()[1] if n_processes is None else n_processes
+    """A (slice, data, model) mesh over `devices` (h36x's signature;
+    `slices` > 1 is h36x's `make_multislice_mesh`); data -1 uses every
+    device left: devices / (slices x model).
+
+    `devices`: a list of :class:`MeshDevice` (a global list); or of
+    torch devices (or names), which are this process's local devices,
+    repeated over the processes; default: this process's devices as
+    :func:`h36x_torch.parallel.distributed.setup_from_config` set them (one
+    device each otherwise) over `n_processes` processes (default: the
+    process group's size). Raises ValueError for a layout that does not
+    cover the devices, with h36x's messages."""
+    if devices is None:
+        devices = global_devices(process_devices(), n_processes)
+    elif not all(isinstance(d, MeshDevice) for d in devices):
+        devices = global_devices(list(devices), n_processes)
+    devices = list(devices)
+    n = len(devices)
     if model < 1 or slices < 1:
         raise ValueError(f"mesh model={model}, slices={slices} must be >= 1")
     if data == -1:
         if n % (slices * model) != 0:
-            what = f"slices={slices}" if model == 1 else f"slices*model={slices * model}"
-            raise ValueError(f"{n} processes not divisible by {what}")
+            what = f"model={model}" if slices == 1 else f"slices*model={slices * model}"
+            raise ValueError(f"{n} devices not divisible by {what}")
         data = n // (slices * model)
     if data < 1:
         raise ValueError(f"--mesh.data {data} must be >= 1 (or -1)")
-    if slices * data * model > n:
-        raise NotImplementedError(
-            f"mesh {slices}x{data}x{model} needs {slices * data * model} devices on "
-            f"{n} process(es): more than one device per process {LATER}; run one "
-            "process per device (--dist.num-processes)")
     if slices * data * model != n:
-        raise ValueError(f"mesh {slices}x{data}x{model} != {n} devices "
-                         "(one per process)")
-    return Mesh(slices, data, model)
+        dims = f"{data}x{model}" if slices == 1 else f"{slices}x{data}x{model}"
+        raise ValueError(f"mesh {dims} != {n} devices")
+    per = [sum(1 for d in devices if d.process == p) for p in {d.process for d in devices}]
+    if len(set(per)) != 1:
+        raise ValueError(f"every process must hold as many mesh devices: {per}")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devices
+    return Mesh(slices, data, model, arr.reshape(slices, data, model))
 
 
 def data_axis_size(mesh: Mesh) -> int:

@@ -1,9 +1,10 @@
-"""Tensor parallelism over the processes of a `model` mesh axis: the
-collectives XLA inserts for h36x's sharding rules
-(h36x/parallel/mesh.py::_TP_RULES), written by hand.
+"""Tensor parallelism over a `model` mesh axis: the collectives XLA
+inserts for h36x's sharding rules (h36x/parallel/mesh.py::_TP_RULES),
+written by hand, for a model axis over processes (:class:`TensorParallel`)
+or over one process's local devices (:class:`LocalTensorParallel`).
 
-Each process of a model group of size m keeps the 1/m slice of every
-split param (:func:`shard_model`; the dims are
+Over processes, each process of a model group of size m keeps the 1/m
+slice of every split param (:func:`shard_model`; the dims are
 :func:`h36x_torch.parallel.mesh.param_sharding_rules`'s) and runs the
 plain ops on it. Three operations join the slices, each a
 `torch.autograd.Function` over the model group:
@@ -17,15 +18,30 @@ plain ops on it. Three operations join the slices, each a
 - :func:`reduce_from_model`: all-reduce forward, identity backward — where
   a row-split product's partial sums are added.
 
-On them the model runs as h36x's partitioned program does:
+Over local devices (:func:`shard_local`) the model keeps its full params
+and runs as one autograd graph in one thread: each split product runs on
+its own device, on its slice of the param (taken in the graph, moved to
+that device: a no-op for a virtual device), the input moved there; the
+column-split outputs come back to the group's first device and are
+concatenated, the row-split partial sums are added there in model order.
+Autograd's own cross-device copies carry the gradients back, and the full
+params get the gradients of their slices, so the optimizer, the
+checkpoints and the data replicas see one model. (Replicas meeting at a
+barrier inside a backward would deadlock on one card: autograd runs a
+device's backward on one worker thread.) Departure from h36x: the
+replicated parts (GroupNorm, fc3) run once, on the first device, where
+XLA runs them on every device of the group; and on distinct cards the
+param slices move every step.
+
+On either, the model runs as h36x's partitioned program does:
 `input_proj` and every conv split by output channels and gathered to full
 width before the next GroupNorm (GroupNorm and its params stay
 replicated); `f_3D/fc1` split by columns with its output kept split, the
 dropout mask sliced to match; `fc2` split by rows with the partial sums
-all-reduced before its bias; `fc3` replicated. A param that the rules
-leave replicated (a width the axis does not divide) runs whole. The
-gradients of replicated params come out equal on every rank of a model
-group (tests/test_torch_tp.py checks it); the trainer averages all
+added before its bias; `fc3` replicated. A param that the rules leave
+replicated (a width the axis does not divide) runs whole. Over processes,
+the gradients of replicated params come out equal on every rank of a
+model group (tests/test_torch_tp.py checks it); the trainer averages all
 gradients over the data axis only
 (:func:`h36x_torch.parallel.distributed.mean_across_processes`).
 
@@ -37,7 +53,7 @@ axis, and so does the port.
 
 Gloo's all-gather takes host tensors: on CUDA the gather is staged through
 host memory (gloo moves CUDA tensors through the host for its all-reduce
-too). `stats` counts the bytes each collective moves.
+too). `stats` counts the bytes each join moves.
 """
 
 from __future__ import annotations
@@ -51,13 +67,16 @@ from h36x_torch.infer import dropout_mask, sorted_blocks
 from h36x_torch.ops.causal_conv import causal_conv1d
 from h36x_torch.ops.temporal import reference_gn_relu
 from h36x_torch.parallel.distributed import model_group, model_info
+from h36x_torch.parallel.local import to_device
 from h36x_torch.parallel.mesh import param_sharding_rules
 
 
 class TensorParallel:
-    """A model's split over the model axis: `dims` maps each split param
-    (state_dict name) to its split dimension; this process holds block
-    `index` of `size`."""
+    """A model's split over a model axis of processes: `dims` maps each
+    split param (state_dict name) to its split dimension; this process
+    holds block `index` of `size`."""
+
+    collective = True
 
     def __init__(self, dims: Dict[str, int], index: int, size: int, group=None):
         self.dims, self.index, self.size, self.group = dims, index, size, group
@@ -86,6 +105,74 @@ class TensorParallel:
         if name not in self.dims:
             return t
         return _all_gather(t.detach(), self.dims[name], self)
+
+    # the forward's joins: lists over the model indices this process runs
+    def inputs(self, x):
+        return [copy_to_model(x, self)]
+
+    def parts(self, name: str, t):
+        return [t]
+
+    def mask_parts(self, mask, n: int):
+        return [mask[:, self.index * n:(self.index + 1) * n]]
+
+    def join_columns(self, outs):
+        return gather_from_model(outs[0], -1, self)
+
+    def join_sum(self, outs):
+        return reduce_from_model(outs[0], self)
+
+
+class LocalTensorParallel(TensorParallel):
+    """A model's split over a model axis of this process's `devices` (the
+    module docstring): the model holds full params; each split product
+    runs on its device."""
+
+    collective = False
+
+    def __init__(self, dims: Dict[str, int], devices, stats: Optional[dict] = None):
+        super().__init__(dims, 0, len(devices))
+        self.devices = list(devices)
+        if stats is not None:
+            self.stats = stats
+
+    def on(self, devices) -> "LocalTensorParallel":
+        """The same split over other devices (a data replica's model group;
+        one `stats`)."""
+        return LocalTensorParallel(self.dims, devices, self.stats)
+
+    def full_shape(self, name: str, shape) -> tuple:
+        return tuple(shape)
+
+    def local(self, name: str, full):
+        return full
+
+    def gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def inputs(self, x):
+        return [to_device(x, d) for d in self.devices]
+
+    def parts(self, name: str, t):
+        if name not in self.dims:
+            return [to_device(t, d) for d in self.devices]
+        dim = self.dims[name]
+        n = t.shape[dim] // self.size
+        return [to_device(t.narrow(dim, i * n, n), d) for i, d in enumerate(self.devices)]
+
+    def mask_parts(self, mask, n: int):
+        return [to_device(mask[:, i * n:(i + 1) * n], d) for i, d in enumerate(self.devices)]
+
+    def join_columns(self, outs):
+        self.stats["all_gather_bytes"] += sum(o.numel() * o.element_size() for o in outs)
+        return torch.cat([to_device(o, self.devices[0]) for o in outs], dim=-1)
+
+    def join_sum(self, outs):
+        self.stats["all_reduce_bytes"] += sum(o.numel() * o.element_size() for o in outs)
+        total = to_device(outs[0], self.devices[0])
+        for o in outs[1:]:
+            total = total + to_device(o, self.devices[0])
+        return total
 
 
 def _all_gather(x: torch.Tensor, dim: int, tp: TensorParallel) -> torch.Tensor:
@@ -152,6 +239,15 @@ def reduce_from_model(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     return _Reduce.apply(x, tp)
 
 
+def _split_dims(model, mesh) -> Dict[str, int]:
+    dims = {}
+    for name, p in model.named_parameters():
+        dim = param_sharding_rules(name.replace(".", "/"), p, mesh)
+        if dim is not None:
+            dims[name] = dim
+    return dims
+
+
 def shard_model(model, mesh) -> TensorParallel:
     """Keep only this process's block of every param the rules split (in
     place: each Parameter's data becomes its slice) and attach the split to
@@ -161,11 +257,7 @@ def shard_model(model, mesh) -> TensorParallel:
     if size != mesh.model:
         raise ValueError(f"the model axis has {size} process(es), the mesh says "
                          f"{mesh.model} (init_groups first)")
-    dims = {}
-    for name, p in model.named_parameters():
-        dim = param_sharding_rules(name.replace(".", "/"), p, mesh)
-        if dim is not None:
-            dims[name] = dim
+    dims = _split_dims(model, mesh)
     tp = TensorParallel(dims, index, size, model_group())
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -173,6 +265,16 @@ def shard_model(model, mesh) -> TensorParallel:
                 p.data = tp.local(name, p.data).contiguous().clone()
     model.tp = tp
     return tp
+
+
+def shard_local(model, mesh, devices) -> LocalTensorParallel:
+    """Split the model over a model axis of this process's `devices` (a
+    group of :meth:`h36x_torch.parallel.mesh.Mesh.local_groups`) and attach
+    the split as `model.tp`; the params stay whole, on `devices[0]`."""
+    if len(devices) != mesh.model:
+        raise ValueError(f"{len(devices)} local devices for a model axis of {mesh.model}")
+    model.tp = LocalTensorParallel(_split_dims(model, mesh), devices)
+    return model.tp
 
 
 # -- the model on the slices ---------------------------------------------------------
@@ -184,18 +286,20 @@ def _cast(dtype, *ts):
 
 def _dense(tp, x, p, name, dtype):
     """x @ kernel + bias (flax's Dense with its compute dtype); a
-    column-split kernel gives this rank's columns, gathered to full width."""
+    column-split kernel's products joined to full width."""
     x, w, b = _cast(dtype, x, p["kernel"], p["bias"])
     if not tp.split(f"{name}.kernel"):
         return x @ w + b
-    return gather_from_model(copy_to_model(x, tp) @ w + b, -1, tp)
+    return tp.join_columns([xi @ wi + bi for xi, wi, bi in zip(
+        tp.inputs(x), tp.parts(f"{name}.kernel", w), tp.parts(f"{name}.bias", b))])
 
 
 def _conv(tp, h, p, name, dtype):
     h, k, b = _cast(dtype, h, p["kernel"], p["bias"])
     if not tp.split(f"{name}.kernel"):
         return causal_conv1d(h, k, b)
-    return gather_from_model(causal_conv1d(copy_to_model(h, tp), k, b), -1, tp)
+    return tp.join_columns([causal_conv1d(hi, ki, bi) for hi, ki, bi in zip(
+        tp.inputs(h), tp.parts(f"{name}.kernel", k), tp.parts(f"{name}.bias", b))])
 
 
 def _block(tp, x, p, name, groups, mask, dtype):
@@ -225,7 +329,7 @@ def _net(tp, x, net, prefix, groups, generator, dropout, dtype):
 def _regressor(tp, phi, reg, joints_num, iters, generator, dropout, dtype):
     """h36x's iterative JointRegressor: fc1 column-split (its output stays
     split, the dropout mask's columns sliced to match), fc2 row-split with
-    the partial sums all-reduced before its bias, fc3 replicated."""
+    the partial sums added before its bias, fc3 replicated."""
     b, t, d = phi.shape
     out_dim = joints_num * 3
     phi2d, w1, b1, w2, b2, w3, b3 = _cast(
@@ -235,16 +339,25 @@ def _regressor(tp, phi, reg, joints_num, iters, generator, dropout, dtype):
     if split != tp.split("f_3D.fc2.kernel"):
         raise ValueError("f_3D/fc1's columns and fc2's rows must split together")
     hidden = tp.full_shape("f_3D.fc1.kernel", w1.shape)[1]
-    n = w1.shape[1]
+    if split:
+        w1s, b1s = tp.parts("f_3D.fc1.kernel", w1), tp.parts("f_3D.fc1.bias", b1)
+        w2s = tp.parts("f_3D.fc2.kernel", w2)
+        n = w1s[0].shape[1]
     keep = 1.0 - dropout
     y = torch.zeros((b * t, out_dim), dtype=phi2d.dtype, device=phi.device)
     for _ in range(iters):
         inp = torch.cat([phi2d, y], dim=-1)
-        h = torch.relu((copy_to_model(inp, tp) if split else inp) @ w1 + b1)
-        if dropout > 0.0:
-            mask = dropout_mask((b * t, hidden), keep, generator, h)
-            h = h * (mask[:, tp.index * n:(tp.index + 1) * n] if split else mask)
-        h = reduce_from_model(h @ w2, tp) + b2 if split else h @ w2 + b2
+        if split:
+            hs = [torch.relu(xi @ wi + bi) for xi, wi, bi in zip(tp.inputs(inp), w1s, b1s)]
+            if dropout > 0.0:
+                mask = dropout_mask((b * t, hidden), keep, generator, hs[0])
+                hs = [h * m for h, m in zip(hs, tp.mask_parts(mask, n))]
+            h = tp.join_sum([hi @ wi for hi, wi in zip(hs, w2s)]) + b2
+        else:
+            h = torch.relu(inp @ w1 + b1)
+            if dropout > 0.0:
+                h = h * dropout_mask((b * t, hidden), keep, generator, h)
+            h = h @ w2 + b2
         h = torch.relu(h)
         y = y + h @ w3 + b3
     return y.reshape(b, t, joints_num, 3)

@@ -23,10 +23,14 @@ structure shows: the AdamW chain's `inner_state` is a sequence, empty
 optax nodes (`MaskedNode`, `EmptyState`) are None and
 `hyperparams_states` an empty dict.
 
-A tensor-parallel model (:mod:`h36x_torch.parallel.tensor`) saves its full
-arrays, gathered over its model group (every rank calls the save; rank 0
-writes one process's OCDBT layout), and loads them whole, keeping its
-slices. This departs from h36x, whose multi-process orbax saves write one
+A model trained over a local mesh saves replica 0's params, the model
+itself: the data replicas share or copy its params, and a model axis over
+local devices keeps full params on the first one, its slices taken from
+them on each device (:mod:`h36x_torch.parallel.tensor`), so either backend
+writes h36x's bytes and msgpack may save it, as in h36x. A
+tensor-parallel model over processes saves its full arrays, gathered over
+its model group (every rank calls the save; rank 0 writes one process's
+OCDBT layout), and loads them whole, keeping its slices. This departs from h36x, whose multi-process orbax saves write one
 b-tree per process; both layouts are valid orbax directories, and both
 packages read both.
 """
@@ -482,7 +486,7 @@ def save_checkpoint_orbax(directory, name: str, model, optimizer, epoch: int,
     slot_name = f"{name}.{slot}"
     path = (directory / slot_name).absolute()
     main = is_main_process()
-    if not main and model.tp is None:
+    if not main and (model.tp is None or not model.tp.collective):
         return path  # nothing to gather: rank 0 holds every array
     tree = {"params": params_tree(model),
             "opt_state": _to_orbax(opt_state_tree(model, optimizer)),

@@ -1,6 +1,7 @@
 """Epoch-level training loop (counterpart of h36x/train/loop.py, phases 1,
-2 and 0), on one device or over the (slice, data, model) mesh of a process
-group, one device per process (:mod:`h36x_torch.parallel.distributed`).
+2 and 0), on one device or over h36x's (slice, data, model) mesh of this
+process's local devices and the process group
+(:mod:`h36x_torch.parallel.mesh`, :mod:`h36x_torch.parallel.distributed`).
 
 Per epoch: the sampler reshuffles (`set_epoch`), the cosine learning rate
 is set (and in phase 2 the curriculum horizon), the train pass runs
@@ -12,20 +13,23 @@ from a `last` checkpoint of either package and either backend
 (`--ckpt-backend msgpack | orbax`); `--profile-dir` traces the first
 (resumed) epoch. What the port does not run raises (:func:`check_supported`).
 
-Data-parallel: every data index walks the same seeded sampler order and
-gathers only its rows of each global batch, a batch whose rows do not
-divide among them padded by repeating its last index (weight 0 in the
-eval); the steps average gradients and metrics over the data axis, the
-eval's per-batch sums are summed there, and rank 0 alone prints and writes
-metrics.jsonl and checkpoints.
+Data-parallel: every batch is padded to the data axis by repeating its
+last index (weight 0 in the eval); every process walks the same seeded
+sampler order and gathers only its rows of each global batch, which its
+local data replicas split again (:class:`h36x_torch.parallel.local.Replicas`);
+the steps average gradients and metrics over the data axis, the eval's
+per-batch sums are summed over the processes, and rank 0 alone prints and
+writes metrics.jsonl and checkpoints.
 
-Tensor-parallel (`--mesh.model M > 1`, M processes per model group): each
-process keeps its slices of the split params
-(:func:`h36x_torch.parallel.tensor.shard_model`) and runs the plain step on
-them. As in h36x, the fused step and msgpack checkpoints are refused (a
-model axis spans processes); an orbax save gathers the full arrays to rank
-0, and `--resume` and `--init-from` read full arrays and keep each rank's
-slices.
+Tensor-parallel (`--mesh.model M > 1`): over M processes of one device
+each, each process keeps its slices of the split params
+(:func:`h36x_torch.parallel.tensor.shard_model`); over M local devices the
+model keeps its full params and runs its split products on them
+(:func:`h36x_torch.parallel.tensor.shard_local`). Both run the plain step.
+As in h36x, the fused step is refused with a model axis, and msgpack
+checkpoints with a model axis over processes; an orbax save gathers the
+full arrays to rank 0, and `--resume` and `--init-from` read full arrays
+and keep each rank's slices.
 """
 
 from __future__ import annotations
@@ -47,12 +51,14 @@ from h36x_torch.parallel.distributed import (
     data_info,
     init_groups,
     local_batch_slice,
+    process_devices,
     process_info,
     sum_across_processes,
 )
 from h36x_torch.parallel.feed import feed_dtype, prefetch_to_device
-from h36x_torch.parallel.mesh import Mesh, data_axis_size, make_mesh
-from h36x_torch.parallel.tensor import shard_model
+from h36x_torch.parallel.local import Replicas
+from h36x_torch.parallel.mesh import Mesh, data_axis_size, global_devices, make_mesh
+from h36x_torch.parallel.tensor import shard_local, shard_model
 from h36x_torch.train import checkpoint as ckpt
 from h36x_torch.train.state import cosine_lr, make_optimizer, set_learning_rate
 from h36x_torch.train.step import (
@@ -63,7 +69,7 @@ from h36x_torch.train.step import (
     make_weighted_future_eval_step,
 )
 from h36x_torch.utils.profiling import maybe_trace, step_annotation
-from h36x_torch.utils.runtime import resolve_device
+from h36x_torch.utils.runtime import local_devices, resolve_device
 from h36x_torch.utils.timers import PhaseTimers
 
 # --model.dtype -> the model's compute dtype (h36x's names: h36x/config.py)
@@ -71,11 +77,57 @@ COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
                   "bf16": torch.bfloat16}
 
 
-def check_supported(cfg: TrainConfig) -> Mesh:
+def check_supported(cfg: TrainConfig, devices=None) -> Mesh:
     """Raise for every setting the port does not run, rather than run
-    something else; return the mesh. The process layout is
-    :func:`h36x_torch.parallel.mesh.make_mesh` over --dist.num-processes,
-    one device each, and must split the batch evenly."""
+    something else; return the mesh, chosen by h36x's rules
+    (h36x/train/loop.py::fit) over the global device list: this process's
+    `devices` (default: --dist.local-devices unnamed devices, at least one)
+    on each of --dist.num-processes processes. The automatic data axis
+    shrinks to a divisor of the batch; an explicit --mesh.data that does not
+    divide it raises; a multi-process run must use every device."""
+    _check_config(cfg, devices[0] if devices else None)
+    if devices is None:
+        devices = [None] * max(1, cfg.dist.local_devices)
+    processes = max(1, cfg.dist.num_processes)
+    every = global_devices(devices, processes, process_info()[0])
+    n_dev, batch = len(every), cfg.optim.batch_size
+    model_ax, slices = max(1, cfg.mesh.model), max(1, cfg.mesh.slices)
+    if model_ax > n_dev or n_dev % model_ax != 0:
+        raise ValueError(f"--mesh.model {model_ax} must divide the device count ({n_dev})")
+    if slices > 1:
+        if n_dev % (slices * model_ax) != 0:
+            raise ValueError(f"{n_dev} devices not divisible by slices*model="
+                             f"{slices * model_ax}")
+        data_ax = cfg.mesh.data if cfg.mesh.data > 0 else n_dev // (slices * model_ax)
+        if batch % (slices * data_ax) != 0:
+            raise ValueError(
+                f"the combined slice*data axis ({slices * data_ax}) must divide the "
+                f"batch size ({batch}) — pick a batch that is a multiple of slices*data")
+        mesh = make_mesh(data_ax, model_ax, every, slices=slices)
+    else:
+        explicit = cfg.mesh.data > 0
+        data_ax = cfg.mesh.data if explicit else n_dev // model_ax
+        if explicit and batch % data_ax != 0:
+            raise ValueError(
+                f"--mesh.data {data_ax} does not divide the batch size ({batch}); "
+                "adjust one of them (or drop --mesh.data to auto-fit)")
+        while data_ax > 1 and batch % data_ax != 0:
+            data_ax -= 1
+        n_used = data_ax * model_ax
+        if n_used < n_dev:
+            if processes > 1:
+                raise ValueError(
+                    f"multi-process runs must use every device: batch {batch} / mesh "
+                    f"{cfg.mesh} leaves {n_dev - n_used}/{n_dev} devices idle (the "
+                    "data axis must divide the batch size)")
+            _log(f"mesh: using {n_used}/{n_dev} devices (data={data_ax}, "
+                 f"model={model_ax}; batch {batch} must divide the data axis)")
+        mesh = make_mesh(data_ax, model_ax, every[:n_used])
+    check_mesh(cfg, mesh)
+    return mesh
+
+
+def _check_config(cfg: TrainConfig, device=None) -> None:
     o, m = cfg.optim, cfg.model
     if o.phase not in (0, 1, 2):
         raise ValueError(f"unknown --optim.phase {o.phase} (0, 1 or 2)")
@@ -84,24 +136,34 @@ def check_supported(cfg: TrainConfig) -> Mesh:
     if m.dtype not in COMPUTE_DTYPES:
         raise ValueError(f"unknown --model.dtype {m.dtype!r} "
                          f"({', '.join(COMPUTE_DTYPES)})")
-    check_local_devices(cfg.dist)
-    mesh = make_mesh(cfg.mesh.data, cfg.mesh.model, cfg.mesh.slices,
-                     n_processes=max(1, cfg.dist.num_processes))
+    check_local_devices(cfg.dist, device)
+
+
+def check_mesh(cfg: TrainConfig, mesh: Mesh) -> None:
+    """h36x's refusals that read the mesh: a batch axis that does not
+    split among the processes, msgpack checkpoints with a model axis over
+    processes, the fused step with a model axis."""
+    processes = max(1, cfg.dist.num_processes)
     rows = data_axis_size(mesh)
     if cfg.optim.batch_size % rows != 0:
-        raise ValueError(
-            f"the batch axis splits {rows} ways (--mesh.data x --mesh.slices, one "
-            f"per process) and must divide the batch size ({cfg.optim.batch_size})")
-    if mesh.model > 1 and cfg.ckpt_backend == "msgpack":
+        raise ValueError(f"the batch axis splits {rows} ways and must divide the "
+                         f"batch size ({cfg.optim.batch_size})")
+    local = 1 if mesh.devices is None else mesh.local_count
+    # the processes that read different rows (a model axis over processes
+    # reads one block on each of its ranks)
+    readers = processes // (mesh.model // local if mesh.model > local else 1)
+    if rows % readers != 0:
+        raise ValueError(f"batch-sharding axis {rows} not divisible by {readers} "
+                         "processes — local_batch_slice needs equal row counts")
+    if processes > 1 and cfg.ckpt_backend == "msgpack" and mesh.model > local:
         # h36x's refusal: rank 0 cannot device_get the other processes' shards
         raise ValueError(
-            f"model axis {mesh.model} spans processes (local devices: 1); use "
+            f"model axis {mesh.model} spans processes (local devices: {local}); use "
             "--ckpt-backend orbax, whose saves are collective")
-    if mesh.model > 1 and o.fused:
+    if mesh.model > 1 and cfg.optim.fused:
         raise ValueError(
             "--optim.fused does not support --mesh.model > 1; use the default "
             "plain step for tensor parallelism")
-    return mesh
 
 
 def build_model(cfg: TrainConfig, device=None,
@@ -125,11 +187,12 @@ def build_model(cfg: TrainConfig, device=None,
 
 
 def _batches(dataset, sampler, device, feats_dtype, with_weights: bool = False,
-             stack: int = 1):
+             stack: int = 1, pad_to: int = 1):
     """Host batches -> device batches, prefetched by a background thread.
-    Each process of the process group gathers only its `local_batch_slice`
-    rows of every global batch; a batch whose rows do not divide among the
-    processes is padded by repeating its last index. With with_weights every batch
+    A batch whose rows do not divide the data axis (`pad_to`, at least the
+    processes') is padded by repeating its last index; each process of the
+    process group then gathers only its `local_batch_slice` rows of every
+    global batch. With with_weights every batch
     gains a float32 (B,) weight vector, 1 on real rows and 0 on padded ones
     (the weighted eval step's contract).
 
@@ -140,13 +203,14 @@ def _batches(dataset, sampler, device, feats_dtype, with_weights: bool = False,
     shorter."""
 
     rank, processes = data_info()
+    pad_to = max(pad_to, processes)
 
     def gen():
         for idx_batch in sampler:
             idx_batch = list(idx_batch)
             real = len(idx_batch)
-            if real % processes:
-                idx_batch += [idx_batch[-1]] * (processes - real % processes)
+            if real % pad_to:
+                idx_batch += [idx_batch[-1]] * (pad_to - real % pad_to)
             rows = local_batch_slice(len(idx_batch), rank, processes)
             batch = dataset.get_batch(idx_batch[rows])[:4]
             if with_weights:
@@ -195,7 +259,7 @@ def _log(*args, **kwargs) -> None:
 
 
 def train_epoch(train_step, dataset, sampler, device, feats_dtype, generator,
-                log_every: int = 500, horizon: Optional[int] = None):
+                log_every: int = 500, horizon: Optional[int] = None, pad_to: int = 1):
     """One epoch. Metric tensors stay on the device until a log point or
     the epoch's end, so steps are not synchronised one by one. A grouped
     step (`train_step.group` > 1) takes stacked groups of batches; `n`
@@ -214,7 +278,8 @@ def train_epoch(train_step, dataset, sampler, device, feats_dtype, generator,
     stack = train_step.group
 
     timers.start("data")
-    for batch in _batches(dataset, sampler, device, feats_dtype, stack=stack):
+    for batch in _batches(dataset, sampler, device, feats_dtype, stack=stack,
+                          pad_to=pad_to):
         timers.stop("data")
         timers.start("step")
         with step_annotation("train_step"):
@@ -249,16 +314,18 @@ def train_epoch(train_step, dataset, sampler, device, feats_dtype, generator,
     return means
 
 
-def evaluate(eval_step, dataset, sampler, device, feats_dtype):
+def evaluate(eval_step, dataset, sampler, device, feats_dtype, pad_to: int = 1):
     """Validation pass with a weighted eval step (per-batch sums over real
-    rows plus the row count), drained once at the end. Under several
-    processes the per-batch sums are summed over them first, so every rank
-    gets the dataset's exact means."""
+    rows plus the row count), drained once at the end; batches padded to
+    `pad_to` rows (the data axis). Under several processes the per-batch
+    sums are summed over them first, so every rank gets the dataset's exact
+    means."""
     timers = PhaseTimers()
     pending: list = []
     n = 0
     timers.start("data")
-    for batch in _batches(dataset, sampler, device, feats_dtype, with_weights=True):
+    for batch in _batches(dataset, sampler, device, feats_dtype, with_weights=True,
+                          pad_to=pad_to):
         timers.stop("data")
         timers.start("step")
         pending.append(eval_step(batch))
@@ -298,21 +365,36 @@ def _append_metrics(outdir, record: dict) -> None:
 
 
 def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
-        device=None):
-    """Full training run on one device (cuda unless the caller asks for
-    another), or one process's part of a run over the process group
-    (--dist.num-processes of them, joined by
+        mesh: Optional[Mesh] = None, device=None):
+    """Full training run (h36x's signature: `mesh` None chooses one by
+    h36x's rules, :func:`check_supported`, over this process's local
+    devices, :func:`h36x_torch.utils.runtime.local_devices` of `device`
+    (cuda unless the caller asks for another) and --dist.local-devices;
+    or the given mesh, e.g. `make_mesh(2, 1, devices=[cuda0, cuda0])`),
+    this process's part of a run over the process group when there is one
+    (--dist.num-processes, joined by
     :func:`h36x_torch.parallel.distributed.setup_from_config`); returns
-    (model, best_val). Under tensor parallelism the model holds this
-    process's slices (`model.tp`)."""
-    mesh = check_supported(cfg)
+    (model, best_val). The model lives on the first local device; under
+    tensor parallelism over processes it holds this process's slices
+    (`model.tp`)."""
     rank, processes = process_info()
     if processes != max(1, cfg.dist.num_processes):
         raise ValueError(f"--dist.num-processes {cfg.dist.num_processes} but the "
                          f"process group holds {processes} (setup_from_config "
                          "joins it)")
+    if mesh is None:
+        if device is None and process_devices()[0] is not None:
+            devices = process_devices()  # setup_from_config's
+        else:
+            devices = local_devices(device, cfg.dist.local_devices
+                                    if resolve_device(device).type == "cpu" else 0)
+        mesh = check_supported(cfg, devices)
+    else:
+        _check_config(cfg)
+        check_mesh(cfg, mesh)
     main = rank == 0
-    device = resolve_device(device)
+    groups = mesh.local_groups(rank)
+    device = groups[0][0]
     o = cfg.optim
     phase = o.phase
     init_groups(mesh)
@@ -321,11 +403,16 @@ def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
         model.load_state_dict(ckpt.load_params_only(cfg.init_from, model.state_dict()))
         _log(f"Initialized model weights from {cfg.init_from}")
     if mesh.model > 1:
-        tp = shard_model(model, mesh)
+        tp = (shard_model(model, mesh) if len(groups[0]) == 1
+              else shard_local(model, mesh, groups[0]))
         _log(f"mesh: data={data_axis_size(mesh)}, model={mesh.model}; "
              f"{len(tp.dims)} params split over the model axis")
+    elif len(groups) > 1:
+        _log(f"mesh: data={data_axis_size(mesh)} ({len(groups)} local devices"
+             + (f" x {processes} processes)" if processes > 1 else ")"))
     optimizer, _ = make_optimizer(model, o.lr, o.weight_decay, freeze_ar=o.freeze_ar,
                                   phase=phase if phase != 1 else None)
+    replicas = Replicas(model, groups) if len(groups) > 1 else None
     if phase == 2:
         if o.fused:
             # no fused phase-2 step exists; training the plain path while the
@@ -337,17 +424,20 @@ def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
         train_step = make_future_train_step(
             model, optimizer, input_len=o.input_len, pred_len=o.pred_len,
             lambda_joints=o.lambda_future, scan_steps=o.steps_per_dispatch,
-            accum_steps=o.grad_accum)
+            accum_steps=o.grad_accum, replicas=replicas)
         # score the AR path: the plain eval reads only modules phase 2
         # freezes, so its metric would be constant and early-stop blindly
         eval_step = make_weighted_future_eval_step(
             model, input_len=o.input_len, pred_len=o.pred_len,
-            lambda_joints=o.lambda_future)
+            lambda_joints=o.lambda_future, replicas=replicas)
     else:
         train_step = make_train_step(
             model, optimizer, fused=o.fused, lambda_2d=o.lambda_2d,
-            scan_steps=o.steps_per_dispatch, accum_steps=o.grad_accum)
-        eval_step = make_weighted_eval_step(model, use_kernels=o.fused)
+            scan_steps=o.steps_per_dispatch, accum_steps=o.grad_accum,
+            replicas=replicas)
+        eval_step = make_weighted_eval_step(model, use_kernels=o.fused,
+                                            replicas=replicas)
+    pad_to = data_axis_size(mesh)
     feats_dtype = feed_dtype(cfg.data.feed_dtype)
     save = (ckpt.save_checkpoint_orbax if cfg.ckpt_backend == "orbax"
             else ckpt.save_checkpoint)
@@ -393,11 +483,11 @@ def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
         with maybe_trace(cfg.profile_dir if epoch == start_epoch else None, device):
             tr = train_epoch(train_step, train_set, train_sampler, device,
                              feats_dtype, gen, log_every=o.log_every,
-                             horizon=horizon)
+                             horizon=horizon, pad_to=pad_to)
         steps += tr["_graph_replays"] * train_step.scan_steps + tr["_eager_steps"]
         # the bytes the model group's collectives moved in the train pass
         tp_train = {f"tp_train_{k}": model.tp.stats[k] - v for k, v in tp_before.items()}
-        va = evaluate(eval_step, val_set, val_sampler, device, feats_dtype)
+        va = evaluate(eval_step, val_set, val_sampler, device, feats_dtype, pad_to)
 
         _log(f"Train: loss={tr['loss']:.6f}"
              + (f" (2d {tr['l2d']:.6f})" if tr.get("l2d") else "")

@@ -18,7 +18,10 @@ import torch
 from h36x_torch.data.features import FeatureClipDataset
 from h36x_torch.data.shards import BF16_BITS, as_tensor
 from h36x_torch.data.sampler import SequentialBatchSampler
-from h36x_torch.train.step import make_forward
+from h36x_torch.parallel.local import Replicas, replica_of
+from h36x_torch.parallel.mesh import data_axis_size
+from h36x_torch.parallel.tensor import shard_local
+from h36x_torch.train.step import make_forward, make_weighted_eval_step
 
 
 def find_video_path(preprocessed_root: str, meta: dict) -> str:
@@ -87,18 +90,25 @@ def evaluate_test(model, dataset: FeatureClipDataset, batch_size: int = 16,
     mean is exact even when the tail batch is short and there is no
     per-batch host sync. `use_kernels` as in the trainer's eval: the fused
     kernels on CUDA tensors, at precise=True (float32, as training and the
-    model's own forward). A `mesh` (evaluation sharded over several
-    devices) is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "evaluate_test over a device mesh is not ported to h36x_torch yet "
-            "(it comes with the multi-GPU slice); pass mesh=None")
+    model's own forward). With a `mesh` (h36x's), batches are padded to
+    its data axis (weight 0) and their rows split over this process's
+    local devices, the params placed on each device once
+    (:class:`h36x_torch.parallel.local.Replicas`); a model axis inside the
+    process splits the wide layers over its devices (a replica of the
+    model carries the split, the model itself is left as it is)."""
     from h36x_torch.train.loop import evaluate
-    from h36x_torch.train.step import make_weighted_eval_step
 
-    step = make_weighted_eval_step(model, use_kernels=use_kernels)
+    replicas, pad_to = None, 1
+    if mesh is not None:
+        groups = mesh.local_groups()
+        if len(groups[0]) > 1 and model.tp is None:
+            model = replica_of(model, groups[0])
+            shard_local(model, mesh, groups[0])
+        replicas = Replicas(model, groups, grads=False)
+        pad_to = data_axis_size(mesh)
+    step = make_weighted_eval_step(model, use_kernels=use_kernels, replicas=replicas)
     sampler = SequentialBatchSampler(dataset, batch_size)
-    metrics = evaluate(step, dataset, sampler, _device_of(model), torch.float32)
+    metrics = evaluate(step, dataset, sampler, _device_of(model), torch.float32, pad_to)
     return metrics["loss"], metrics["mpjpe"], metrics["l3d"], 0.0
 
 

@@ -27,13 +27,19 @@ of a CUDA graph holding the k steps (forward, backward, AdamW), the
 counterpart of h36x's one-dispatch `lax.scan`. `accum_steps = k` makes one
 update from the mean gradient of k microbatches.
 
-Data-parallel (a process group of several processes, each step given this
-process's rows of the global batch): between backward and AdamW the
-trainable gradients and the step's metrics are averaged over the processes
-with one flat all-reduce, which is h36x's mean over the global batch, and
-the dropout masks are the global batch's, this process's rows of them
+Data-parallel (a data axis over processes, each step given this
+process's rows of the global batch, and over the process's local devices,
+:class:`h36x_torch.parallel.local.Replicas`: each replica runs the fused
+or plain step on its block of those rows, its kernels queued from this
+thread): between backward and AdamW the trainable gradients and the step's
+metrics are averaged over the replicas and then the processes through one
+flat float32 buffer (:func:`h36x_torch.parallel.distributed.mean_across_processes`),
+which is h36x's mean over the global batch, AdamW runs once, on the
+model, and the replicas read its params; the dropout masks are the
+global batch's, each replica's rows of them
 (:func:`h36x_torch.infer.dropout_mask`). Grouped steps then run eagerly:
-a gloo collective cannot sit in a CUDA graph.
+a gloo collective cannot sit in a CUDA graph, and a graph of one card
+would not hold the others' steps.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 
 from h36x_torch.infer import make_fused_forward
 from h36x_torch.models.phd import param_tree
+from h36x_torch.parallel import local
 from h36x_torch.parallel.distributed import mean_across_processes, process_info
 from h36x_torch.train.losses import (
     bone_length_loss,
@@ -166,12 +173,13 @@ class TrainStep:
     `eager_steps` counts the updates run eagerly, `graph_replays` the
     replays (each `scan_steps` updates).
 
-    In a process group of several processes (the module docstring) every
-    update averages the gradients and metrics over the processes first,
-    and groups run eagerly."""
+    Over a data axis of several processes or local replicas (the module
+    docstring; `replicas`, with `grads_for(model)` making each replica's
+    `grads_fn`) every update averages the gradients and metrics over them
+    first, and groups run eagerly."""
 
     def __init__(self, model, optimizer, grads_fn: Callable, scan_steps: int = 1,
-                 accum_steps: int = 1):
+                 accum_steps: int = 1, replicas=None, grads_for: Optional[Callable] = None):
         if scan_steps > 1 and accum_steps > 1:
             raise ValueError("scan_steps and accum_steps are mutually exclusive")
         self.model = model
@@ -185,14 +193,49 @@ class TrainStep:
         self.graph_replays = 0
         self.eager_steps = 0
         self._graphs: dict = {}
+        self.replicas = replicas if replicas is not None and replicas.count > 1 else None
+        self.grads_fns, self.replica_trainable = [grads_fn], [self.trainable]
+        if self.replicas is not None:
+            names = {id(p): n for n, p in model.named_parameters()}
+            order = [names[id(p)] for p in self.trainable]
+            for m in self.replicas.models[1:]:
+                self.grads_fns.append(grads_for(m))
+                named = dict(m.named_parameters())
+                self.replica_trainable.append([named[n] for n in order])
+
+    def _replica_grads(self, batch, generator) -> list:
+        """[(the trainable gradients, the metrics)] of each replica on its
+        block of `batch`'s rows (one replica: the whole batch). A trainable
+        parameter that the loss does not reach gets a zero gradient."""
+        if self.replicas is None:
+            parts, state = [batch], None
+        else:
+            self.replicas.sync()
+            parts = self.replicas.split(batch)
+            # replicas draw one state's masks (none at dropout 0)
+            state = (generator.get_state() if generator is not None
+                     and self.model.dropout > 0.0 else None)
+        out = []
+        gen = generator
+        for r, (fn, part, params) in enumerate(zip(self.grads_fns, parts,
+                                                   self.replica_trainable)):
+            if state is not None:
+                gen = local.generator_at(generator, part[0].device, state)
+            with local.running(r, len(parts)):
+                metrics = fn(part, gen)
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            out.append(([p.grad for p in params], metrics))
+        if gen is not generator:
+            generator.set_state(gen.get_state())
+        return out
 
     def _update(self, batch, generator=None) -> dict:
         """One optimizer update from one batch, eagerly."""
-        metrics = self.grads_fn(batch, generator)
-        for p in self.trainable:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        mean_across_processes([p.grad for p in self.trainable] + list(metrics.values()))
+        (grads, metrics), *others = self._replica_grads(batch, generator)
+        mean_across_processes(grads + list(metrics.values()),
+                              [g + list(m.values()) for g, m in others])
         self.optimizer.step()
         return metrics
 
@@ -206,7 +249,7 @@ class TrainStep:
         if self.accum_steps > 1:
             return self._accumulate(batch, generator)
         if (batch[0].device.type != "cuda" or batch[0].shape[0] < self.scan_steps
-                or self.processes > 1):
+                or self.processes > 1 or self.replicas is not None):
             return self.run_eager(batch, generator)
         key = tuple((tuple(b.shape), b.dtype) for b in batch)
         if key not in self._graphs:
@@ -232,20 +275,25 @@ class TrainStep:
 
     def _accumulate(self, batches, generator) -> dict:
         n = batches[0].shape[0]
-        acc = [torch.zeros_like(p) for p in self.trainable]
-        out = []
+        accs = [[torch.zeros_like(p) for p in params] for params in self.replica_trainable]
+        outs = [[] for _ in accs]
         for i in range(n):
-            out.append(self.grads_fn(tuple(b[i] for b in batches), generator))
-            for a, p in zip(acc, self.trainable):
-                if p.grad is not None:
-                    a.add_(p.grad)
-        for a, p in zip(acc, self.trainable):
-            p.grad = a.div_(n)
-        metrics = _stack(out)
-        mean_across_processes(acc + list(metrics.values()))
+            replicas = self._replica_grads(tuple(b[i] for b in batches), generator)
+            for acc, out, (grads, metrics) in zip(accs, outs, replicas):
+                out.append(metrics)
+                for a, g in zip(acc, grads):
+                    a.add_(g)
+        for acc in accs:
+            for a in acc:
+                a.div_(n)
+        for a, p in zip(accs[0], self.trainable):
+            p.grad = a
+        metrics = [_stack(out) for out in outs]
+        mean_across_processes(accs[0] + list(metrics[0].values()),
+                              [a + list(m.values()) for a, m in zip(accs[1:], metrics[1:])])
         self.optimizer.step()
         self.eager_steps += 1
-        return metrics
+        return metrics[0]
 
     def _capture(self, batches, generator):
         """Record the group's steps as one CUDA graph over static copies of
@@ -288,16 +336,20 @@ class FutureTrainStep(TrainStep):
     place on every call, so one captured graph serves every epoch."""
 
     def __init__(self, model, optimizer, input_len: int, lambda_joints: float,
-                 scan_steps: int = 1, accum_steps: int = 1):
+                 scan_steps: int = 1, accum_steps: int = 1, replicas=None):
         dev = next(model.parameters()).device
         self.horizon = torch.zeros((), dtype=torch.int32, device=dev)
 
-        def grads(batch, generator):
-            return future_grads_and_metrics(model, batch, generator, self.horizon,
-                                            input_len=input_len,
-                                            lambda_joints=lambda_joints)
+        def grads_for(m):
+            def grads(batch, generator):
+                return future_grads_and_metrics(m, batch, generator,
+                                                self.horizon.to(batch[0].device),
+                                                input_len=input_len,
+                                                lambda_joints=lambda_joints)
+            return grads
 
-        super().__init__(model, optimizer, grads, scan_steps, accum_steps)
+        super().__init__(model, optimizer, grads_for(model), scan_steps, accum_steps,
+                         replicas, grads_for)
 
     def __call__(self, batch, generator=None, horizon=1) -> dict:
         if isinstance(horizon, torch.Tensor):
@@ -309,21 +361,25 @@ class FutureTrainStep(TrainStep):
 
 def make_train_step(model, optimizer, fused: bool = False,
                     lambda_2d: float = 0.0, scan_steps: int = 1,
-                    accum_steps: int = 1) -> TrainStep:
+                    accum_steps: int = 1, replicas=None) -> TrainStep:
     """The phase-1 (and phase-0) :class:`TrainStep`:
     step(batch | group, generator) -> metrics {loss, l3d, l2d, mpjpe,
-    bone}."""
-    def grads(batch, generator):
-        return grads_and_metrics(model, batch, generator, fused=fused,
-                                 lambda_2d=lambda_2d)
+    bone}; over `replicas` (:class:`h36x_torch.parallel.local.Replicas`)
+    when given."""
+    def grads_for(m):
+        def grads(batch, generator):
+            return grads_and_metrics(m, batch, generator, fused=fused,
+                                     lambda_2d=lambda_2d)
+        return grads
 
-    return TrainStep(model, optimizer, grads, scan_steps, accum_steps)
+    return TrainStep(model, optimizer, grads_for(model), scan_steps, accum_steps,
+                     replicas, grads_for)
 
 
 def make_future_train_step(model, optimizer, input_len: int = 15,
                            pred_len: int = 25, lambda_joints: float = 1.0,
                            scan_steps: int = 1,
-                           accum_steps: int = 1) -> FutureTrainStep:
+                           accum_steps: int = 1, replicas=None) -> FutureTrainStep:
     """Phase 2's step (h36x/train/step.py::make_future_train_step): train
     f_AR, the other modules frozen by the phase-2 optimizer.
 
@@ -337,7 +393,7 @@ def make_future_train_step(model, optimizer, input_len: int = 15,
     Plain ops (h36x has no fused phase-2 step)."""
     del pred_len
     return FutureTrainStep(model, optimizer, input_len, lambda_joints,
-                           scan_steps, accum_steps)
+                           scan_steps, accum_steps, replicas)
 
 
 def curriculum_horizon(epoch: int, pred_len: int = 25, steps: int = 25) -> int:
@@ -348,12 +404,22 @@ def curriculum_horizon(epoch: int, pred_len: int = 25, steps: int = 25) -> int:
     return min(pred_len, 1 + epoch * pred_len // steps)
 
 
-def make_forward(model, use_kernels: bool = True) -> Callable:
+def make_forward(model, use_kernels: bool = True, replicas=None) -> Callable:
     """forward(feats) -> joints_pred (B,T,J,3), eval mode, f_AR skipped, at
     precise=True: the trainer's eval and the results stage keep float32.
     A model with a compute dtype runs the plain engine in it (h36x's eval is
     `model.apply` at the model's dtype), whatever `use_kernels` says; a
-    tensor-parallel one its slices' plain forward."""
+    tensor-parallel one its slices' plain forward. Over `replicas` each
+    replica runs its block of the rows (padded to the replica count) and
+    the joints come back in order."""
+    if replicas is not None and replicas.count > 1:
+        fwd = {id(m): make_forward(m, use_kernels) for m in replicas.models}
+
+        def forward(feats):
+            replicas.sync()
+            return local.on_replicas(replicas, lambda m, x: fwd[id(m)](x), feats)
+
+        return forward
     if model.tp is not None:
         from h36x_torch.parallel import tensor
         return lambda feats: tensor.joints(model, feats.float())
@@ -385,11 +451,13 @@ def make_eval_step(model, return_preds: bool = False,
     return step
 
 
-def make_weighted_eval_step(model, use_kernels: bool = True) -> Callable:
+def make_weighted_eval_step(model, use_kernels: bool = True, replicas=None) -> Callable:
     """Eval step returning weighted per-batch SUMS instead of means:
     batch = (feats, joints3d, ..., weights), weights float32 (B,) with 0 on
-    padded rows, so the caller forms exact dataset means."""
-    forward = make_forward(model, use_kernels)
+    padded rows, so the caller forms exact dataset means. Over `replicas`
+    the forward runs on each replica's rows (:func:`make_forward`) and the
+    sums are taken over the merged rows."""
+    forward = make_forward(model, use_kernels, replicas)
 
     def step(batch):
         joints3d, w = batch[1], batch[-1]
@@ -405,19 +473,27 @@ def make_weighted_eval_step(model, use_kernels: bool = True) -> Callable:
 
 def make_weighted_future_eval_step(model, input_len: int = 15, pred_len: int = 25,
                                    lambda_joints: float = 1.0,
-                                   use_kernels: bool = False) -> Callable:
+                                   use_kernels: bool = False, replicas=None) -> Callable:
     """Phase 2's validation step (h36x's make_weighted_future_eval_step):
     scores the AR path, which phase 2 trains, over the full prediction
     window [input_len, input_len + pred_len) (no curriculum), with the
     weighted-SUM contract of :func:`make_weighted_eval_step`: loss = l_ar +
     lambda_joints * l3d, mpjpe and bone on the AR-predicted joints, each a
     per-row window mean weighted by the row's weight. `use_kernels=False`,
-    as h36x scores phase 2 on its plain path."""
+    as h36x scores phase 2 on its plain path. Over `replicas` as
+    :func:`make_weighted_eval_step`."""
+
+    def run(m, feats):
+        return m(feats, predict_future=True, use_kernels=use_kernels)
 
     def step(batch):
         joints3d, w = batch[1], batch[-1]
-        phi, phi_hat, _, joints_hat = model(batch[0].float(), predict_future=True,
-                                            use_kernels=use_kernels)
+        if replicas is not None and replicas.count > 1:
+            replicas.sync()
+            phi, phi_hat, _, joints_hat = local.on_replicas(replicas, run,
+                                                            batch[0].float())
+        else:
+            phi, phi_hat, _, joints_hat = run(model, batch[0].float())
         mask, denom = _window(phi.shape[1], input_len, pred_len, phi.device)
 
         def window_mean(per_frame):  # (B, T) -> (B,)

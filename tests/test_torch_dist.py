@@ -16,6 +16,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from h36x_torch.config import TrainConfig
 from h36x_torch.parallel import distributed
@@ -164,21 +165,28 @@ def test_local_batch_slice_partitions_and_refuses_an_indivisible_batch():
 
 def test_mesh_layout_checks():
     assert data_axis_size(make_mesh(n_processes=4)) == 4
-    assert data_axis_size(make_mesh(2, 1, 2, n_processes=4)) == 4
-    assert make_mesh(-1, 1, 2, n_processes=4).shape == {"slice": 2, "data": 2, "model": 1}
+    assert data_axis_size(make_mesh(2, 1, slices=2, n_processes=4)) == 4
+    assert make_mesh(-1, 1, slices=2, n_processes=4).shape == {
+        "slice": 2, "data": 2, "model": 1}
     with pytest.raises(ValueError, match="not divisible by slices"):
-        make_mesh(-1, 1, 3, n_processes=4)
+        make_mesh(-1, 1, slices=3, n_processes=4)
     with pytest.raises(ValueError, match="!= 4 devices"):
-        make_mesh(1, 1, 1, n_processes=4)
-    with pytest.raises(NotImplementedError, match="more than one device per process"):
-        make_mesh(4, 1, 1, n_processes=2)
+        make_mesh(1, 1, n_processes=4)
+    # more devices than processes: 2 processes x 2 local devices, process
+    # by process in the mesh's row-major order
+    mesh = make_mesh(4, 1, ["cpu", "cpu"], n_processes=2)
+    assert [(d.process, d.index) for d in mesh.devices.reshape(-1)] == [
+        (0, 0), (0, 1), (1, 0), (1, 1)]
+    assert mesh.local_groups(0) == [[torch.device("cpu")]] * 2
 
 
 @pytest.mark.parametrize("field, value", [("mesh.model", 2), ("dist.local_devices", 2)])
 def test_tensor_parallel_and_local_devices_raise(field, value):
-    """Two local devices per process raise. A model axis of 2 over 2
-    processes, refused until tensor parallelism was ported, now makes a
-    1 x 1 x 2 mesh (with orbax checkpoints; tests/test_torch_tp.py runs it)."""
+    """Neither raises any more. A model axis of 2 over 2 processes makes a
+    1 x 1 x 2 mesh (with orbax checkpoints; tests/test_torch_tp.py runs it).
+    Two local devices per process (the CPU's virtual devices) make a data
+    axis of 4 over 2 processes, and one process's setup returns its two
+    devices; on CUDA the count is refused (CPU only, as h36x's)."""
     cfg = TrainConfig()
     cfg.dist.num_processes = 2
     head, _, leaf = field.rpartition(".")
@@ -188,13 +196,17 @@ def test_tensor_parallel_and_local_devices_raise(field, value):
         assert check_supported(cfg).shape == {"slice": 1, "data": 1, "model": 2}
         assert make_mesh(cfg.mesh.data, cfg.mesh.model, n_processes=2).model == 2
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        if field.startswith("dist"):
-            distributed.setup_from_config(cfg.dist, "cpu")
-        else:
-            make_mesh(cfg.mesh.data, cfg.mesh.model, n_processes=2)
+    assert check_supported(cfg).shape == {"slice": 1, "data": 4, "model": 1}
+    cfg.dist.num_processes = 1
+    try:
+        assert distributed.setup_from_config(cfg.dist, "cpu") == [torch.device("cpu")] * 2
+        assert distributed.process_devices() == [torch.device("cpu")] * 2
+        assert make_mesh().shape == {"slice": 1, "data": 2, "model": 1}
+    finally:
+        distributed.shutdown()
+    assert distributed.process_devices() == [None]
+    with pytest.raises(ValueError, match="CPU's virtual device count"):
+        distributed.check_local_devices(cfg.dist, "cuda")
 
 
 def test_batch_must_divide_among_the_processes():

@@ -40,7 +40,7 @@ def fake_port_backbone(monkeypatch):
     same per-row float64 projection of the u8 pixels, so both packages'
     stores must agree byte for byte."""
 
-    def make(model, engine="flax"):
+    def make(model, mesh=None, engine="flax"):
         def fn(frames):
             flat = frames.numpy().reshape(frames.shape[0], -1).astype(np.float64)
             return torch.from_numpy(np.tile(np.asarray(flat @ _PROJ, np.float32),

@@ -109,10 +109,24 @@ def test_evaluate_test_plain_equals_kernels_flag_on_the_cpu(store, port_model):
             == results.evaluate_test(port_model, ds, 4, use_kernels=True))
 
 
-def test_evaluate_test_mesh_raises(store, port_model):
+def test_evaluate_test_mesh_raises(store, flax_state, port_model):
+    """evaluate_test(mesh=) runs (it raised before the mesh was ported):
+    over 4 virtual CPU devices, the tail of 2 rows padded to 4 with weight 0,
+    it equals the one-device metrics at rtol 1e-6, and h36x's over its own
+    4-device mesh at TOL (tests/test_torch_mesh.py holds more cases)."""
+    from h36x.parallel.mesh import make_mesh as jax_make_mesh
+    from h36x_torch.parallel.mesh import make_mesh
+
     ds = FeatureClipDataset(store, subjects=[9], test_set=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        results.evaluate_test(port_model, ds, mesh=object())
+    want = results.evaluate_test(port_model, ds, 4)
+    got = results.evaluate_test(port_model, ds, 4, mesh=make_mesh(4, devices=["cpu"] * 4))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert port_model.tp is None
+    flax_model, state = flax_state
+    jax_got = jax_results.evaluate_test(
+        flax_model, state.params, JaxDataset(str(store), subjects=[9], test_set=True),
+        batch_size=4, mesh=jax_make_mesh(data=4, model=1, devices=jax.devices()[:4]))
+    np.testing.assert_allclose(got[:3], jax_got[:3], **TOL)
 
 
 # -- video helpers ------------------------------------------------------------------

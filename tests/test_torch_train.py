@@ -361,10 +361,12 @@ def test_checkpoint_params_read_by_h36x(flax_small, tmp_path):
     ("mesh.model", 2), ("dist.local_devices", 2),
 ])
 def test_trainer_refuses_what_this_slice_does_not_run(field, value):
-    """More devices than processes (mesh.data 2 on one process; two local
-    devices) raise. Orbax checkpoints and tensor parallelism, refused until
-    they were ported, now pass the check (a model axis of 2 on 2 processes,
-    orbax: tests/test_torch_tp.py runs it)."""
+    """None of these is refused any more. Orbax checkpoints and a model axis
+    of 2 on 2 processes pass the check (tests/test_torch_tp.py runs it).
+    More devices than processes run on local devices: two of them
+    (--dist.local-devices 2, the CPU's virtual devices) make a data axis of
+    2, which --mesh.data 2 may name; --mesh.data 2 on one device raises
+    h36x's ValueError (tests/test_torch_mesh.py trains on such meshes)."""
     cfg = TrainConfig()
     head, _, leaf = field.rpartition(".")
     setattr(getattr(cfg, head) if head else cfg, leaf, value)
@@ -374,8 +376,13 @@ def test_trainer_refuses_what_this_slice_does_not_run(field, value):
         mesh = check_supported(cfg)
         assert mesh.model == (value if field == "mesh.model" else 1)
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        check_supported(cfg)
+    if field == "mesh.data":
+        with pytest.raises(ValueError, match="mesh 2x1 != 1 devices"):
+            check_supported(cfg)
+        cfg.dist.local_devices = 2
+    mesh = check_supported(cfg, [torch.device("cpu")] * 2)
+    assert mesh.shape == {"slice": 1, "data": 2, "model": 1}
+    assert mesh.local_groups() == [[torch.device("cpu")], [torch.device("cpu")]]
 
 
 @pytest.mark.parametrize("value", ["float32", "bfloat16", "bf16", "float16"])
