@@ -4,6 +4,7 @@ prediction paths, the tools and the matmul probe once on one NVIDIA GPU
 (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --local-mesh   # the trainer, then the mesh phase alone
 
 1. Setup: prints the card and its power limit, builds the six CUDA kernels
    from h36x_torch/ops/csrc/ (one nvcc per source, all started together)
@@ -123,7 +124,8 @@ prediction paths, the tools and the matmul probe once on one NVIDIA GPU
    2-process rows (train_dist_control): one process (this script as
    --control-worker REPORT ARGS), the same store, init and flags, each
    update made from the fused step's gradients of rows 0-15 and 16-31
-   taken separately and averaged as the all-reduce averages them: its loss
+   taken separately and averaged as the all-reduce averages them, each
+   eval forward on the two row blocks apart as the ranks run it: its loss
    at every step beside the 2-process run's and the one process's, within
    CONTROL_TOL of the 2-process run (bit for bit logged), its rows and
    final params compared too. Then orbax checkpoints and tensor
@@ -145,10 +147,12 @@ prediction paths, the tools and the matmul probe once on one NVIDIA GPU
    devices [cuda:0, cuda:0] (one card named twice: virtual devices, not a
    speed of several cards) through make_mesh(..., devices=...);
    fit(mesh=data 2) fused, bit for bit the C.1 control (every step's loss,
-   the train rows, `last`; the eval rows at CONTROL_TOL, the replicas'
-   B1/B3 launches covering 16 rows to the control's 32), within
-   DIST_ROW_TOL of one process, B1-B4 launched twice the one-process run's,
-   step ms beside the control's run in this process; fit(mesh=data 1 x model 2) on the plain
+   the train and eval rows, `last`; the control's eval forwards the two
+   row blocks apart; a witness of which stages of the eval forward round
+   a row otherwise in a 16-row launch than in a 32-row one, B1 and B3 held
+   to none), within DIST_ROW_TOL of one process, B1-B4
+   launched twice the one-process run's, step ms beside the control's run
+   in this process; fit(mesh=data 1 x model 2) on the plain
    step against the one-process plain run (first step LOSS_TOL, rows
    DIST_ROW_TOL), its msgpack `last` reloaded and served (4 B1 + 1 B3);
    evaluate_test(mesh=data 2) on 63 clips against mesh=None (rtol 1e-6);
@@ -225,6 +229,7 @@ Any failure raises and exits nonzero; without CUDA it exits nonzero at once.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import functools
 import json
@@ -3000,6 +3005,44 @@ def split_update(parts: int):
     return update
 
 
+def split_forward(parts: int):
+    """train.step.make_forward of a one-process control run: the eval
+    forward of each of `parts` equal row blocks of a batch taken separately
+    and the joints concatenated in order, as `parts` processes, or a mesh's
+    replicas, each forward their block (the input projection is a cuBLAS
+    product, whose rows may round otherwise at another row count)."""
+    from h36x_torch.train import step
+
+    inner = step.make_forward
+
+    def make_forward(model, use_kernels=True, replicas=None):
+        forward = inner(model, use_kernels, replicas)
+
+        def blocks(feats):
+            rows = feats.shape[0] // parts
+            if rows * parts != feats.shape[0]:
+                raise ValueError(f"{feats.shape[0]} rows do not split {parts} ways")
+            return torch.cat([forward(feats[r * rows:(r + 1) * rows]) for r in range(parts)])
+
+        return blocks
+
+    return make_forward
+
+
+@contextlib.contextmanager
+def split_control(parts: int):
+    """Within it, a run is the one-process control: every update from
+    :func:`split_update`, every eval forward from :func:`split_forward`."""
+    from h36x_torch.train import step
+
+    update, forward = step.TrainStep._update, step.make_forward
+    step.TrainStep._update, step.make_forward = split_update(parts), split_forward(parts)
+    try:
+        yield
+    finally:
+        step.TrainStep._update, step.make_forward = update, forward
+
+
 def train_worker(report, argv, split: int = 1) -> int:
     """One process of a data-parallel cli.train run (chip_smoke.py
     --train-worker REPORT ARGS...): the counts set to 0, cli.train.main
@@ -3007,14 +3050,11 @@ def train_worker(report, argv, split: int = 1) -> int:
     train timing (fit's train_epoch, recorded), and each train step's loss
     and ms (host clock between two synchronisations: the step, its
     all-reduce and any wait for the other rank). `split` > 1 (chip_smoke.py
-    --control-worker REPORT ARGS...: 2) makes every update the one-process
-    control's :func:`split_update`."""
+    --control-worker REPORT ARGS...: 2) runs the one-process control
+    (:func:`split_control`)."""
     from h36x_torch.cli.train import main as train_main
     from h36x_torch.train import loop
     from h36x_torch.train.step import TrainStep
-
-    if split > 1:
-        TrainStep._update = split_update(split)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3043,7 +3083,8 @@ def train_worker(report, argv, split: int = 1) -> int:
 
     TrainStep.__call__ = timed
     zero_counts()
-    train_main(argv)
+    with split_control(split) if split > 1 else contextlib.nullcontext():
+        train_main(argv)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     with open(report, "w") as f:
@@ -3141,9 +3182,9 @@ def check_split_control(ranks, rank0, rows, dist_dir, single, want, smi):
             os.path.join(os.path.dirname(dist_dir), "dist_single", "last.msgpack")),
         "launches": control["launches"], "tol": CONTROL_TOL}
     log(record)
-    # the control's kernels run on 16-row blocks: twice the fused launches
-    # of the train steps, the eval's as one process's
-    if control["launches"]["gn_relu_cconv_bwd"] != 2 * want["gn_relu_cconv_bwd"]:
+    # the control's kernels run on 16-row blocks, in the train steps and
+    # the eval: twice the fused launches of one process
+    if control["launches"] != {k: 2 * v for k, v in want.items()}:
         raise AssertionError(f"control launches {control['launches']}")
     if len(vs_dist) != len(rank0["losses"]) or max(vs_dist) > CONTROL_TOL:
         raise AssertionError(f"the split-gradient control differs from the 2-process "
@@ -3598,6 +3639,56 @@ class recorded_steps:
 LOCAL_FRAMES = 481  # make_feature_fn over data 2: one frame padded
 
 
+def row_block_witness(model, feats):
+    """Whether the eval forward's rows depend on how many rows one launch
+    covers (a mesh replica's eval runs 16 of a batch's 32 rows, the
+    control all 32): each stage of make_fused_forward(precise=True) run on
+    the 32 rows of `feats` and on each half, on the same input, and the
+    largest |difference| of a row; the 32-row forward run twice. Stages:
+    input_proj (a cuBLAS matmul), B1 (the first residual block, two
+    launches), f_movie (input_proj and the 4 B1 launches), B3 (the
+    regressor on the whole batch's phi), the whole forward."""
+    from h36x_torch.infer import (
+        _dense,
+        _movie,
+        _regressor,
+        make_fused_forward,
+        serving_params,
+        sorted_blocks,
+    )
+    from h36x_torch.models.phd import param_tree
+    from h36x_torch.ops.temporal import fused_residual_block
+
+    params = serving_params(param_tree(model), True, True)
+    net = params["f_movie"]
+    first = net[sorted_blocks(net)[0]]
+    groups, half = model.groups, feats.shape[0] // 2
+    forward = make_fused_forward(param_tree(model), joints_num=model.joints_num,
+                                 groups=groups, regressor_iters=model.regressor_iters,
+                                 precise=True)
+    with torch.inference_mode():
+        x = _dense(feats, params["input_proj"])
+        phi = _movie(params, feats, groups, True, True)
+        stages = {
+            "input_proj": (feats, lambda t: _dense(t, params["input_proj"])),
+            "B1_first_block": (x, lambda t: fused_residual_block(t, first, groups=groups,
+                                                                 precise=True)),
+            "f_movie": (feats, lambda t: _movie(params, t, groups, True, True)),
+            "B3": (phi, lambda t: _regressor(t, params["f_3D"], model.joints_num, True,
+                                             model.regressor_iters, True)),
+            "forward": (feats, forward),
+        }
+        diffs = {}
+        for name, (inp, fn) in stages.items():
+            parts = torch.cat([fn(inp[:half]), fn(inp[half:])])
+            diffs[name] = float((fn(inp) - parts).abs().max())
+        again = float((forward(feats) - forward(feats)).abs().max())
+    torch.cuda.synchronize()
+    return {"rows": int(feats.shape[0]), "halves": half,
+            "max_abs_diff_whole_vs_halves": diffs,
+            "max_abs_diff_forward_run_twice": again}
+
+
 def drive_local_mesh_path(dev, g, tmp, base_rows, smi):
     """The single-process device mesh at the flagship width on
     drive_train_path's store and flags: a mesh over devices [cuda:0,
@@ -3606,14 +3697,16 @@ def drive_local_mesh_path(dev, g, tmp, base_rows, smi):
     number here is a speed of several cards.
 
     1. fit(mesh=data 2), fused, dropout 0, 2 epochs: every step's loss,
-       the train rows and `last` equal the C.1 control's (each update from
-       the gradients of rows 0-15 and 16-31, summed in float32 and halved)
-       bit for bit, the eval rows within CONTROL_TOL (a replica's B1/B3
-       launch covers 16 rows, the control's 32, and the kernels round a row
-       alike only at one batch); rows within DIST_ROW_TOL of the
-       one-process run; B1-B4 launched twice the one-process run's (each
-       replica's steps and eval forwards on 16 rows). The control runs
-       again in this process for step times taken beside the mesh run's.
+       the train and eval rows and `last` equal the C.1 control's (each
+       update from the gradients of rows 0-15 and 16-31, summed in float32
+       and halved; each eval forward on the two blocks apart) bit for bit;
+       rows within DIST_ROW_TOL of the one-process run; B1-B4 launched
+       twice the one-process run's (each replica's steps and eval forwards
+       on 16 rows). row_block_witness, on a val batch: which stages of the
+       eval forward round a row otherwise in a 16-row launch than in a
+       32-row one (B1's and B3's must not, nor two runs differ). The
+       control runs again in this process for step times taken beside the
+       mesh run's.
     2. fit(mesh=data 1 x model 2), the plain step, msgpack: every step's
        loss against the one-process plain run (the first at LOSS_TOL, the
        rest at DIST_ROW_TOL) and the rows at DIST_ROW_TOL; its `last.msgpack`
@@ -3634,6 +3727,7 @@ def drive_local_mesh_path(dev, g, tmp, base_rows, smi):
     from h36x_torch.cli.train import datasets
     from h36x_torch.config import TrainConfig, parse_into
     from h36x_torch.data.features import FeatureClipDataset
+    from h36x_torch.data.shards import as_tensor
     from h36x_torch.extract.pipeline import make_feature_fn
     from h36x_torch.infer import make_fused_forward
     from h36x_torch.models.phd import param_tree
@@ -3682,8 +3776,13 @@ def drive_local_mesh_path(dev, g, tmp, base_rows, smi):
     train_keys = ("epoch", "lr", "train_loss", "train_mpjpe")
     same_train_rows = [{k: r[k] for k in train_keys} for r in rows] == [
         {k: r[k] for k in train_keys} for r in ctrl_rows]
+    val_keys = [k for k in ROW_KEYS if k.startswith("val_")]
+    same_val_rows = [[r[k] for k in val_keys] for r in rows] == [
+        [r[k] for k in val_keys] for r in ctrl_rows]
     val_rel = {k: max(abs(r[k] - w[k]) / abs(w[k]) for r, w in zip(rows, ctrl_rows))
-               for k in ROW_KEYS if k.startswith("val_")}
+               for k in val_keys}
+    val_batch = FeatureClipDataset(store, subjects=[5]).get_batch(list(range(batch)))[0]
+    witness = row_block_witness(model, as_tensor(val_batch).to(dev, torch.float32))
     same_last = max_param_diff(os.path.join(outdir, "last.msgpack"),
                                os.path.join(control["dir"], "last.msgpack"))
     max_rel = max(abs(r[k] - w[k]) / abs(w[k]) for r, w in zip(rows, base_rows)
@@ -3691,20 +3790,16 @@ def drive_local_mesh_path(dev, g, tmp, base_rows, smi):
     want = {k: 2 * v for k, v in one.items()}
     # the control again, in this process, for step times taken beside the
     # mesh run's (the subprocess's host differs)
-    from h36x_torch.train.step import TrainStep
-
-    update, TrainStep._update = TrainStep._update, split_update(2)
-    try:
+    with split_control(2):
         _, _, ctrl_rec, _, _ = train("mesh_control", None)
-    finally:
-        TrainStep._update = update
     log({"phase": "mesh_fit_data2", "card": smi, "mesh": "data 2 over [cuda:0, cuda:0]",
          "devices": "one card named twice (virtual devices), not a speed of multi-GPU",
          "seconds": seconds, "launches": launches, "want_launches": want,
          "losses_equal_control": losses == control["losses"],
          "losses_equal_in_process_control": losses == [r["loss"] for r in ctrl_rec],
          "train_rows_equal_control": same_train_rows,
-         "val_rows_rel_diff_vs_control": val_rel, "val_tol": CONTROL_TOL,
+         "val_rows_equal_control": same_val_rows, "val_rows_rel_diff_vs_control": val_rel,
+         "row_block_witness": witness,
          "last_max_param_diff_vs_control": same_last,
          "max_rel_diff_vs_one_process": max_rel, "tol": DIST_ROW_TOL,
          "step_ms_per_replica_pair_median": median([r["ms"] for r in rec[steps // epochs:]]),
@@ -3720,11 +3815,12 @@ def drive_local_mesh_path(dev, g, tmp, base_rows, smi):
          "losses": losses, "metrics": rows})
     if launches != want:
         raise AssertionError(f"mesh data 2 launches {launches} != {want}")
-    # the eval's rows: each replica's B1/B3 launch covers 16 rows where the
-    # control's covers 32, and the kernels round a row alike only at one
-    # batch: held at CONTROL_TOL
-    if (losses != control["losses"] or not same_train_rows or same_last != 0.0
-            or max(val_rel.values()) > CONTROL_TOL):
+    kernel_rows = {k: witness["max_abs_diff_whole_vs_halves"][k]
+                   for k in ("B1_first_block", "B3")}
+    if any(kernel_rows.values()) or witness["max_abs_diff_forward_run_twice"]:
+        raise AssertionError(f"a kernel's rows depend on the launch's rows: {witness}")
+    if (losses != control["losses"] or not same_train_rows or not same_val_rows
+            or same_last != 0.0):
         raise AssertionError("fit(mesh=data 2) differs from the split-gradient control")
     if len(rows) != len(base_rows) or max_rel > DIST_ROW_TOL:
         raise AssertionError(f"fit(mesh=data 2) rows differ from one process's: {max_rel}")
@@ -4291,7 +4387,38 @@ def main() -> int:
     return 0
 
 
+def local_mesh_main() -> int:
+    """`python3 chip_smoke.py --local-mesh`: the kernels built, then
+    drive_train_path and drive_local_mesh_path alone (it runs the C.1
+    control and the one-process plain run itself); prints their records,
+    not the kernels line or the result line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from h36x_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load(*_build.SIGNATURES)
+    log({"phase": "build", "seconds": time.perf_counter() - t0})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        drive_train_path(torch.Generator().manual_seed(0), tmp)
+        t0 = time.perf_counter()
+        paths = drive_local_mesh_path(torch.device("cuda"), torch.Generator().manual_seed(15),
+                                      tmp, read_rows(os.path.join(tmp, "runs")), smi)
+        log({"phase": "local_mesh total", "seconds": time.perf_counter() - t0,
+             "paths": paths})
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--local-mesh"]:
+        sys.exit(local_mesh_main())
     if len(sys.argv) > 2 and sys.argv[1] == "--train-worker":
         sys.exit(train_worker(sys.argv[2], sys.argv[3:]))
     if len(sys.argv) > 2 and sys.argv[1] == "--control-worker":

@@ -59,9 +59,9 @@ def main(argv=None):
                         "the plain PyTorch path)")
     ns = p.parse_args(argv)
     cfg = apply_namespace(TrainConfig(), ns, skip=("device",))
-    check_supported(cfg)
     try:
         devices = setup_from_config(cfg.dist, ns.device)
+        check_supported(cfg, devices)  # the mesh over the cards setup found
         return _train(cfg, devices)
     finally:
         shutdown()

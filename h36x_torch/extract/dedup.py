@@ -348,10 +348,10 @@ class _Assembler:
         self.on_clip_done()
 
 
-def run_extract_dedup(cfg: ExtractConfig, dataset, device=None, devices=None) -> dict:
+def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
     """Unique-frame extraction on `device` (default cuda), the backbone
-    data-parallel over `devices` (default: every visible card) when there
-    is more than one; the same store contract as pipeline.run_extract."""
+    data-parallel over every visible card when there is more than one; the
+    same store contract as pipeline.run_extract."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
@@ -415,7 +415,7 @@ def run_extract_dedup(cfg: ExtractConfig, dataset, device=None, devices=None) ->
     )
 
     model = _load_backbone(cfg, device)
-    mesh = feature_mesh(local_devices(device) if devices is None else devices)
+    mesh = feature_mesh(local_devices(device))
     feature_fn = make_feature_fn(model, mesh=mesh, engine=cfg.engine)
 
     async_writer = AsyncWriter()

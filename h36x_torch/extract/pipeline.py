@@ -67,9 +67,10 @@ def make_feature_fn(model: ResNet50, mesh=None, engine: str = "flax"):
     as a host array or a tensor, pads them with zero frames to a multiple
     of the data axis (this process's local devices), sends each block to
     its device, runs the backbone there (the module, or for `opt` the
-    folded weights, placed on each device once: a device the model lives
-    on uses the model itself) and returns the features in order on the
-    first device, `[:N]`.
+    folded weights, placed on each device once by
+    :class:`h36x_torch.parallel.local.Replicas`: a device the model lives
+    on uses the model itself) and returns the features in order, `[:N]`,
+    on the frames' device (host frames: the first device's).
     """
     if engine == "opt":
         from h36x_torch.ops.resnet_opt import (
@@ -99,28 +100,12 @@ def make_feature_fn(model: ResNet50, mesh=None, engine: str = "flax"):
         raise ValueError(f"--engine must be {'|'.join(ENGINES)}, got {engine!r}")
     if mesh is None:
         return fn
+    from h36x_torch.parallel.local import Replicas, on_replicas
 
-    import copy
-
-    from h36x_torch.parallel.local import merge_rows, pad_rows, same_device, split_rows
-
-    devices = [g[0] for g in mesh.local_groups()]
-    home = next(model.parameters()).device
-    fns: dict = {}  # device -> its step, the weights placed there once
-
-    def fn_on(device):
-        key = str(home if same_device(device, home) else torch.device(device))
-        if key not in fns:
-            fns[key] = fn if key == str(home) else make_feature_fn(
-                copy.deepcopy(model).to(device), engine=engine)
-        return fns[key]
-
-    def sharded_fn(frames_u8):
-        n = frames_u8.shape[0]
-        blocks = split_rows(pad_rows(frames_u8, len(devices)), devices)
-        return merge_rows([fn_on(d)(b) for d, b in zip(devices, blocks)], n, devices[0])
-
-    return sharded_fn
+    replicas = Replicas(model, mesh.local_groups(), grads=False)
+    steps = {id(m): fn if m is model else make_feature_fn(m, engine=engine)
+             for m in replicas.models}
+    return lambda frames_u8: on_replicas(replicas, lambda m, x: steps[id(m)](x), frames_u8)
 
 
 def feature_mesh(devices):
@@ -545,10 +530,10 @@ def finalize_store(out_root, cfg, pool, shard_writer, n_vars, aug_names,
         progress_path.unlink()
 
 
-def run_extract(cfg: ExtractConfig, dataset=None, device=None, devices=None) -> dict:
+def run_extract(cfg: ExtractConfig, dataset=None, device=None) -> dict:
     """Run the extraction stage on `device` (default cuda); returns a
-    summary dict. The backbone runs data-parallel over `devices` (default:
-    :func:`h36x_torch.utils.runtime.local_devices` of `device`, every
+    summary dict. The backbone runs data-parallel over
+    :func:`h36x_torch.utils.runtime.local_devices` of `device` (every
     visible card) when there is more than one (:func:`make_feature_fn`).
 
     Resumable: after every shard flush a progress file records which clips
@@ -577,7 +562,7 @@ def run_extract(cfg: ExtractConfig, dataset=None, device=None, devices=None) -> 
         from h36x_torch.extract.dedup import run_extract_dedup
 
         return run_extract_dedup(resolve_extract_modes(cfg, production=True),
-                                 dataset, device, devices)
+                                 dataset, device)
     cfg = resolve_extract_modes(cfg, production=False)  # auto -> 'clip'
     # this scheduler only implements the default semantics: a flag asking
     # for a dedup-path mode must not silently degrade to them
@@ -606,7 +591,7 @@ def run_extract(cfg: ExtractConfig, dataset=None, device=None, devices=None) -> 
     )
 
     model = _load_backbone(cfg, device)
-    mesh = feature_mesh(local_devices(device) if devices is None else devices)
+    mesh = feature_mesh(local_devices(device))
     feature_fn = make_feature_fn(model, mesh=mesh, engine=cfg.engine)
 
     async_writer = AsyncWriter()

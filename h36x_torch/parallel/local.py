@@ -125,34 +125,42 @@ def generator_at(generator: torch.Generator, device, state) -> torch.Generator:
     return _generators[key]
 
 
-def on_replicas(replicas: "Replicas", fn, feats: torch.Tensor):
+def on_replicas(replicas: "Replicas", fn, feats):
     """fn(model, rows) over the replicas, each on its block of `feats`'
-    rows (padded to the replica count), the outputs (a tensor or a tuple of
-    tensors and None) merged back in order on `feats`' device, `[:n]`."""
+    rows (a tensor or a host array, padded to the replica count), the
+    outputs (a tensor or a tuple of tensors and None) merged back in order,
+    `[:n]`, on `feats`' device (a host array's: the first replica's)."""
     n = feats.shape[0]
-    blocks = split_rows(pad_rows(feats, replicas.count), [g[0] for g in replicas.groups])
+    firsts = [g[0] for g in replicas.groups]
+    home = feats.device if isinstance(feats, torch.Tensor) else firsts[0]
+    blocks = split_rows(pad_rows(feats, replicas.count), firsts)
     outs = []
     for r, (m, x) in enumerate(zip(replicas.models, blocks)):
         with running(r, replicas.count):
             outs.append(fn(m, x))
     if isinstance(outs[0], torch.Tensor):
-        return merge_rows(outs, n, feats.device)
-    return tuple(None if o[0] is None else merge_rows(o, n, feats.device)
-                 for o in zip(*outs))
+        return merge_rows(outs, n, home)
+    return tuple(None if o[0] is None else merge_rows(o, n, home) for o in zip(*outs))
 
 
 def replica_of(model, devices):
     """A model of `model`'s architecture on `devices[0]` (its model-axis
-    split, if any, over `devices`) whose parameters are `model`'s: the same
-    storage on the same device (each its own `.grad`), else copies."""
+    split, if any, over `devices`) whose parameters and buffers are
+    `model`'s: the same storage on the same device (each parameter its own
+    `.grad`), else copies."""
     dev = devices[0]
-    memo = {id(p): torch.nn.Parameter(
-        p.detach() if same_device(dev, p.device) else p.detach().to(dev, copy=True),
-        requires_grad=p.requires_grad) for p in model.parameters()}
-    memo[id(model.tp)] = None
+
+    def place(t):
+        return t.detach() if same_device(dev, t.device) else t.detach().to(dev, copy=True)
+
+    memo = {id(p): torch.nn.Parameter(place(p), requires_grad=p.requires_grad)
+            for p in model.parameters()}
+    memo.update((id(b), place(b)) for b in model.buffers())
+    tp = getattr(model, "tp", None)  # the PHD model's tensor-parallel split
+    memo[id(tp)] = None
     replica = copy.deepcopy(model, memo)
-    if model.tp is not None:
-        replica.tp = model.tp.on(devices)
+    if tp is not None:
+        replica.tp = tp.on(devices)
     return replica
 
 

@@ -69,3 +69,23 @@ def test_two_processes_of_two_devices_match_four_devices(store, init, four_devic
     assert len(got) == len(want) == 2
     assert_rows_close(got, want, 1e-5)
     assert not (tmp_path / "mp_rank1").exists()
+
+
+@pytest.mark.parametrize("flag", ["--mesh.data", "--mesh.model", "--mesh.slices"])
+def test_cli_checks_the_mesh_over_the_devices_setup_finds(store, monkeypatch, flag):
+    """cli.train checks the mesh over the devices setup_from_config found,
+    as on a host of two cards without --dist.local-devices: the local device
+    list comes from `local_devices` (here two CPU devices), and `flag 2`
+    passes the check and reaches the trainer with both."""
+    import torch
+
+    from h36x_torch.cli import train as cli_train
+    from h36x_torch.parallel import distributed
+
+    two = [torch.device("cpu")] * 2
+    monkeypatch.setattr(distributed, "local_devices", lambda device, count=0: list(two))
+    reached = []
+    monkeypatch.setattr(cli_train, "_train", lambda cfg, devices: reached.append(devices))
+    train_main(["--train-root", str(store), "--train-subjects", "1", "--val-subjects", "5",
+                *ARCH_FLAGS, "--optim.batch-size", "4", "--device", "cpu", flag, "2"])
+    assert reached == [two]

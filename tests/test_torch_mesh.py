@@ -353,6 +353,7 @@ def test_run_extract_over_local_devices(tmp_path, capsys, monkeypatch):
     from h36x_torch.config import ExtractConfig
     from h36x_torch.extract import pipeline
     from h36x_torch.models.resnet import ResNet50
+    from h36x_torch.utils import runtime
     from tests.test_dedup import FakeOverlapDataset
 
     monkeypatch.setattr(pipeline, "_load_backbone",
@@ -361,10 +362,13 @@ def test_run_extract_over_local_devices(tmp_path, capsys, monkeypatch):
     ds = FakeOverlapDataset(n_videos=1, smooth=True)
     kw = dict(seq_len=8, resize=16, batch_size=1, num_workers=1, augment=True,
               shard_size=2, shuffle_pool=100, shuffle_seed=1)
-    for name, devices in (("one", None), ("two", cpus(2))):
+    for name, count in (("one", 1), ("two", 2)):
+        # the local device list, as a host of `count` cards gives it
+        for module in (pipeline, runtime):
+            monkeypatch.setattr(module, "local_devices", lambda device: cpus(count))
         torch.manual_seed(3)
         pipeline.run_extract(ExtractConfig(out=str(tmp_path / name), **kw), dataset=ds,
-                             device="cpu", devices=devices)
+                             device="cpu")
     assert "Extraction over 2 devices (data-parallel backbone)" in capsys.readouterr().out
     assert (tmp_path / "one" / "index.json").read_bytes() == \
         (tmp_path / "two" / "index.json").read_bytes()
