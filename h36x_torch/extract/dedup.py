@@ -56,6 +56,7 @@ from h36x_torch.geometry.crop import (
     adjust_joints2d_after_crop_and_resize,
     compute_square_crop_from_2d,
 )
+from h36x_torch.utils.profiling import count, measured, span
 
 # (subsampled frame index, (top, left, side)) — the content address of a crop
 FrameKey = Tuple[int, Tuple[int, int, int]]
@@ -119,14 +120,15 @@ def _video_worker(
     from h36x_torch.extract.pipeline import crop_resize_frames
 
     def put(item):
-        while True:
-            if stop.is_set():
-                raise _ConsumerGone()
-            try:
-                out_q.put(item, timeout=0.2)
-                return
-            except Full:
-                continue
+        with span("h36x.extract.put_wait"):
+            while True:
+                if stop.is_set():
+                    raise _ConsumerGone()
+                try:
+                    out_q.put(item, timeout=0.2)
+                    return
+                except Full:
+                    continue
 
     cursor = None
     try:
@@ -148,81 +150,91 @@ def _video_worker(
             )
 
         for i in todo:
-            j3d, j2d_raw, cam, ci = dataset.clip_annotations(i)
-            if cursor is not None:
-                frames = cursor.get(ci.start, ci.end)
-            else:  # no sequential access: per-clip decode fallback
-                frames = dataset[i][0]
-            t_len, img_h, img_w, _ = frames.shape
+            with span("h36x.extract.job"):
+                j3d, j2d_raw, cam, ci = dataset.clip_annotations(i)
+                if cursor is not None:
+                    frames = cursor.get(ci.start, ci.end)
+                else:  # no sequential access: per-clip decode fallback
+                    frames = dataset[i][0]
+                t_len, img_h, img_w, _ = frames.shape
 
-            if cfg.crop_scope == "video":
-                if video_box is None:
-                    video_box = compute_square_crop_from_2d(
-                        dataset.video_joints2d(video_idx), img_h, img_w,
-                        scale=1.6,
-                    )
-                box = video_box
-            else:  # 'clip': the reference's per-clip box
-                box = compute_square_crop_from_2d(
-                    j2d_raw, img_h, img_w, scale=1.6
-                )
-            bkey = (int(box[0]), int(box[1]), int(box[2]))
-
-            for k in [k for k in crop_cache if k[0] < ci.start]:
-                del crop_cache[k]
-
-            keys = [(ci.start + t, bkey) for t in range(t_len)]
-            new_t = [t for t in range(t_len) if keys[t] not in crop_cache]
-            if new_t:
-                cropped = crop_resize_frames(frames[new_t], box, cfg.resize)
-                for j, t in enumerate(new_t):
-                    crop_cache[keys[t]] = cropped[j]
-            window = np.stack([crop_cache[k] for k in keys])
-
-            job = ClipJob(
-                index=i, video_idx=video_idx, ci=ci, j3d=j3d,
-                j2d_raw=j2d_raw, cam=cam, box=np.asarray(box),
-                window_keys=keys,
-            )
-            for t, k in enumerate(keys):
-                if k not in seen:
-                    seen.add(k)
-                    # copy the row: a view would pin this clip's WHOLE
-                    # (T,o,o,3) window until the consumer dispatches it. In
-                    # the max-dedup modes a job contributes only ~stride
-                    # first-seen rows, and `pending` can hold hundreds of
-                    # jobs' entries — views would transiently pin GBs of
-                    # windows for MBs of needed rows.
-                    job.miss.append((k, window[t].copy()))
-            if cfg.augment:
-                if cfg.jitter_key == "clip":
-                    rng = np.random.default_rng(
-                        cfg.shuffle_seed * 1_000_003 + i
-                    )
-                    job.cj_window = jitter_u8(window, sample_jitter_params(rng))
-                elif cfg.jitter_key == "video":
-                    # one params set for the whole video: jitter every
-                    # first-seen frame in ONE kernel call (per-frame calls
-                    # pay a thread spawn/join each — pure waste in the mode
-                    # built for maximum dedup throughput)
-                    new_ts = [t for t, k in enumerate(keys)
-                              if k not in seen_cj]
-                    if new_ts:
-                        cjs = jitter_u8(window[new_ts], video_params)
-                        for j, t in enumerate(new_ts):
-                            seen_cj.add(keys[t])
-                            job.cj_miss.append((keys[t], cjs[j]))
-                else:  # jitter_key == "frame": distinct params per frame
-                    for t, k in enumerate(keys):
-                        if k in seen_cj:
-                            continue
-                        seen_cj.add(k)
-                        params = sample_jitter_params(
-                            _frame_jitter_rng(cfg.shuffle_seed, video_idx,
-                                              k[0])
+                if cfg.crop_scope == "video":
+                    if video_box is None:
+                        video_box = compute_square_crop_from_2d(
+                            dataset.video_joints2d(video_idx), img_h, img_w,
+                            scale=1.6,
                         )
-                        cj = jitter_u8(window[t : t + 1], params)[0]
-                        job.cj_miss.append((k, cj))
+                    box = video_box
+                else:  # 'clip': the reference's per-clip box
+                    box = compute_square_crop_from_2d(
+                        j2d_raw, img_h, img_w, scale=1.6
+                    )
+                bkey = (int(box[0]), int(box[1]), int(box[2]))
+
+                for k in [k for k in crop_cache if k[0] < ci.start]:
+                    del crop_cache[k]
+
+                keys = [(ci.start + t, bkey) for t in range(t_len)]
+                new_t = [t for t in range(t_len) if keys[t] not in crop_cache]
+                if new_t:
+                    with span("h36x.extract.crop"):
+                        cropped = crop_resize_frames(frames[new_t], box, cfg.resize)
+                    count("h36x.extract.frames_cropped", len(new_t))
+                    for j, t in enumerate(new_t):
+                        crop_cache[keys[t]] = cropped[j]
+                window = np.stack([crop_cache[k] for k in keys])
+
+                job = ClipJob(
+                    index=i, video_idx=video_idx, ci=ci, j3d=j3d,
+                    j2d_raw=j2d_raw, cam=cam, box=np.asarray(box),
+                    window_keys=keys,
+                )
+                for t, k in enumerate(keys):
+                    if k not in seen:
+                        seen.add(k)
+                        # copy the row: a view would pin this clip's WHOLE
+                        # (T,o,o,3) window until the consumer dispatches it. In
+                        # the max-dedup modes a job contributes only ~stride
+                        # first-seen rows, and `pending` can hold hundreds of
+                        # jobs' entries — views would transiently pin GBs of
+                        # windows for MBs of needed rows.
+                        job.miss.append((k, window[t].copy()))
+                if cfg.augment:
+                    if cfg.jitter_key == "clip":
+                        rng = np.random.default_rng(
+                            cfg.shuffle_seed * 1_000_003 + i
+                        )
+                        params = sample_jitter_params(rng)
+                        with span("h36x.extract.jitter"):
+                            job.cj_window = jitter_u8(window, params)
+                        count("h36x.extract.frames_jittered", len(window))
+                    elif cfg.jitter_key == "video":
+                        # one params set for the whole video: jitter every
+                        # first-seen frame in ONE kernel call (per-frame calls
+                        # pay a thread spawn/join each — pure waste in the mode
+                        # built for maximum dedup throughput)
+                        new_ts = [t for t, k in enumerate(keys)
+                                  if k not in seen_cj]
+                        if new_ts:
+                            with span("h36x.extract.jitter"):
+                                cjs = jitter_u8(window[new_ts], video_params)
+                            count("h36x.extract.frames_jittered", len(new_ts))
+                            for j, t in enumerate(new_ts):
+                                seen_cj.add(keys[t])
+                                job.cj_miss.append((keys[t], cjs[j]))
+                    else:  # jitter_key == "frame": distinct params per frame
+                        for t, k in enumerate(keys):
+                            if k in seen_cj:
+                                continue
+                            seen_cj.add(k)
+                            params = sample_jitter_params(
+                                _frame_jitter_rng(cfg.shuffle_seed, video_idx,
+                                                  k[0])
+                            )
+                            with span("h36x.extract.jitter"):
+                                cj = jitter_u8(window[t : t + 1], params)[0]
+                            count("h36x.extract.frames_jittered")
+                            job.cj_miss.append((k, cj))
             put(("job", job))
         put(("done", None))
     except _ConsumerGone:
@@ -351,7 +363,12 @@ class _Assembler:
 def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
     """Unique-frame extraction on `device` (default cuda), the backbone
     data-parallel over every visible card when there is more than one; the
-    same store contract as pipeline.run_extract."""
+    same store contract as pipeline.run_extract. The summary's `host_s`
+    and `counts` are what the call added to `utils.profiling`'s table."""
+    return measured("h36x.extract.call", _run_dedup, cfg, dataset, device)
+
+
+def _run_dedup(cfg: ExtractConfig, dataset, device) -> dict:
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
@@ -414,9 +431,10 @@ def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
         f"-> {out_root}{part_note}"
     )
 
-    model = _load_backbone(cfg, device)
-    mesh = feature_mesh(local_devices(device))
-    feature_fn = make_feature_fn(model, mesh=mesh, engine=cfg.engine)
+    with span("h36x.extract.load_backbone"):
+        model = _load_backbone(cfg, device)
+        mesh = feature_mesh(local_devices(device))
+        feature_fn = make_feature_fn(model, mesh=mesh, engine=cfg.engine)
 
     async_writer = AsyncWriter()
     shard_writer = ShardWriter(out_root, n_vars, async_writer=async_writer)
@@ -482,15 +500,18 @@ def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
     def dispatch(chunk):
         nonlocal inflight
         n = len(chunk)
-        frames = np.stack([c for _, c in chunk])
-        if n < frames_per_dispatch:
-            padder = np.zeros(
-                (frames_per_dispatch - n,) + frames.shape[1:], np.uint8
-            )
-            frames = np.concatenate([frames, padder])
-        # over a mesh each device's block goes to it from the host
-        feats_dev = DeviceFeatures(feature_fn(frames if mesh else
-                                              frames_to_device(frames, device)))
+        with span("h36x.extract.stage"):
+            frames = np.stack([c for _, c in chunk])
+            if n < frames_per_dispatch:
+                padder = np.zeros(
+                    (frames_per_dispatch - n,) + frames.shape[1:], np.uint8
+                )
+                frames = np.concatenate([frames, padder])
+            # over a mesh each device's block goes to it from the host
+            if not mesh:
+                frames = frames_to_device(frames, device)
+        with span("h36x.extract.feature_fn"):
+            feats_dev = DeviceFeatures(feature_fn(frames))
         assembler.backbone_rows += n
         new = (feats_dev, [t for t, _ in chunk], n)
         if inflight is not None:
@@ -499,10 +520,11 @@ def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
 
     def finalize(batch):
         feats_dev, tags, n = batch
-        feats = feats_dev.numpy(feat_np_dtype)[:n]
-        for tag, row in zip(tags, feats):
-            assembler.store(tag, row)
-        assembler.drain()
+        with span("h36x.extract.drain"):
+            feats = feats_dev.numpy(feat_np_dtype)[:n]
+            for tag, row in zip(tags, feats):
+                assembler.store(tag, row)
+            assembler.drain()
 
     def enqueue(job: ClipJob):
         for k, crop in job.miss:
@@ -544,7 +566,8 @@ def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
             ]
             for q in queues:
                 while True:
-                    kind, payload = q.get()
+                    with span("h36x.extract.wait_jobs"):
+                        kind, payload = q.get()
                     if kind == "error":
                         raise payload
                     if kind == "done":
@@ -570,12 +593,12 @@ def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
             "scheduler bookkeeping bug"
         )
 
-    pool.finish()
-    async_writer.wait()
-    async_writer.stop()
-
-    finalize_store(out_root, cfg, pool, shard_writer, n_vars, aug_names,
-                   progress_path)
+    with span("h36x.extract.store"):
+        pool.finish()
+        async_writer.wait()
+        async_writer.stop()
+        finalize_store(out_root, cfg, pool, shard_writer, n_vars, aug_names,
+                       progress_path)
 
     total = time.perf_counter() - t_all
     legacy_rows = n_todo * cfg.seq_len * (3 if cfg.augment else 1)

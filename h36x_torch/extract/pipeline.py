@@ -47,6 +47,7 @@ from h36x_torch.geometry.crop import (
 )
 from h36x_torch.models.resnet import ResNet50, load_torchvision_file
 from h36x_torch.ops.preprocess import imagenet_normalize
+from h36x_torch.utils.profiling import count, measured, span
 from h36x_torch.utils.runtime import local_devices, resolve_device
 
 ENGINES = ("flax", "opt")
@@ -546,6 +547,10 @@ def run_extract(cfg: ExtractConfig, dataset=None, device=None) -> dict:
     store, sequential per-video decode, overlapping windows computed once.
     This per-clip scheduler remains for --no-dedup and for clip sources
     without sequential/annotation access.
+
+    The summary's `host_s` ({span: (seconds, calls)}) and `counts` are what
+    the call added to `utils.profiling`'s table: the host time of its
+    stages, worker threads' included.
     """
     validate_extract_config(cfg)  # fail on flag typos BEFORE the tree scan
     device = resolve_device(device)
@@ -563,6 +568,10 @@ def run_extract(cfg: ExtractConfig, dataset=None, device=None) -> dict:
 
         return run_extract_dedup(resolve_extract_modes(cfg, production=True),
                                  dataset, device)
+    return measured("h36x.extract.call", _run_per_clip, cfg, dataset, device)
+
+
+def _run_per_clip(cfg: ExtractConfig, dataset, device) -> dict:
     cfg = resolve_extract_modes(cfg, production=False)  # auto -> 'clip'
     # this scheduler only implements the default semantics: a flag asking
     # for a dedup-path mode must not silently degrade to them
@@ -590,9 +599,10 @@ def run_extract(cfg: ExtractConfig, dataset=None, device=None) -> dict:
         f"(shards of {cfg.shard_size} clips) -> {out_root}{part_note}"
     )
 
-    model = _load_backbone(cfg, device)
-    mesh = feature_mesh(local_devices(device))
-    feature_fn = make_feature_fn(model, mesh=mesh, engine=cfg.engine)
+    with span("h36x.extract.load_backbone"):
+        model = _load_backbone(cfg, device)
+        mesh = feature_mesh(local_devices(device))
+        feature_fn = make_feature_fn(model, mesh=mesh, engine=cfg.engine)
 
     async_writer = AsyncWriter()
     shard_writer = ShardWriter(out_root, n_vars, async_writer=async_writer)
@@ -633,67 +643,77 @@ def run_extract(cfg: ExtractConfig, dataset=None, device=None) -> dict:
         works on batch N+1 while the host post-processes batch N."""
         # items carry (variants_u8 (V,T,o,o,3), j3d, j2d, cam, ci, box);
         # V = 3 pixel variants when augmenting (orig, cjitter, hflip), else 1
-        frames = np.stack([it[0] for it in items])  # (B,V,T,o,o,3) u8
-        shape = frames.shape[:3]
-        flat = frames.reshape((-1,) + frames.shape[3:])
-        # over a mesh each device's block goes to it from the host
-        feats = DeviceFeatures(feature_fn(flat if mesh else frames_to_device(flat, device)))
+        with span("h36x.extract.stage"):
+            frames = np.stack([it[0] for it in items])  # (B,V,T,o,o,3) u8
+            shape = frames.shape[:3]
+            flat = frames.reshape((-1,) + frames.shape[3:])
+            # over a mesh each device's block goes to it from the host
+            if not mesh:
+                flat = frames_to_device(flat, device)
+        with span("h36x.extract.feature_fn"):
+            feats = DeviceFeatures(feature_fn(flat))
         return feats, items, shape
 
     def finalize_batch(inflight):
-        feats_dev, items, (B, V, T) = inflight
-        feats = feats_dev.numpy(feat_np_dtype).reshape(B, V, T, -1)
-        if cfg.augment:
-            f_orig, f_cj, f_hf = feats[:, 0], feats[:, 1], feats[:, 2]
-            f_trev = f_orig[:, ::-1].copy()
-        else:
-            f_orig = feats[:, 0]
-
-        for b, (fr, j3d, j2d_raw, cam, ci, box) in enumerate(items):
-            j2d = adjust_joints2d_after_crop_and_resize(j2d_raw, box, cfg.resize)
-            K = adjust_camera_after_crop_and_resize(cam["f"], cam["c"], box, cfg.resize)
-            base_meta = {
-                "subject": int(ci.subject),
-                "action": ci.action,
-                "cam": ci.cam,
-                "start": int(ci.start),
-                "end": int(ci.end),
-                "frame_skip": int(cfg.frame_skip),
-                "box": [int(v) for v in box],
-            }
+        with span("h36x.extract.drain"):
+            feats_dev, items, (B, V, T) = inflight
+            feats = feats_dev.numpy(feat_np_dtype).reshape(B, V, T, -1)
             if cfg.augment:
-                j3d_hf, j2d_hf, K_hf = hflip_joints(j3d, j2d, K, width=cfg.resize)
-                j3d_tr, j2d_tr = reverse_joints(j3d, j2d)
-                rows = (
-                    (f_orig[b], j3d, j2d, K),
-                    (f_cj[b], j3d, j2d, K),
-                    (f_hf[b], j3d_hf, j2d_hf, K_hf),
-                    (f_trev[b], j3d_tr, j2d_tr, K),
-                )
+                f_orig, f_cj, f_hf = feats[:, 0], feats[:, 1], feats[:, 2]
+                f_trev = f_orig[:, ::-1].copy()
             else:
-                rows = ((f_orig[b], j3d, j2d, K),)
-            group = [
-                {
-                    "feat": feat,
-                    "joints3d": np.asarray(jj3, np.float32),
-                    "joints2d": np.asarray(jj2, np.float32),
-                    "K": np.asarray(kk, np.float32),
-                    "meta": dict(base_meta, aug=aug_names[v]),
+                f_orig = feats[:, 0]
+
+            for b, (fr, j3d, j2d_raw, cam, ci, box) in enumerate(items):
+                j2d = adjust_joints2d_after_crop_and_resize(j2d_raw, box, cfg.resize)
+                K = adjust_camera_after_crop_and_resize(cam["f"], cam["c"], box, cfg.resize)
+                base_meta = {
+                    "subject": int(ci.subject),
+                    "action": ci.action,
+                    "cam": ci.cam,
+                    "start": int(ci.start),
+                    "end": int(ci.end),
+                    "frame_skip": int(cfg.frame_skip),
+                    "box": [int(v) for v in box],
                 }
-                for v, (feat, jj3, jj2, kk) in enumerate(rows)
-            ]
-            pool.add(group)
-            printer.clip_done()
+                if cfg.augment:
+                    j3d_hf, j2d_hf, K_hf = hflip_joints(j3d, j2d, K, width=cfg.resize)
+                    j3d_tr, j2d_tr = reverse_joints(j3d, j2d)
+                    rows = (
+                        (f_orig[b], j3d, j2d, K),
+                        (f_cj[b], j3d, j2d, K),
+                        (f_hf[b], j3d_hf, j2d_hf, K_hf),
+                        (f_trev[b], j3d_tr, j2d_tr, K),
+                    )
+                else:
+                    rows = ((f_orig[b], j3d, j2d, K),)
+                group = [
+                    {
+                        "feat": feat,
+                        "joints3d": np.asarray(jj3, np.float32),
+                        "joints2d": np.asarray(jj2, np.float32),
+                        "K": np.asarray(kk, np.float32),
+                        "meta": dict(base_meta, aug=aug_names[v]),
+                    }
+                    for v, (feat, jj3, jj2, kk) in enumerate(rows)
+                ]
+                pool.add(group)
+                printer.clip_done()
 
     def load_item(i):
         """Decode worker: decode + crop + resize + pixel variants (host)."""
-        frames, j3d, j2d, cam, ci = dataset[i]
-        small, box = crop_resize_host(frames, j2d, cfg.resize)
-        if cfg.augment:
-            rng = np.random.default_rng(cfg.shuffle_seed * 1_000_003 + i)
-            variants = make_clip_variants_u8(small, rng)  # (3,T,o,o,3)
-        else:
-            variants = small[None]  # (1,T,o,o,3)
+        with span("h36x.extract.job"):
+            frames, j3d, j2d, cam, ci = dataset[i]
+            with span("h36x.extract.crop"):
+                small, box = crop_resize_host(frames, j2d, cfg.resize)
+            count("h36x.extract.frames_cropped", len(small))
+            if cfg.augment:
+                rng = np.random.default_rng(cfg.shuffle_seed * 1_000_003 + i)
+                with span("h36x.extract.jitter"):  # the flip and stack too
+                    variants = make_clip_variants_u8(small, rng)  # (3,T,o,o,3)
+                count("h36x.extract.frames_jittered", len(small))
+            else:
+                variants = small[None]  # (1,T,o,o,3)
         return variants, j3d, j2d, cam, ci, box
 
     if done_keys and not hasattr(dataset, "clips"):
@@ -720,7 +740,8 @@ def run_extract(cfg: ExtractConfig, dataset=None, device=None) -> dict:
         futures = [ex.submit(load_item, i) for i in todo[:window]]
         next_submit = len(futures)
         for pos in range(len(todo)):
-            item = futures[pos].result()
+            with span("h36x.extract.wait_jobs"):
+                item = futures[pos].result()
             futures[pos] = None  # free memory
             if next_submit < len(todo):
                 futures.append(ex.submit(load_item, todo[next_submit]))
@@ -740,12 +761,12 @@ def run_extract(cfg: ExtractConfig, dataset=None, device=None) -> dict:
         if inflight is not None:
             finalize_batch(inflight)
 
-    pool.finish()
-    async_writer.wait()  # superseded by the final index.json
-    async_writer.stop()
-
-    finalize_store(out_root, cfg, pool, shard_writer, n_vars, aug_names,
-                   progress_path)
+    with span("h36x.extract.store"):
+        pool.finish()
+        async_writer.wait()  # superseded by the final index.json
+        async_writer.stop()
+        finalize_store(out_root, cfg, pool, shard_writer, n_vars, aug_names,
+                       progress_path)
 
     total = time.perf_counter() - t_all
     summary = {

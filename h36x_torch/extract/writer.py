@@ -10,6 +10,8 @@ import queue
 import threading
 from typing import Callable
 
+from h36x_torch.utils.profiling import span
+
 
 class AsyncWriter:
     def __init__(self, max_queue: int = 100):
@@ -28,7 +30,8 @@ class AsyncWriter:
                 fn, args, kwargs = item
                 if self._err is None:
                     try:
-                        fn(*args, **kwargs)
+                        with span("h36x.store.write"):
+                            fn(*args, **kwargs)
                     except BaseException as e:
                         self._err = e
             finally:

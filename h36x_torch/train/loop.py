@@ -68,7 +68,7 @@ from h36x_torch.train.step import (
     make_weighted_eval_step,
     make_weighted_future_eval_step,
 )
-from h36x_torch.utils.profiling import maybe_trace, step_annotation
+from h36x_torch.utils.profiling import maybe_trace, span
 from h36x_torch.utils.runtime import local_devices, resolve_device
 from h36x_torch.utils.timers import PhaseTimers
 
@@ -282,7 +282,7 @@ def train_epoch(train_step, dataset, sampler, device, feats_dtype, generator,
                           pad_to=pad_to):
         timers.stop("data")
         timers.start("step")
-        with step_annotation("train_step"):
+        with span("train_step"):
             metrics = train_step(batch, generator, *extra)
         if not pending and not n:
             for k in ("l2d", "l_ar"):
