@@ -34,11 +34,11 @@ finalizes this one.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from pathlib import Path
-from queue import Queue
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -87,6 +87,95 @@ class ClipJob:
     cj_window: Optional[np.ndarray] = None  # (T,o,o,3) u8
     cj_feats: Optional[list] = None  # len-T list of rows, set at dispatch
 
+    @property
+    def nbytes(self) -> int:
+        """The crop bytes the job carries to the consumer."""
+        rows = sum(c.nbytes for _, c in self.miss) + sum(
+            c.nbytes for _, c in self.cj_miss)
+        return rows + (self.cj_window.nbytes if self.cj_window is not None else 0)
+
+
+# jobs the worker of the video being consumed may hold queued
+CURRENT_DEPTH = 8
+
+
+def _feed_budget(cfg: ExtractConfig, frames_per_dispatch: int) -> int:
+    """Bytes the workers of the videos after the consumer's may hold
+    queued: one dispatch of crop rows."""
+    return frames_per_dispatch * cfg.resize * cfg.resize * 3
+
+
+class _Feed:
+    """The video workers' jobs, handed to the consumer video by video and,
+    within a video, in the order they were put.
+
+    The worker of the video being consumed (`current`, a position in the
+    video order) may hold up to CURRENT_DEPTH jobs queued and never waits
+    on other videos. The workers of every later video share `budget`
+    bytes: a job of theirs waits while the bytes queued for later videos
+    and its own would pass it, unless none are queued, so a budget smaller
+    than one job still moves. "done" and "error" never wait. Once the
+    consumer calls `close()`, every put wakes and raises _ConsumerGone.
+    """
+
+    def __init__(self, n_videos: int, budget: int):
+        self.budget = budget
+        self.queues = [deque() for _ in range(n_videos)]  # (item, nbytes)
+        self.queued = [0] * n_videos  # bytes queued per video
+        self.current = 0
+        self.ahead = 0  # bytes queued for the videos after `current`
+        self.closed = False
+        self.cond = threading.Condition()
+
+    def _room(self, pos: int, kind: str, nbytes: int) -> bool:
+        if kind != "job":
+            return True
+        if pos == self.current:
+            return len(self.queues[pos]) < CURRENT_DEPTH
+        return not self.ahead or self.ahead + nbytes <= self.budget
+
+    def put(self, pos: int, item: tuple) -> None:
+        """Queue a worker's ("job", job), ("done", None) or ("error", e)."""
+        nbytes = item[1].nbytes if item[0] == "job" else 0
+        with self.cond:
+            while True:
+                if self.closed:
+                    raise _ConsumerGone()
+                if self._room(pos, item[0], nbytes):
+                    break
+                self.cond.wait()
+            self.queues[pos].append((item, nbytes))
+            self.queued[pos] += nbytes
+            if pos > self.current:
+                self.ahead += nbytes
+            self.cond.notify_all()
+
+    def get(self) -> Tuple[tuple, bool]:
+        """The current video's next item, and whether it was already queued."""
+        with self.cond:
+            queue = self.queues[self.current]
+            ready = bool(queue)
+            while not queue:
+                self.cond.wait()
+            item, nbytes = queue.popleft()
+            self.queued[self.current] -= nbytes
+            self.cond.notify_all()
+        return item, ready
+
+    def advance(self) -> None:
+        """Move to the next video, once the current one's "done" was taken:
+        its queued bytes leave the shared budget."""
+        with self.cond:
+            self.current += 1
+            if self.current < len(self.queues):
+                self.ahead -= self.queued[self.current]
+            self.cond.notify_all()
+
+    def close(self) -> None:
+        with self.cond:
+            self.closed = True
+            self.cond.notify_all()
+
 
 def _frame_jitter_rng(seed: int, video_idx: int, frame_idx: int):
     return np.random.default_rng(
@@ -103,32 +192,24 @@ def _video_worker(
     group: List[int],
     todo_set,
     cfg: ExtractConfig,
-    out_q: Queue,
-    stop,
+    feed: _Feed,
+    pos: int,
 ) -> None:
-    """Process one video's clips in start order; emit ClipJobs.
+    """Process one video's clips in start order; emit ClipJobs into `feed`
+    as the video at position `pos` of the consumer's order.
 
     Owns the sequential decode cursor and the host-side crop cache; the
     first-seen bookkeeping here is independent of device batching, so the
     set of computed unique frames is deterministic for a given todo set.
-    `stop` (threading.Event) aborts the worker when the consumer dies —
-    workers block on bounded queues, so without it an error on the consumer
-    side would hang the executor shutdown.
+    A put waits while the feed has no room for the job; when the consumer
+    dies, `feed.close()` aborts the worker, so that the executor's
+    shutdown cannot hang on it.
     """
-    from queue import Full
-
     from h36x_torch.extract.pipeline import crop_resize_frames
 
     def put(item):
         with span("h36x.extract.put_wait"):
-            while True:
-                if stop.is_set():
-                    raise _ConsumerGone()
-                try:
-                    out_q.put(item, timeout=0.2)
-                    return
-                except Full:
-                    continue
+            feed.put(pos, item)
 
     cursor = None
     try:
@@ -369,7 +450,6 @@ def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
 
 
 def _run_dedup(cfg: ExtractConfig, dataset, device) -> dict:
-    import threading
     from concurrent.futures import ThreadPoolExecutor
 
     from h36x_torch.data.shards import ShardWriter
@@ -552,26 +632,29 @@ def _run_dedup(cfg: ExtractConfig, dataset, device) -> dict:
             dispatch(pending[:frames_per_dispatch])
             del pending[:frames_per_dispatch]
 
-    # --- run the per-video workers with bounded job queues (prefetch across
-    # videos), consuming jobs strictly in video order = global clip order
-    stop = threading.Event()
-    queues = [Queue(maxsize=8) for _ in groups]
+    # --- run the per-video workers, every later video cropping ahead under
+    # one byte budget, consuming jobs strictly in video order = global
+    # clip order
+    feed = _Feed(len(groups), _feed_budget(cfg, frames_per_dispatch))
     futures = []  # bound before try: the except block iterates it even
     # when the submit comprehension itself is what raised
     with ThreadPoolExecutor(max_workers=max(1, cfg.num_workers)) as ex:
         try:
             futures = [
-                ex.submit(_video_worker, dataset, g, todo_set, cfg, q, stop)
-                for g, q in zip(groups, queues)
+                ex.submit(_video_worker, dataset, g, todo_set, cfg, feed, pos)
+                for pos, g in enumerate(groups)
             ]
-            for q in queues:
+            for _ in groups:
                 while True:
                     with span("h36x.extract.wait_jobs"):
-                        kind, payload = q.get()
+                        (kind, payload), ready = feed.get()
                     if kind == "error":
                         raise payload
                     if kind == "done":
+                        feed.advance()
                         break
+                    if ready:
+                        count("h36x.extract.jobs_ready")
                     enqueue(payload)
             while pending:
                 chunk = pending[:frames_per_dispatch]
@@ -580,9 +663,9 @@ def _run_dedup(cfg: ExtractConfig, dataset, device) -> dict:
             if inflight is not None:
                 finalize(inflight)
         except BaseException:
-            # unblock every worker (they poll `stop` while their queue is
-            # full) so the executor's shutdown join cannot hang
-            stop.set()
+            # unblock every worker waiting for room so the executor's
+            # shutdown join cannot hang
+            feed.close()
             for f in futures:
                 f.cancel()
             raise

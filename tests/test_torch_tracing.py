@@ -27,7 +27,8 @@ MAIN_SPANS = {"h36x.extract.call", "h36x.extract.load_backbone", "h36x.extract.w
               "h36x.extract.store"}
 WORKER_SPANS = {"h36x.extract.job", "h36x.extract.crop", "h36x.extract.jitter",
                 "h36x.extract.put_wait", "h36x.store.write"}
-COUNTERS = {"h36x.extract.frames_cropped", "h36x.extract.frames_jittered"}
+COUNTERS = {"h36x.extract.frames_cropped", "h36x.extract.frames_jittered",
+            "h36x.extract.jobs_ready"}
 
 
 def _chrome_events(prof, tmp_path):
@@ -153,12 +154,14 @@ def test_run_extract_reports_every_span_and_counter(tmp_path, fake_port_backbone
     ds = FakeOverlapDataset(smooth=False)
     summary = _extract(tmp_path, ds, dedup=scheduler == "unique_frame")
     spans = MAIN_SPANS | WORKER_SPANS
+    counters = COUNTERS
     if scheduler == "per_clip":
         spans = spans - {"h36x.extract.put_wait"}  # no job queue of its own
+        counters = counters - {"h36x.extract.jobs_ready"}
     assert set(summary["host_s"]) == spans
     assert summary["host_s"]["h36x.extract.call"][1] == 1
     assert summary["host_s"]["h36x.extract.load_backbone"][1] == 1
-    assert set(summary["counts"]) == COUNTERS
+    assert set(summary["counts"]) == counters
     if scheduler == "unique_frame":  # production profile: one box, one jitter a video
         assert summary["crop_scope"] == summary["jitter_key"] == "video"
         unique = _unique_frames(ds)
@@ -166,6 +169,7 @@ def test_run_extract_reports_every_span_and_counter(tmp_path, fake_port_backbone
         assert summary["counts"]["h36x.extract.frames_jittered"] == unique
         assert summary["backbone_frames"] == 3 * unique
         assert summary["host_s"]["h36x.extract.job"][1] == len(ds)
+        assert summary["counts"]["h36x.extract.jobs_ready"] <= len(ds)
     else:
         assert summary["counts"]["h36x.extract.frames_cropped"] == len(ds) * 8
     call_s = summary["host_s"]["h36x.extract.call"][0]
