@@ -24,7 +24,9 @@ SEQ_LEN = 40  # frames per clip (after subsampling)
 INPUT_LEN = 15  # warm-up frames for future prediction
 PRED_LEN = 25  # autoregressive prediction horizon
 JOINTS_NUM = 17  # H36M 17-joint skeleton
-FEATURE_DIM = 2048  # ResNet-50 pooled feature width
+FEATURE_DIM = 2048  # ResNet-50's pooled feature width (PHD's default input)
+# extraction's backbones (--backbone) and the feature width each writes
+BACKBONE_FEATURE_DIM = {"resnet50": FEATURE_DIM, "vit_h": 1280}
 LATENT_DIM = 1024  # model latent ("movie strip") width
 BATCH_SIZE = 32
 LR = 1e-4
@@ -177,7 +179,12 @@ class ExtractConfig:
     # 0 = unbounded
     shuffle_pool_gb: float = 8.0
     shuffle_seed: int = 123
-    weights: str = ""  # torchvision-layout ResNet-50 state_dict (.pt)
+    # 'resnet50' (torchvision's ResNet-50, 2048-D) | 'vit_h' (ViTPose-H /
+    # HMR 2.0's ViT-H/16 at 256 x 192, 1280-D: extract with --resize 256)
+    backbone: str = "resnet50"
+    # the backbone's state_dict (.pt): torchvision's layout for resnet50,
+    # ViTPose's (an optional `backbone.` prefix) for vit_h
+    weights: str = ""
     resume: bool = False  # continue an interrupted extraction (progress.json)
     # read the finished store back and recompute every shard's CRC32s
     verify_after: bool = False

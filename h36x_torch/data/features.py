@@ -78,6 +78,12 @@ class FeatureClipDataset:
     def items(self):
         return self._items
 
+    @property
+    def feature_dim(self) -> int:
+        """The width of the stored features (the extraction backbone's),
+        read from the first clip's shard."""
+        return int(self._reader.get(int(self.clips[0]["shard_id"]))["feats"].shape[-1])
+
     def shard_id_of(self, idx: int) -> int:
         return int(self._items[idx][0]["shard_id"])
 

@@ -460,13 +460,14 @@ def _run_dedup(cfg: ExtractConfig, dataset, device) -> dict:
         _clip_key,
         _load_backbone,
         _parse_partition,
+        backbone_provenance,
         feature_mesh,
         finalize_store,
-        frames_to_device,
         make_feature_fn,
         make_progress_writer,
         resolve_extract_modes,
         restore_resume_state,
+        rows_to_device,
         store_provenance,
         validate_extract_config,
     )
@@ -538,6 +539,7 @@ def _run_dedup(cfg: ExtractConfig, dataset, device) -> dict:
     run_config["crop_backend"] = provenance["crop_backend"]
     if n_vars > 1:
         run_config["jitter_backend"] = provenance["jitter_backend"]
+    run_config.update(backbone_provenance(cfg))
 
     write_progress = make_progress_writer(progress_path, run_config,
                                           async_writer)
@@ -581,15 +583,17 @@ def _run_dedup(cfg: ExtractConfig, dataset, device) -> dict:
         nonlocal inflight
         n = len(chunk)
         with span("h36x.extract.stage"):
-            frames = np.stack([c for _, c in chunk])
-            if n < frames_per_dispatch:
-                padder = np.zeros(
-                    (frames_per_dispatch - n,) + frames.shape[1:], np.uint8
-                )
-                frames = np.concatenate([frames, padder])
-            # over a mesh each device's block goes to it from the host
             if not mesh:
-                frames = frames_to_device(frames, device)
+                frames = rows_to_device([c for _, c in chunk],
+                                        frames_per_dispatch, device)
+            else:
+                # over a mesh each device's block goes to it from the host
+                frames = np.stack([c for _, c in chunk])
+                if n < frames_per_dispatch:
+                    padder = np.zeros(
+                        (frames_per_dispatch - n,) + frames.shape[1:], np.uint8
+                    )
+                    frames = np.concatenate([frames, padder])
         with span("h36x.extract.feature_fn"):
             feats_dev = DeviceFeatures(feature_fn(frames))
         assembler.backbone_rows += n

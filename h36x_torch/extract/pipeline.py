@@ -1,6 +1,6 @@
 """Feature-extraction pipeline (counterpart of h36x/extract/pipeline.py):
-decode -> host crop/resize and pixel variants -> ResNet-50 on the device ->
-shuffled feature shards.
+decode -> host crop/resize and pixel variants -> the backbone on the device
+(ResNet-50, or ViT-H with `--backbone vit_h`) -> shuffled feature shards.
 
 - crop + bilinear resize + the photometric variants run on the decode
   workers (the port's native library); the u8 crops cross to the device
@@ -31,7 +31,7 @@ from typing import List
 import numpy as np
 import torch
 
-from h36x_torch.config import ExtractConfig
+from h36x_torch.config import BACKBONE_FEATURE_DIM, ExtractConfig
 from h36x_torch.data.augment import (
     AUG_NAMES,
     hflip_joints,
@@ -53,16 +53,20 @@ from h36x_torch.utils.runtime import local_devices, resolve_device
 ENGINES = ("flax", "opt")
 
 
-def make_feature_fn(model: ResNet50, mesh=None, engine: str = "flax"):
+def make_feature_fn(model, mesh=None, engine: str = "flax"):
     """Device step: frames_u8 (N, out, out, 3) uint8 tensor on the model's
-    device -> (N, 2048) float32 features on that device.
+    device -> (N, feature width) float32 features on that device: 2048 for
+    a ResNet50, the model's `dim` (1280) for a
+    :class:`h36x_torch.models.vit.ViT`, which normalizes and reads the
+    crops' middle columns itself and has the one engine, 'flax'.
 
-    engine='flax' is the plain module (normalize in float32, cast to the
-    module dtype; cuDNN on the card). engine='opt' is the folded engine of
-    :mod:`h36x_torch.ops.resnet_opt` (BN and normalize folded into the conv
-    weights, space-to-depth stem), whose 13 stride-1 blocks each launch the
-    fused bottleneck kernel B5 on the card; the fold runs once per weight
-    set, at the first call. Same function, a bf16-level numeric difference.
+    For ResNet-50, engine='flax' is the plain module (normalize in
+    float32, cast to the module dtype; cuDNN on the card). engine='opt' is
+    the folded engine of :mod:`h36x_torch.ops.resnet_opt` (BN and normalize
+    folded into the conv weights, space-to-depth stem), whose 13 stride-1
+    blocks each launch the fused bottleneck kernel B5 on the card; the fold
+    runs once per weight set, at the first call. Same function, a
+    bf16-level numeric difference.
 
     With a `mesh` (h36x's data-parallel backbone): the step takes frames
     as a host array or a tensor, pads them with zero frames to a multiple
@@ -73,7 +77,16 @@ def make_feature_fn(model: ResNet50, mesh=None, engine: str = "flax"):
     on uses the model itself) and returns the features in order, `[:N]`,
     on the frames' device (host frames: the first device's).
     """
-    if engine == "opt":
+    from h36x_torch.models.vit import ViT
+
+    if isinstance(model, ViT):
+        if engine != "flax":
+            raise ValueError(f"the ViT backbone has no --engine {engine!r}")
+
+        def fn(frames_u8):
+            with torch.inference_mode():
+                return model(frames_u8)
+    elif engine == "opt":
         from h36x_torch.ops.resnet_opt import (
             fold_resnet50_opt,
             prepare_opt,
@@ -130,6 +143,22 @@ def frames_to_device(frames: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def rows_to_device(rows, n_rows: int, device: torch.device) -> torch.Tensor:
+    """u8 rows of one shape, zero rows after them up to `n_rows`, as one
+    tensor on the device: each row copied once into a pinned buffer, which
+    the host allocator hands out again once the card has read it, then one
+    asynchronous copy. (Stacking, padding and pinning a stacked array
+    would move every byte three times, twice into freshly mapped pages.)"""
+    shape = np.shape(rows[0])
+    buf = torch.empty((n_rows,) + shape, dtype=torch.uint8,
+                      pin_memory=device.type == "cuda")
+    host = buf.numpy()
+    for i, row in enumerate(rows):
+        host[i] = row
+    host[len(rows):] = 0
+    return buf.to(device, non_blocking=True)
+
+
 _copy_streams: dict = {}
 
 
@@ -183,7 +212,8 @@ class ShufflePool:
         self.clip_index: List[dict] = []
         self.on_flush = on_flush
         # Host-RAM bound on the buffered groups (pool + carry): the default
-        # 8192-clip pool holds ~10.7 GB at 4 variants x T=40 x 2048 f32.
+        # 8192-clip pool holds ~10.7 GB at 4 variants x T=40 x the
+        # backbone's width in f32 (2048 for ResNet-50; 1280 for ViT-H).
         # 0 = unbounded. Flushing early moves rows BETWEEN shards but never
         # changes row bytes.
         self.max_bytes = int(max_bytes)
@@ -303,9 +333,24 @@ def crop_resize_host(frames: np.ndarray, joints2d: np.ndarray, out_size: int,
     return crop_resize_frames(frames, box, out_size), box
 
 
-def _load_backbone(cfg: ExtractConfig, device: torch.device) -> ResNet50:
-    """The bfloat16 ResNet-50 on `device`: `--weights` (a torchvision
-    state_dict) or random weights from seed 0."""
+def _load_backbone(cfg: ExtractConfig, device: torch.device):
+    """The bfloat16 backbone of `--backbone` on `device`: `--weights` or
+    random weights from seed 0. ResNet-50 from a torchvision state_dict;
+    ViT-H (:mod:`h36x_torch.models.vit`, its published widths) built on
+    `meta` and materialized by a ViTPose-layout state_dict's load."""
+    if cfg.backbone == "vit_h":
+        from h36x_torch.models import vit
+
+        if cfg.resize != vit.VIT_H["img_size"][0]:
+            raise ValueError(f"--backbone vit_h reads {vit.VIT_H['img_size'][0]}-pixel "
+                             f"crops; --resize is {cfg.resize}")
+        if not cfg.weights:
+            print("WARNING: no --weights given; using randomly initialized ViT-H "
+                  "(features will not match a pretrained backbone).")
+            return vit.random_vit(device, **vit.VIT_H)
+        model = vit.load_vitpose_file(vit.ViT(**vit.VIT_H), cfg.weights, device)
+        print(f"Loaded ViT-H weights from {cfg.weights}")
+        return model
     model = ResNet50(dtype=torch.bfloat16, device=device)
     if cfg.weights:
         load_torchvision_file(model, cfg.weights)
@@ -324,6 +369,13 @@ def store_provenance() -> dict:
 
     return {"crop_backend": "native" if native.available() else "cv2",
             "jitter_backend": "native" if native.jitter_available() else "numpy"}
+
+
+def backbone_provenance(cfg) -> dict:
+    """The backbone a store's rows came from, for the resume check: nothing
+    for ResNet-50, so that its progress files stay as they were."""
+    backbone = getattr(cfg, "backbone", "resnet50")
+    return {} if backbone == "resnet50" else {"backbone": backbone}
 
 
 def _clip_key(entry) -> tuple:
@@ -360,7 +412,8 @@ def validate_extract_config(cfg) -> None:
     run_extract_dedup both call this first.
     """
     _parse_partition(getattr(cfg, "partition", ""))
-    for flag, allowed in (("engine", ENGINES), ("partition_by", ("clip", "video")),
+    for flag, allowed in (("engine", ENGINES), ("backbone", tuple(BACKBONE_FEATURE_DIM)),
+                          ("partition_by", ("clip", "video")),
                           ("crop_scope", ("auto", "clip", "video")),
                           ("jitter_key", ("auto", "clip", "video", "frame"))):
         val = getattr(cfg, flag, allowed[0])
@@ -368,6 +421,10 @@ def validate_extract_config(cfg) -> None:
             raise ValueError(
                 f"--{flag.replace('_', '-')} must be {'|'.join(allowed)}, "
                 f"got {val!r}")
+    if getattr(cfg, "backbone", "resnet50") != "resnet50" and \
+            getattr(cfg, "engine", "flax") != "flax":
+        raise ValueError(f"--engine {cfg.engine} is ResNet-50's; --backbone "
+                         f"{cfg.backbone} runs the plain module (--engine flax)")
     if not getattr(cfg, "dedup", True):
         # the per-clip scheduler only implements the reference semantics —
         # an EXPLICIT flag asking for a dedup-path mode must not silently
@@ -624,6 +681,7 @@ def _run_per_clip(cfg: ExtractConfig, dataset, device) -> dict:
         run_config["partition_by"] = "clip"
     if n_vars > 1:
         run_config["jitter_backend"] = provenance["jitter_backend"]
+    run_config.update(backbone_provenance(cfg))
 
     write_progress = make_progress_writer(progress_path, run_config,
                                           async_writer)

@@ -1,4 +1,5 @@
-"""Models: the PHD temporal pose model and the ResNet-50 feature backbone."""
+"""Models: the PHD temporal pose model and the feature backbones, ResNet-50
+(`resnet`) and ViTPose-H (`vit`)."""
 
 from h36x_torch.models.phd import (  # noqa: F401
     CausalConv1d,

@@ -364,6 +364,19 @@ def _append_metrics(outdir, record: dict) -> None:
         f.write(json.dumps(record) + "\n")
 
 
+def check_feature_width(cfg: TrainConfig, *stores) -> None:
+    """Raise where a store's features are not --model.feature-dim wide
+    (ResNet-50 writes 2048, ViT-H 1280): the input projection would
+    otherwise fail deep in the first step."""
+    for store in stores:
+        width = getattr(store, "feature_dim", None)
+        if width is not None and width != cfg.model.feature_dim:
+            raise ValueError(
+                f"{getattr(store, 'root', 'the store')} holds {width}-wide features "
+                f"but --model.feature-dim is {cfg.model.feature_dim}: train with "
+                f"--model.feature-dim {width} (the extraction backbone's width)")
+
+
 def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
         mesh: Optional[Mesh] = None, device=None):
     """Full training run (h36x's signature: `mesh` None chooses one by
@@ -377,6 +390,7 @@ def fit(cfg: TrainConfig, train_set, val_set, train_sampler, val_sampler,
     (model, best_val). The model lives on the first local device; under
     tensor parallelism over processes it holds this process's slices
     (`model.tp`)."""
+    check_feature_width(cfg, train_set, val_set)
     rank, processes = process_info()
     if processes != max(1, cfg.dist.num_processes):
         raise ValueError(f"--dist.num-processes {cfg.dist.num_processes} but the "

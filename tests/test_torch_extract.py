@@ -187,3 +187,15 @@ def test_cli_extract_on_cpu(ingested_tree, tmp_path, capsys):  # noqa: F811
     np.testing.assert_array_equal(feats, np.stack([jax_ds[i][0] for i in range(8)]))
     with pytest.raises(SystemExit, match="required"):
         extract_main(["--out", str(out), "--device", "cpu"])
+
+
+def test_rows_to_device_stacks_in_order_and_zero_pads():
+    rng = np.random.default_rng(3)
+    rows = [rng.integers(0, 256, (6, 6, 3), dtype=np.uint8) for _ in range(5)]
+    rows[2] = rows[2][:, ::-1, :]  # a flipped view, as the dedup feed queues
+    out = pipeline.rows_to_device(rows, 8, torch.device("cpu"))
+    assert out.dtype == torch.uint8 and tuple(out.shape) == (8, 6, 6, 3)
+    np.testing.assert_array_equal(out[:5].numpy(), np.stack(rows))
+    assert not out[5:].any()
+    full = pipeline.rows_to_device(rows, 5, torch.device("cpu"))
+    np.testing.assert_array_equal(full.numpy(), np.stack(rows))
