@@ -2505,8 +2505,8 @@ class SyntheticVideos:
 
 
 def frames_per_dispatch() -> int:
-    """The unique-frame scheduler's default device batch: batch_size *
-    seq_len * 3 pixel variants."""
+    """The kernel checks' batch of frames: a per-clip batch's rows,
+    batch_size * seq_len * 3 pixel variants."""
     return EXTRACT["batch_size"] * EXTRACT["seq_len"] * 3
 
 
@@ -2516,8 +2516,6 @@ def drive_extract_path(dev, dataset, out, engine, partition=""):
     and read just after: B5 must launch 13 times per dispatch with the `opt`
     engine and never with `flax`, and no other kernel launches. With
     `partition` ("i/N") only the clips i::N, at least one dispatch."""
-    import math
-
     from h36x_torch.config import ExtractConfig
     from h36x_torch.extract.pipeline import run_extract, store_provenance
     from h36x_torch.ops.bottleneck import fused_bottleneck
@@ -2535,7 +2533,10 @@ def drive_extract_path(dev, dataset, out, engine, partition=""):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counts()
-    dispatches = math.ceil(summary["backbone_frames"] / frames_per_dispatch())
+    dispatches = summary["counts"]["h36x.extract.dispatches"]
+    if summary["counts"].get("h36x.extract.pad_rows", 0):
+        raise AssertionError(f"extract {engine}: zero rows sent to the backbone "
+                             f"on one device: {summary['counts']}")
     want = expect_counts(fused_bottleneck=13 * dispatches if engine == "opt" else 0)
     by_route = dict(fused_bottleneck.launches_by_route)
     if by_route["hopper"] != want["fused_bottleneck"]:

@@ -202,8 +202,10 @@ class ExtractConfig:
     # color-jitter rng keying: 'auto' ('video' on the unique-frame
     # scheduler, 'clip' on the per-clip one) | 'clip' | 'video' | 'frame'
     jitter_key: str = "auto"
-    # device batch rows of the unique-frame scheduler; 0 = batch_size *
-    # seq_len * pixel variants
+    # device batch rows of the unique-frame scheduler; 0 = the rows
+    # batch_size clips add in steady state (batch_size * stride * 3 under
+    # video/frame jitter, batch_size * (seq_len + 2 * stride) under clip
+    # jitter, batch_size * stride without augment); the last goes at its size
     frames_per_dispatch: int = 0
 
 

@@ -24,8 +24,14 @@ Steady-state device cost per clip of T frames at stride s (stable boxes):
   per-clip pipeline:                    3T   (=120)  backbone-frames
   dedup, jitter_key='clip':             T+2s (= 50)
   dedup, jitter_key='video'/'frame':    3s   (= 15)
+  (without augment: T per clip, s under dedup)
 
-The store contract, row order (clips enter the shuffle pool in global
+A dispatch carries, by default, the rows that `batch_size` clips add in
+steady state under the call's resolved profile (the counts above times
+`batch_size`): it goes as soon as that many rows are pending, and the
+last one goes at its own size, with no zero rows on one device. The
+sizes follow the row count alone, so a store repeats bit for bit. The
+store contract, row order (clips enter the shuffle pool in global
 clip-index order), per-clip jitter rng and resume/partition semantics are
 those of the per-clip pipeline. On the card, the features of a dispatch
 stay on the device until the next dispatch has been queued and the host
@@ -99,10 +105,25 @@ class ClipJob:
 CURRENT_DEPTH = 8
 
 
+def default_frames_per_dispatch(cfg: ExtractConfig) -> int:
+    """The rows `batch_size` clips add to the backbone's work in steady
+    state under `cfg`'s resolved profile: stride new frames a clip in each
+    pixel variant, and under jitter_key='clip' the clip's whole jittered
+    window besides."""
+    if not cfg.augment:
+        return cfg.batch_size * cfg.stride
+    if cfg.jitter_key == "clip":
+        return cfg.batch_size * (cfg.seq_len + 2 * cfg.stride)
+    return cfg.batch_size * cfg.stride * 3
+
+
 def _feed_budget(cfg: ExtractConfig, frames_per_dispatch: int) -> int:
     """Bytes the workers of the videos after the consumer's may hold
-    queued: one dispatch of crop rows."""
-    return frames_per_dispatch * cfg.resize * cfg.resize * 3
+    queued: a per-clip batch of crop rows (batch_size * seq_len * pixel
+    variants), or one dispatch of them if that is larger."""
+    rows = max(cfg.batch_size * cfg.seq_len * (3 if cfg.augment else 1),
+               frames_per_dispatch)
+    return rows * cfg.resize * cfg.resize * 3
 
 
 class _Feed:
@@ -565,11 +586,11 @@ def _run_dedup(cfg: ExtractConfig, dataset, device) -> dict:
     assembler = _Assembler(cfg, pool, feat_np_dtype, aug_names,
                            printer.clip_done)
 
-    # --- device batching: a fixed frame-batch shape, the transfer
-    # granularity of the per-clip pipeline's default batches
-    frames_per_dispatch = cfg.frames_per_dispatch or (
-        cfg.batch_size * cfg.seq_len * (3 if cfg.augment else 1)
-    )
+    # --- device batching: a dispatch goes once `frames_per_dispatch` rows
+    # are pending (by default what `batch_size` clips add), the last at its
+    # own size
+    frames_per_dispatch = (cfg.frames_per_dispatch
+                           or default_frames_per_dispatch(cfg))
     if frames_per_dispatch < 1:
         # validate with the other dedup flags: a negative value would only
         # blow up as an opaque numpy negative-dimension error deep in the
@@ -578,34 +599,32 @@ def _run_dedup(cfg: ExtractConfig, dataset, device) -> dict:
             f"--frames-per-dispatch must be positive, got {frames_per_dispatch}")
     pending: List[tuple] = []  # (tag, crop u8 (o,o,3))
     inflight = None
+    # over a mesh the feature function pads a dispatch to a multiple of this
+    replicas = mesh.shape["data"] if mesh else 1
 
     def dispatch(chunk):
         nonlocal inflight
         n = len(chunk)
         with span("h36x.extract.stage"):
             if not mesh:
-                frames = rows_to_device([c for _, c in chunk],
-                                        frames_per_dispatch, device)
+                frames = rows_to_device([c for _, c in chunk], n, device)
             else:
                 # over a mesh each device's block goes to it from the host
                 frames = np.stack([c for _, c in chunk])
-                if n < frames_per_dispatch:
-                    padder = np.zeros(
-                        (frames_per_dispatch - n,) + frames.shape[1:], np.uint8
-                    )
-                    frames = np.concatenate([frames, padder])
+        count("h36x.extract.dispatches")
+        count("h36x.extract.pad_rows", -n % replicas)
         with span("h36x.extract.feature_fn"):
             feats_dev = DeviceFeatures(feature_fn(frames))
         assembler.backbone_rows += n
-        new = (feats_dev, [t for t, _ in chunk], n)
+        new = (feats_dev, [t for t, _ in chunk])
         if inflight is not None:
             finalize(inflight)
         inflight = new
 
     def finalize(batch):
-        feats_dev, tags, n = batch
+        feats_dev, tags = batch
         with span("h36x.extract.drain"):
-            feats = feats_dev.numpy(feat_np_dtype)[:n]
+            feats = feats_dev.numpy(feat_np_dtype)
             for tag, row in zip(tags, feats):
                 assembler.store(tag, row)
             assembler.drain()
@@ -660,10 +679,8 @@ def _run_dedup(cfg: ExtractConfig, dataset, device) -> dict:
                     if ready:
                         count("h36x.extract.jobs_ready")
                     enqueue(payload)
-            while pending:
-                chunk = pending[:frames_per_dispatch]
-                del pending[:frames_per_dispatch]
-                dispatch(chunk)
+            if pending:  # fewer than frames_per_dispatch: at their own size
+                dispatch(pending)
             if inflight is not None:
                 finalize(inflight)
         except BaseException:

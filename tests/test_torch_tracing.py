@@ -27,8 +27,9 @@ MAIN_SPANS = {"h36x.extract.call", "h36x.extract.load_backbone", "h36x.extract.w
               "h36x.extract.store"}
 WORKER_SPANS = {"h36x.extract.job", "h36x.extract.crop", "h36x.extract.jitter",
                 "h36x.extract.put_wait", "h36x.store.write"}
+# h36x.extract.pad_rows moves only over a mesh (tests/test_torch_dispatch.py)
 COUNTERS = {"h36x.extract.frames_cropped", "h36x.extract.frames_jittered",
-            "h36x.extract.jobs_ready"}
+            "h36x.extract.jobs_ready", "h36x.extract.dispatches"}
 
 
 def _chrome_events(prof, tmp_path):
@@ -157,7 +158,7 @@ def test_run_extract_reports_every_span_and_counter(tmp_path, fake_port_backbone
     counters = COUNTERS
     if scheduler == "per_clip":
         spans = spans - {"h36x.extract.put_wait"}  # no job queue of its own
-        counters = counters - {"h36x.extract.jobs_ready"}
+        counters = counters - {"h36x.extract.jobs_ready", "h36x.extract.dispatches"}
     assert set(summary["host_s"]) == spans
     assert summary["host_s"]["h36x.extract.call"][1] == 1
     assert summary["host_s"]["h36x.extract.load_backbone"][1] == 1
@@ -170,6 +171,8 @@ def test_run_extract_reports_every_span_and_counter(tmp_path, fake_port_backbone
         assert summary["backbone_frames"] == 3 * unique
         assert summary["host_s"]["h36x.extract.job"][1] == len(ds)
         assert summary["counts"]["h36x.extract.jobs_ready"] <= len(ds)
+        # dispatches of batch_size * stride * 3 = 30 rows, the last shorter
+        assert summary["counts"]["h36x.extract.dispatches"] == -(-3 * unique // 30)
     else:
         assert summary["counts"]["h36x.extract.frames_cropped"] == len(ds) * 8
     call_s = summary["host_s"]["h36x.extract.call"][0]
