@@ -2517,7 +2517,8 @@ def drive_extract_path(dev, dataset, out, engine, partition=""):
     engine and never with `flax`, and no other kernel launches. With
     `partition` ("i/N") only the clips i::N, at least one dispatch."""
     from h36x_torch.config import ExtractConfig
-    from h36x_torch.extract.pipeline import run_extract, store_provenance
+    from h36x_torch.extract.pipeline import run_extract
+    from h36x_torch.extract.store import store_provenance
     from h36x_torch.ops.bottleneck import fused_bottleneck
 
     e = EXTRACT

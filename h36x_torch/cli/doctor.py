@@ -301,7 +301,7 @@ def dedup_stats(root, seq_len, stride, frame_skip):
     which clamps edge boxes differently than the real scheduler); with no
     video the principal-point estimate dims = 2c is the fallback.
 
-    Returns the counts; the derived ratios equal run_extract_dedup's
+    Returns the counts; the derived ratios equal the unique-frame scheduler's
     reported `dedup_ratio` exactly when the whole tree is extracted with
     --augment."""
     import numpy as np

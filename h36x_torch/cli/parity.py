@@ -44,6 +44,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from h36x_torch.extract.pipeline import run_extract
+
 
 def _report_prediction_delta(pred, data, tol_mm: float,
                              indent: str = "") -> None:
@@ -92,7 +94,6 @@ def run_full(args, dataset=None) -> None:
     from h36x_torch.cli.common import resolve_model_config
     from h36x_torch.config import ExtractConfig
     from h36x_torch.data.features import FeatureClipDataset
-    from h36x_torch.extract.pipeline import run_extract
     from h36x_torch.models.phd import params_from_flax
     from h36x_torch.models.torch_import import load_torch_phd
     from h36x_torch.train.losses import mpjpe

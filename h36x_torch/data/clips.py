@@ -249,7 +249,7 @@ class PreprocessedClips:
 
     def __getitem__(self, idx: int):
         from h36x_torch.data.augment import color_jitter_host, hflip_joints, reverse_joints
-        from h36x_torch.extract.pipeline import crop_resize_host
+        from h36x_torch.extract.staging import crop_resize_host
         from h36x_torch.geometry.camera import adjust_camera_after_crop_and_resize
         from h36x_torch.geometry.crop import adjust_joints2d_after_crop_and_resize
         from h36x_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD

@@ -41,28 +41,18 @@ finalizes this one.
 from __future__ import annotations
 
 import threading
-import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from h36x_torch.config import ExtractConfig
-from h36x_torch.data.augment import (
-    AUG_NAMES,
-    hflip_joints,
-    jitter_u8,
-    reverse_joints,
-    sample_jitter_params,
-)
-from h36x_torch.geometry.camera import adjust_camera_after_crop_and_resize
-from h36x_torch.geometry.crop import (
-    adjust_joints2d_after_crop_and_resize,
-    compute_square_crop_from_2d,
-)
-from h36x_torch.utils.profiling import count, measured, span
+from h36x_torch.data.augment import jitter_u8, sample_jitter_params
+from h36x_torch.extract.staging import DeviceFeatures, crop_resize_frames, rows_to_device
+from h36x_torch.geometry.crop import compute_square_crop_from_2d
+from h36x_torch.utils.profiling import count, span
 
 # (subsampled frame index, (top, left, side)) — the content address of a crop
 FrameKey = Tuple[int, Tuple[int, int, int]]
@@ -226,8 +216,6 @@ def _video_worker(
     dies, `feed.close()` aborts the worker, so that the executor's
     shutdown cannot hang on it.
     """
-    from h36x_torch.extract.pipeline import crop_resize_frames
-
     def put(item):
         with span("h36x.extract.put_wait"):
             feed.put(pos, item)
@@ -354,13 +342,9 @@ def _video_worker(
 class _Assembler:
     """In-order clip assembly over the per-video feature cache."""
 
-    def __init__(self, cfg: ExtractConfig, pool, feat_dtype, aug_names,
-                 on_clip_done):
+    def __init__(self, cfg: ExtractConfig, add_clip):
         self.cfg = cfg
-        self.pool = pool
-        self.feat_dtype = feat_dtype
-        self.aug_names = aug_names
-        self.on_clip_done = on_clip_done
+        self.add_clip = add_clip  # (ci, box, j3d, j2d_raw, cam, feats)
         self.fifo: deque = deque()
         # video_idx -> {(FrameKey, variant): feature row}
         self.cache: Dict[int, Dict[Tuple[FrameKey, str], np.ndarray]] = {}
@@ -410,181 +394,25 @@ class _Assembler:
                     del cache[ck]
 
     def _assemble(self, job: ClipJob) -> None:
-        cfg = self.cfg
         cache = self.cache[job.video_idx]
-        f_orig = np.stack([cache[(k, "o")] for k in job.window_keys])
-        ci, box = job.ci, job.box
-        j2d = adjust_joints2d_after_crop_and_resize(
-            job.j2d_raw, box, cfg.resize
-        )
-        K = adjust_camera_after_crop_and_resize(
-            job.cam["f"], job.cam["c"], box, cfg.resize
-        )
-        base_meta = {
-            "subject": int(ci.subject),
-            "action": ci.action,
-            "cam": ci.cam,
-            "start": int(ci.start),
-            "end": int(ci.end),
-            "frame_skip": int(cfg.frame_skip),
-            "box": [int(v) for v in box],
-        }
-        if cfg.augment:
-            f_hf = np.stack([cache[(k, "h")] for k in job.window_keys])
+        feats = [np.stack([cache[(k, "o")] for k in job.window_keys])]
+        if self.cfg.augment:
             if job.cj_feats is not None:  # per-clip-keyed jitter
                 f_cj = np.stack(job.cj_feats)
             else:  # video/frame-keyed jitter: rows live in the cache
                 f_cj = np.stack([cache[(k, "c")] for k in job.window_keys])
-            f_trev = f_orig[::-1].copy()
-            j3d_hf, j2d_hf, K_hf = hflip_joints(
-                job.j3d, j2d, K, width=cfg.resize
-            )
-            j3d_tr, j2d_tr = reverse_joints(job.j3d, j2d)
-            rows = (
-                (f_orig, job.j3d, j2d, K),
-                (f_cj, job.j3d, j2d, K),
-                (f_hf, j3d_hf, j2d_hf, K_hf),
-                (f_trev, j3d_tr, j2d_tr, K),
-            )
-        else:
-            rows = ((f_orig, job.j3d, j2d, K),)
-        group = [
-            {
-                "feat": feat,
-                "joints3d": np.asarray(jj3, np.float32),
-                "joints2d": np.asarray(jj2, np.float32),
-                "K": np.asarray(kk, np.float32),
-                "meta": dict(base_meta, aug=self.aug_names[v]),
-            }
-            for v, (feat, jj3, jj2, kk) in enumerate(rows)
-        ]
-        self.pool.add(group)
-        self.on_clip_done()
+            feats += [f_cj, np.stack([cache[(k, "h")] for k in job.window_keys])]
+        self.add_clip(job.ci, job.box, job.j3d, job.j2d_raw, job.cam, feats)
 
 
-def run_extract_dedup(cfg: ExtractConfig, dataset, device=None) -> dict:
-    """Unique-frame extraction on `device` (default cuda), the backbone
-    data-parallel over every visible card when there is more than one; the
-    same store contract as pipeline.run_extract. The summary's `host_s`
-    and `counts` are what the call added to `utils.profiling`'s table."""
-    return measured("h36x.extract.call", _run_dedup, cfg, dataset, device)
-
-
-def _run_dedup(cfg: ExtractConfig, dataset, device) -> dict:
-    from concurrent.futures import ThreadPoolExecutor
-
-    from h36x_torch.data.shards import ShardWriter
-    from h36x_torch.extract.pipeline import (
-        DeviceFeatures,
-        ShufflePool,
-        ThroughputPrinter,
-        _clip_key,
-        _load_backbone,
-        _parse_partition,
-        backbone_provenance,
-        feature_mesh,
-        finalize_store,
-        make_feature_fn,
-        make_progress_writer,
-        resolve_extract_modes,
-        restore_resume_state,
-        rows_to_device,
-        store_provenance,
-        validate_extract_config,
-    )
-    from h36x_torch.extract.writer import AsyncWriter
-    from h36x_torch.utils.runtime import local_devices, resolve_device
-
-    validate_extract_config(cfg)  # one validator for both schedulers
-    # direct callers may pass 'auto' sentinels; this scheduler's auto = the
-    # production profile (video/video)
-    cfg = resolve_extract_modes(cfg, production=True)
-    device = resolve_device(device)
-
-    out_root = Path(cfg.out)
-    out_root.mkdir(parents=True, exist_ok=True)
-    n_vars = len(AUG_NAMES) if cfg.augment else 1
-    aug_names = list(AUG_NAMES) if cfg.augment else ["orig"]
-    feat_np_dtype = np.float16 if cfg.save_fp16 else np.float32
-    progress_path = out_root / "progress.json"
-
-    groups = dataset.video_groups()
-    n_clips = len(dataset)
-    part_i, part_n = _parse_partition(cfg.partition)
-    partition_by = cfg.partition_by
-    if partition_by == "video":
-        groups = groups[part_i::part_n]
-        owned = [i for g in groups for i in g]
-    else:  # clip round-robin: preserves the per-clip pipeline's semantics
-        owned = set(range(n_clips)[part_i::part_n] if part_n > 1
-                    else range(n_clips))
-        owned = [i for g in groups for i in g if i in owned]
-    part_note = (f" [partition {part_i}/{part_n} by {partition_by}]"
-                 if part_n > 1 else "")
-    profile = ("production" if (cfg.crop_scope, cfg.jitter_key)
-               == ("video", "video") else "reference-keyed"
-               if (cfg.crop_scope, cfg.jitter_key) == ("clip", "clip")
-               else "mixed")
-    print(
-        f"Extracting {n_clips} clips x {n_vars} variant(s) "
-        f"(shards of {cfg.shard_size} clips, unique-frame scheduling, "
-        f"{profile} profile: crop_scope={cfg.crop_scope} "
-        f"jitter_key={cfg.jitter_key}) "
-        f"-> {out_root}{part_note}"
-    )
-
-    with span("h36x.extract.load_backbone"):
-        model = _load_backbone(cfg, device)
-        mesh = feature_mesh(local_devices(device))
-        feature_fn = make_feature_fn(model, mesh=mesh, engine=cfg.engine)
-
-    async_writer = AsyncWriter()
-    shard_writer = ShardWriter(out_root, n_vars, async_writer=async_writer)
-
-    run_config = {
-        "n_vars": n_vars, "seq_len": cfg.seq_len, "resize": cfg.resize,
-        "frame_skip": cfg.frame_skip, "save_fp16": bool(cfg.save_fp16),
-        "shuffle_seed": cfg.shuffle_seed,
-        "partition": cfg.partition,
-    }
-    if part_n > 1:
-        # partition semantics change the owned clip set; resuming a part
-        # store under the other scheme would append the wrong clips
-        run_config["partition_by"] = partition_by
-    if cfg.crop_scope != "clip" or cfg.jitter_key != "clip":
-        # deviation modes change feature bytes: a resume mixing them with
-        # default-mode rows would corrupt the store silently
-        run_config["crop_scope"] = cfg.crop_scope
-        run_config["jitter_key"] = cfg.jitter_key
-    provenance = store_provenance()
-    run_config["crop_backend"] = provenance["crop_backend"]
-    if n_vars > 1:
-        run_config["jitter_backend"] = provenance["jitter_backend"]
-    run_config.update(backbone_provenance(cfg))
-
-    write_progress = make_progress_writer(progress_path, run_config,
-                                          async_writer)
-    pool = ShufflePool(
-        shard_writer, n_vars, cfg.shard_size, cfg.shuffle_pool,
-        cfg.shuffle_seed, on_flush=write_progress,
-        max_bytes=int(cfg.shuffle_pool_gb * 2**30),
-    )
-    done_keys = restore_resume_state(cfg, progress_path, run_config, pool,
-                                     shard_writer)
-
-    todo_set = {
-        i for i in owned
-        if not done_keys or _clip_key(dataset.clips[i]) not in done_keys
-    }
-    n_todo = len(todo_set)
-    if n_todo < len(owned):
-        print(f"{len(owned) - n_todo} clips already done; {n_todo} to go")
-
-    t_all = time.perf_counter()
-    printer = ThroughputPrinter(n_todo, pool, shard_writer)
-
-    assembler = _Assembler(cfg, pool, feat_np_dtype, aug_names,
-                           printer.clip_done)
+def run_unique_frames(cfg: ExtractConfig, dataset, groups: List[List[int]], todo,
+                      store, feature_fn, mesh, device) -> int:
+    """The unique-frame loop of one run: the clips in `todo` of the videos
+    `groups`, through `feature_fn` (over `mesh` when there is one), into
+    `store` (:class:`h36x_torch.extract.store.Store`). Returns the rows
+    sent to the backbone."""
+    todo_set = set(todo)
+    assembler = _Assembler(cfg, store.add_clip)
 
     # --- device batching: a dispatch goes once `frames_per_dispatch` rows
     # are pending (by default what `batch_size` clips add), the last at its
@@ -624,7 +452,7 @@ def _run_dedup(cfg: ExtractConfig, dataset, device) -> dict:
     def finalize(batch):
         feats_dev, tags = batch
         with span("h36x.extract.drain"):
-            feats = feats_dev.numpy(feat_np_dtype)
+            feats = feats_dev.numpy(store.feat_dtype)
             for tag, row in zip(tags, feats):
                 assembler.store(tag, row)
             assembler.drain()
@@ -697,36 +525,4 @@ def _run_dedup(cfg: ExtractConfig, dataset, device) -> dict:
             "scheduler bookkeeping bug"
         )
 
-    with span("h36x.extract.store"):
-        pool.finish()
-        async_writer.wait()
-        async_writer.stop()
-        finalize_store(out_root, cfg, pool, shard_writer, n_vars, aug_names,
-                       progress_path)
-
-    total = time.perf_counter() - t_all
-    legacy_rows = n_todo * cfg.seq_len * (3 if cfg.augment else 1)
-    summary = {
-        "n_clips": len(pool.clip_index),
-        "n_processed": n_todo,
-        "n_vars": n_vars,
-        "n_shards": shard_writer.shard_id,
-        "seconds": total,
-        "clips_per_sec": n_todo / total if total > 0 else 0.0,
-        "frames_per_sec": n_todo * cfg.seq_len / total if total > 0 else 0.0,
-        "backbone_frames": assembler.backbone_rows,
-        "dedup_ratio": (legacy_rows / assembler.backbone_rows
-                        if assembler.backbone_rows else 1.0),
-        # RESOLVED modes (the 'auto' sentinel never reaches this point):
-        # what the store was actually built with
-        "crop_scope": cfg.crop_scope,
-        "jitter_key": cfg.jitter_key,
-        "device": str(device),
-    }
-    print(
-        f"Done: {n_todo} clips x {n_vars} variants -> {shard_writer.shard_id} "
-        f"shards in {total:.1f}s ({summary['clips_per_sec']:.1f} clips/s); "
-        f"backbone frames {assembler.backbone_rows} vs {legacy_rows} "
-        f"per-clip ({summary['dedup_ratio']:.2f}x dedup)"
-    )
-    return summary
+    return assembler.backbone_rows

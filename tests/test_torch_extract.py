@@ -3,10 +3,15 @@ library's bytes, the slice whole (the port's `run_extract` and h36x's on
 one video-structured source with the deterministic stand-in backbone of
 tests/test_dedup.py: byte-identical stores for both schedulers, with and
 without augment, reference-keyed and production profiles), once more with
-the real bfloat16 backbone on both sides from one torchvision `.pt`, and
-`h36x_torch.cli.extract --device cpu` on an mp4 tree."""
+the real bfloat16 backbone on both sides from one torchvision `.pt`,
+`h36x_torch.cli.extract --device cpu` on an mp4 tree, a crashed call
+resumed to h36x's store under either scheduler, and the direction of the
+extraction modules' imports."""
 
+import ast
+import dataclasses
 import json
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -23,7 +28,7 @@ from h36x_torch.cli.extract import main as extract_main
 from h36x_torch.config import ExtractConfig
 from h36x_torch.data import shards
 from h36x_torch.data.features import FeatureClipDataset
-from h36x_torch.extract import pipeline
+from h36x_torch.extract import pipeline, staging
 from tests.test_dedup import _PROJ, FakeOverlapDataset, fake_backbone  # noqa: F401
 from tests.test_full_pipeline import ingested_tree  # noqa: F401
 from tests.test_torch_resnet import torchvision_state_dict
@@ -125,12 +130,14 @@ def test_store_is_byte_identical_to_h36x(tmp_path, fake_backbone,  # noqa: F811
 
 
 def _arrays(root):
-    """{(subject, start, aug): {array: row}} of a store, through h36x's reader."""
+    """{(subject, action, cam, start, aug): {array: row}} of a store, through
+    h36x's reader."""
     ds = JaxFeatureClipDataset(root, augment=True, test_set=True)
     out = {}
     for i in range(len(ds)):
         feats, j3d, j2d, K, meta = ds[i]
-        out[(meta["subject"], meta["start"], meta["aug"])] = {
+        out[(meta["subject"], meta["action"], meta["cam"], meta["start"],
+             meta["aug"])] = {
             "feats": np.asarray(feats), "joints3d": j3d, "joints2d": j2d, "K": K,
             "box": np.asarray(meta["box"])}
     return out
@@ -199,3 +206,93 @@ def test_rows_to_device_stacks_in_order_and_zero_pads():
     assert not out[5:].any()
     full = pipeline.rows_to_device(rows, 5, torch.device("cpu"))
     np.testing.assert_array_equal(full.numpy(), np.stack(rows))
+
+
+class _Flaky(FakeOverlapDataset):
+    """FakeOverlapDataset whose clip `fail_at` raises, as a bad annotation
+    or a decode error would."""
+
+    def __init__(self, fail_at=None, **kw):
+        super().__init__(smooth=False, **kw)
+        self.fail_at = fail_at
+
+    def clip_annotations(self, i):
+        if i == self.fail_at:
+            raise RuntimeError("simulated crash")
+        return super().clip_annotations(i)
+
+
+# small pools and dispatches, so shards and progress land before clip 5
+CRASH = dict(seq_len=8, resize=16, batch_size=2, num_workers=2, augment=True,
+             shard_size=2, shuffle_pool=2, shuffle_seed=1, frames_per_dispatch=12)
+PER_CLIP = dict(dedup=False)
+REFERENCE_KEYED = dict(crop_scope="clip", jitter_key="clip")
+
+
+def _crash(out, **kw) -> ExtractConfig:
+    """A call that fails at clip 5: its error reaches the caller, progress.json
+    is on disk at once, and no thread the call started is left alive."""
+    cfg = ExtractConfig(out=str(out), **CRASH, **kw)
+    before = set(threading.enumerate())
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        pipeline.run_extract(cfg, dataset=_Flaky(fail_at=5), device="cpu")
+    assert (out / "progress.json").exists()
+    assert [t for t in threading.enumerate() if t not in before] == []
+    return cfg
+
+
+@pytest.mark.parametrize("crashed, resumed", [
+    (PER_CLIP, PER_CLIP),
+    (REFERENCE_KEYED, REFERENCE_KEYED),
+    ({}, {}),                       # production (video/video)
+    (PER_CLIP, REFERENCE_KEYED),    # across the schedulers
+], ids=["per_clip", "unique_frame-clip", "unique_frame-production",
+        "per_clip-then-unique_frame"])
+def test_a_crashed_call_resumes_to_h36x_store(tmp_path, fake_backbone,  # noqa: F811
+                                              fake_port_backbone, crashed, resumed):
+    cfg = _crash(tmp_path / "port", **crashed)
+    cfg = dataclasses.replace(cfg, resume=True, **resumed)
+    summary = pipeline.run_extract(cfg, dataset=_Flaky(), device="cpu")
+    assert summary["n_clips"] == len(_Flaky()) > summary["n_processed"]
+    assert not (tmp_path / "port" / "progress.json").exists()
+    assert shards.verify_store(tmp_path / "port")["errors"] == []
+    jax_pipeline.run_extract(JaxExtractConfig(out=str(tmp_path / "h36x"), **CRASH, **resumed),
+                             dataset=FakeOverlapDataset(smooth=False))
+    want, got = _arrays(tmp_path / "h36x"), _arrays(tmp_path / "port")
+    assert got.keys() == want.keys()
+    for key in want:
+        for name, row in want[key].items():
+            np.testing.assert_array_equal(got[key][name], row, err_msg=f"{key} {name}")
+
+
+def test_a_resume_that_flips_save_fp16_is_refused(tmp_path, fake_port_backbone):  # noqa: F811
+    cfg = _crash(tmp_path / "port", save_fp16=True)
+    before = set(threading.enumerate())
+    with pytest.raises(ValueError, match="resume config mismatch"):
+        pipeline.run_extract(dataclasses.replace(cfg, resume=True, save_fp16=False),
+                             dataset=_Flaky(), device="cpu")
+    assert [t for t in threading.enumerate() if t not in before] == []
+
+
+def _imports(path) -> set:
+    """The modules a source file imports, and each `from` name as module.name."""
+    names = set()
+    for node in ast.walk(ast.parse(Path(path).read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+            names.update(f"{node.module}.{a.name}" for a in node.names)
+    return names
+
+
+def test_extraction_imports_point_one_way():
+    """pipeline -> dedup -> staging, pipeline -> store, and no arrow back."""
+    package = Path(pipeline.__file__).parent
+    stage = {"h36x_torch.extract.pipeline", "h36x_torch.extract.dedup"}
+    for name in ("store.py", "staging.py"):
+        assert not _imports(package / name) & stage, name
+    assert "h36x_torch.extract.pipeline" not in _imports(package / "dedup.py")
+    assert "h36x_torch.extract.pipeline" not in _imports(package.parent / "data" / "clips.py")
+    for name in ("DeviceFeatures", "crop_resize_frames", "rows_to_device"):
+        assert getattr(pipeline, name) is getattr(staging, name), name

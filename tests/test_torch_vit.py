@@ -16,7 +16,7 @@ import torch
 
 from h36x_torch.config import BACKBONE_FEATURE_DIM, ExtractConfig
 from h36x_torch.data.features import FeatureClipDataset
-from h36x_torch.extract import pipeline
+from h36x_torch.extract import pipeline, store
 from h36x_torch.models import vit
 from h36x_torch.models.resnet import ResNet50
 from h36x_torch.utils import profiling
@@ -377,7 +377,7 @@ def test_resnet50_stores_stay_byte_identical(tmp_path, dedup, fake_backbone,  # 
                          device="cpu")
     want = _store_files(tmp_path / "h36x")
     assert _store_files(tmp_path / "said") == want == _store_files(tmp_path / "default")
-    assert pipeline.backbone_provenance(ExtractConfig()) == {}
-    assert pipeline.backbone_provenance(ExtractConfig(backbone="vit_h")) == {
+    assert store.backbone_provenance(ExtractConfig()) == {}
+    assert store.backbone_provenance(ExtractConfig(backbone="vit_h")) == {
         "backbone": "vit_h"}
 
