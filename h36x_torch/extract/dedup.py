@@ -75,7 +75,8 @@ class ClipJob:
     cam: dict
     box: np.ndarray  # (4,)
     window_keys: List[FrameKey]  # seq_len keys, in time order
-    # first-seen (key, crop u8 (o,o,3)) pairs this job must compute
+    # first-seen (key, crop u8 (o,o,3)) pairs this job must compute: the
+    # rows of its crop output
     miss: List[Tuple[FrameKey, np.ndarray]] = field(default_factory=list)
     # first-seen jittered crops (jitter_key='video'|'frame')
     cj_miss: List[Tuple[FrameKey, np.ndarray]] = field(default_factory=list)
@@ -230,8 +231,6 @@ def _video_worker(
         if hasattr(dataset, "open_video"):
             cursor = dataset.open_video(video_idx)
         crop_cache: Dict[FrameKey, np.ndarray] = {}
-        seen: set = set()
-        seen_cj: set = set()
         video_box = None
         video_params = None
         if cfg.augment and cfg.jitter_key == "video":
@@ -264,37 +263,40 @@ def _video_worker(
                 for k in [k for k in crop_cache if k[0] < ci.start]:
                     del crop_cache[k]
 
+                # Every earlier clip started no later than this one and the
+                # frames before ci.start left the cache, so the cached keys
+                # of this box are a prefix of the window. The rest, from
+                # `lo`, is one run of frames that no earlier job of the
+                # video has seen: this job's first-seen keys.
                 keys = [(ci.start + t, bkey) for t in range(t_len)]
-                new_t = [t for t in range(t_len) if keys[t] not in crop_cache]
-                if new_t:
+                lo = sum(k in crop_cache for k in keys)
+                assert all(k in crop_cache for k in keys[:lo]), (
+                    f"clip {i}: the cached frames are not a prefix of its window")
+                new_keys = keys[lo:]
+                rows = ()
+                if new_keys:
                     with span("h36x.extract.crop"):
-                        cropped = crop_resize_frames(frames[new_t], box, cfg.resize)
-                    count("h36x.extract.frames_cropped", len(new_t))
-                    for j, t in enumerate(new_t):
-                        crop_cache[keys[t]] = cropped[j]
-                window = np.stack([crop_cache[k] for k in keys])
+                        rows = crop_resize_frames(frames[lo:], box, cfg.resize)
+                    count("h36x.extract.frames_cropped", len(new_keys))
+                    crop_cache.update(zip(new_keys, rows))
 
+                # The rows of the crop's own output: it holds this job's
+                # first-seen rows and no other, so a row the consumer keeps
+                # queued pins nothing it does not need.
                 job = ClipJob(
                     index=i, video_idx=video_idx, ci=ci, j3d=j3d,
                     j2d_raw=j2d_raw, cam=cam, box=np.asarray(box),
-                    window_keys=keys,
+                    window_keys=keys, miss=list(zip(new_keys, rows)),
                 )
-                for t, k in enumerate(keys):
-                    if k not in seen:
-                        seen.add(k)
-                        # copy the row: a view would pin this clip's WHOLE
-                        # (T,o,o,3) window until the consumer dispatches it. In
-                        # the max-dedup modes a job contributes only ~stride
-                        # first-seen rows, and `pending` can hold hundreds of
-                        # jobs' entries — views would transiently pin GBs of
-                        # windows for MBs of needed rows.
-                        job.miss.append((k, window[t].copy()))
+                stacked = 0
                 if cfg.augment:
                     if cfg.jitter_key == "clip":
                         rng = np.random.default_rng(
                             cfg.shuffle_seed * 1_000_003 + i
                         )
                         params = sample_jitter_params(rng)
+                        window = np.stack([crop_cache[k] for k in keys])
+                        stacked = len(window)
                         with span("h36x.extract.jitter"):
                             job.cj_window = jitter_u8(window, params)
                         count("h36x.extract.frames_jittered", len(window))
@@ -303,28 +305,22 @@ def _video_worker(
                         # first-seen frame in ONE kernel call (per-frame calls
                         # pay a thread spawn/join each — pure waste in the mode
                         # built for maximum dedup throughput)
-                        new_ts = [t for t, k in enumerate(keys)
-                                  if k not in seen_cj]
-                        if new_ts:
+                        if new_keys:
                             with span("h36x.extract.jitter"):
-                                cjs = jitter_u8(window[new_ts], video_params)
-                            count("h36x.extract.frames_jittered", len(new_ts))
-                            for j, t in enumerate(new_ts):
-                                seen_cj.add(keys[t])
-                                job.cj_miss.append((keys[t], cjs[j]))
+                                cjs = jitter_u8(rows, video_params)
+                            count("h36x.extract.frames_jittered", len(new_keys))
+                            job.cj_miss = list(zip(new_keys, cjs))
                     else:  # jitter_key == "frame": distinct params per frame
-                        for t, k in enumerate(keys):
-                            if k in seen_cj:
-                                continue
-                            seen_cj.add(k)
+                        for k, row in zip(new_keys, rows):
                             params = sample_jitter_params(
                                 _frame_jitter_rng(cfg.shuffle_seed, video_idx,
                                                   k[0])
                             )
                             with span("h36x.extract.jitter"):
-                                cj = jitter_u8(window[t : t + 1], params)[0]
+                                cj = jitter_u8(row[None], params)[0]
                             count("h36x.extract.frames_jittered")
                             job.cj_miss.append((k, cj))
+                count("h36x.extract.rows_stacked", stacked)
             put(("job", job))
         put(("done", None))
     except _ConsumerGone:
@@ -474,8 +470,9 @@ def run_unique_frames(cfg: ExtractConfig, dataset, groups: List[List[int]], todo
             job.cj_window = None  # crops live in `pending` now; free the ref
         # clear the miss lists too: jobs can sit in the fifo for many
         # dispatches awaiting rows — `pending` owns the frames from here
-        # (miss rows are per-row copies made in the worker, so dropping
-        # the job-side refs genuinely frees memory as pending drains)
+        # (miss rows are the rows of the worker's crop output, which holds
+        # no others, so dropping the job-side refs frees memory as pending
+        # drains)
         job.miss = []
         job.cj_miss = []
         assembler.fifo.append(job)

@@ -90,16 +90,18 @@ def count(name: str, n: int = 1) -> None:
 
 def totals() -> dict:
     """A copy of the table: {"spans": {name: (seconds, calls)},
-    "counts": {name: n}}, since the process started."""
+    "counts": {name: n}, "counted": {name: count() calls}}, since the
+    process started."""
     return _TABLE.snapshot()
 
 
 def since(before: dict) -> dict:
     """What the table gained after `before` (a totals() copy):
-    {"host_s": {name: (seconds, calls)}, "counts": {name: n}}, names that
-    did not move left out."""
+    {"host_s": {name: (seconds, calls)}, "counts": {name: n}}, spans that
+    did not run and counters not counted left out (a counter counted by 0
+    reads 0)."""
     now = totals()
-    s0, c0 = before["spans"], before["counts"]
+    s0, c0, k0 = before["spans"], before["counts"], before["counted"]
     host = {}
     for name, (sec, calls) in now["spans"].items():
         sec0, calls0 = s0.get(name, (0.0, 0))
@@ -107,7 +109,7 @@ def since(before: dict) -> dict:
             host[name] = (sec - sec0, calls - calls0)
     return {"host_s": host,
             "counts": {k: n - c0.get(k, 0) for k, n in now["counts"].items()
-                       if n != c0.get(k, 0)}}
+                       if now["counted"][k] != k0.get(k, 0)}}
 
 
 def measured(name: str, fn, *args, **kwargs) -> dict:

@@ -17,6 +17,7 @@ class PhaseTimers:
         self.totals = defaultdict(float)
         self.calls = defaultdict(int)
         self.counts = defaultdict(int)
+        self.counted = defaultdict(int)  # count() calls a counter
         self._start = {}
         self._lock = threading.Lock()
 
@@ -37,12 +38,14 @@ class PhaseTimers:
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:
             self.counts[name] += n
+            self.counted[name] += 1
 
     def snapshot(self) -> dict:
-        """A copy: {"spans": {phase: (seconds, calls)}, "counts": {name: n}}."""
+        """A copy: {"spans": {phase: (seconds, calls)}, "counts": {name: n},
+        "counted": {name: count() calls}}."""
         with self._lock:
             return {"spans": {k: (v, self.calls[k]) for k, v in self.totals.items()},
-                    "counts": dict(self.counts)}
+                    "counts": dict(self.counts), "counted": dict(self.counted)}
 
     def summary(self, n_iters: int = 1) -> str:
         lines = []

@@ -27,9 +27,12 @@ MAIN_SPANS = {"h36x.extract.call", "h36x.extract.load_backbone", "h36x.extract.w
               "h36x.extract.store"}
 WORKER_SPANS = {"h36x.extract.job", "h36x.extract.crop", "h36x.extract.jitter",
                 "h36x.extract.put_wait", "h36x.store.write"}
-# h36x.extract.pad_rows moves only over a mesh (tests/test_torch_dispatch.py)
+# pad_rows moves only over a mesh (tests/test_torch_dispatch.py), rows_stacked
+# only under jitter_key='clip' (tests/test_torch_worker_rows.py): the
+# unique-frame scheduler counts both, at 0 here
 COUNTERS = {"h36x.extract.frames_cropped", "h36x.extract.frames_jittered",
-            "h36x.extract.jobs_ready", "h36x.extract.dispatches"}
+            "h36x.extract.jobs_ready", "h36x.extract.dispatches",
+            "h36x.extract.pad_rows", "h36x.extract.rows_stacked"}
 
 
 def _chrome_events(prof, tmp_path):
@@ -158,7 +161,8 @@ def test_run_extract_reports_every_span_and_counter(tmp_path, fake_port_backbone
     counters = COUNTERS
     if scheduler == "per_clip":
         spans = spans - {"h36x.extract.put_wait"}  # no job queue of its own
-        counters = counters - {"h36x.extract.jobs_ready", "h36x.extract.dispatches"}
+        counters = counters - {"h36x.extract.jobs_ready", "h36x.extract.dispatches",
+                               "h36x.extract.pad_rows", "h36x.extract.rows_stacked"}
     assert set(summary["host_s"]) == spans
     assert summary["host_s"]["h36x.extract.call"][1] == 1
     assert summary["host_s"]["h36x.extract.load_backbone"][1] == 1
@@ -173,6 +177,8 @@ def test_run_extract_reports_every_span_and_counter(tmp_path, fake_port_backbone
         assert summary["counts"]["h36x.extract.jobs_ready"] <= len(ds)
         # dispatches of batch_size * stride * 3 = 30 rows, the last shorter
         assert summary["counts"]["h36x.extract.dispatches"] == -(-3 * unique // 30)
+        assert summary["counts"]["h36x.extract.pad_rows"] == 0
+        assert summary["counts"]["h36x.extract.rows_stacked"] == 0
     else:
         assert summary["counts"]["h36x.extract.frames_cropped"] == len(ds) * 8
     call_s = summary["host_s"]["h36x.extract.call"][0]
