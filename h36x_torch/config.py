@@ -17,7 +17,7 @@ import dataclasses
 import json
 import typing
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 FRAME_SKIP = 2  # temporal subsampling applied when decoding video
 SEQ_LEN = 40  # frames per clip (after subsampling)
@@ -25,8 +25,6 @@ INPUT_LEN = 15  # warm-up frames for future prediction
 PRED_LEN = 25  # autoregressive prediction horizon
 JOINTS_NUM = 17  # H36M 17-joint skeleton
 FEATURE_DIM = 2048  # ResNet-50's pooled feature width (PHD's default input)
-# extraction's backbones (--backbone) and the feature width each writes
-BACKBONE_FEATURE_DIM = {"resnet50": FEATURE_DIM, "vit_h": 1280}
 LATENT_DIM = 1024  # model latent ("movie strip") width
 BATCH_SIZE = 32
 LR = 1e-4
@@ -37,6 +35,35 @@ TRAIN_SUBJECTS = (1, 6, 7, 8)
 VAL_SUBJECTS = (5,)
 TEST_SUBJECTS = (9,)
 ALL_SUBJECTS = (1, 5, 6, 7, 8, 9, 11)
+
+
+@dataclass(frozen=True)
+class Backbone:
+    """An extraction backbone (--backbone). Its model module,
+    h36x_torch.models.<module>, is imported when a job builds it; the
+    module's `backbone(weights, device)` returns the bfloat16 model, from a
+    state_dict file in the module's layout or, where `weights` is "",
+    seeded. Where `sizes` names the module's dict of published sizes, the
+    model reads uint8 square crops of that dict's img_size[0] pixels itself
+    (normalization and columns), and --resize has to be that size; without
+    it the model takes normalized frames of any size."""
+
+    label: str  # the backbone's name in messages
+    feature_dim: int  # the width of the rows it writes
+    module: str
+    sizes: str = ""
+    engines: Tuple[str, ...] = ("flax",)
+
+
+# extraction's backbones by their --backbone name
+BACKBONES = {
+    "resnet50": Backbone("ResNet-50", FEATURE_DIM, "resnet", engines=("flax", "opt")),
+    "vit_h": Backbone("ViT-H", 1280, "vit", sizes="VIT_H"),
+    "hrnet_w48": Backbone("HRNet-W48", 2048, "hrnet", sizes="HRNET_W48"),
+}
+# the backbone a store records nothing of (stores from before --backbone)
+DEFAULT_BACKBONE = "resnet50"
+BACKBONE_FEATURE_DIM = {name: b.feature_dim for name, b in BACKBONES.items()}
 
 
 @dataclass
@@ -180,10 +207,12 @@ class ExtractConfig:
     shuffle_pool_gb: float = 8.0
     shuffle_seed: int = 123
     # 'resnet50' (torchvision's ResNet-50, 2048-D) | 'vit_h' (ViTPose-H /
-    # HMR 2.0's ViT-H/16 at 256 x 192, 1280-D: extract with --resize 256)
-    backbone: str = "resnet50"
+    # HMR 2.0's ViT-H/16 at 256 x 192, 1280-D) | 'hrnet_w48' (HRNet-W48-C,
+    # CLIFF's backbone, at 256 x 192, 2048-D); both read --resize 256 crops
+    backbone: str = DEFAULT_BACKBONE
     # the backbone's state_dict (.pt): torchvision's layout for resnet50,
-    # ViTPose's (an optional `backbone.` prefix) for vit_h
+    # ViTPose's (an optional `backbone.` prefix) for vit_h, cls_hrnet.py's
+    # (an optional prefix, its classifier left out) for hrnet_w48
     weights: str = ""
     resume: bool = False  # continue an interrupted extraction (progress.json)
     # read the finished store back and recompute every shard's CRC32s

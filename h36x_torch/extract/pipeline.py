@@ -1,6 +1,7 @@
 """Feature-extraction pipeline (counterpart of h36x/extract/pipeline.py):
 decode -> host crop/resize and pixel variants -> the backbone on the device
-(ResNet-50, or ViT-H with `--backbone vit_h`) -> shuffled feature shards.
+(ResNet-50, ViT-H or HRNet-W48: `config.BACKBONES`) -> shuffled feature
+shards.
 
 - crop + bilinear resize + the photometric variants run on the decode
   workers (the port's native library); the u8 crops cross to the device
@@ -22,6 +23,7 @@ scheduler (h36x_torch/extract/dedup.py), else the per-clip loop here.
 
 from __future__ import annotations
 
+import importlib
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List
@@ -29,7 +31,7 @@ from typing import List
 import numpy as np
 import torch
 
-from h36x_torch.config import BACKBONE_FEATURE_DIM, ExtractConfig
+from h36x_torch.config import BACKBONES, DEFAULT_BACKBONE, ExtractConfig
 from h36x_torch.data.augment import make_clip_variants_u8
 from h36x_torch.extract import dedup
 from h36x_torch.extract.staging import (  # noqa: F401  (the names callers read here)
@@ -39,20 +41,22 @@ from h36x_torch.extract.staging import (  # noqa: F401  (the names callers read 
     rows_to_device,
 )
 from h36x_torch.extract.store import Store
-from h36x_torch.models.resnet import ResNet50, load_torchvision_file
+from h36x_torch.models.crops import CropReader
 from h36x_torch.ops.preprocess import imagenet_normalize
 from h36x_torch.utils.profiling import count, measured, span
 from h36x_torch.utils.runtime import local_devices, resolve_device
 
-ENGINES = ("flax", "opt")
+ENGINES = tuple(dict.fromkeys(e for b in BACKBONES.values() for e in b.engines))
 
 
 def make_feature_fn(model, mesh=None, engine: str = "flax"):
     """Device step: frames_u8 (N, out, out, 3) uint8 tensor on the model's
-    device -> (N, feature width) float32 features on that device: 2048 for
-    a ResNet50, the model's `dim` (1280) for a
-    :class:`h36x_torch.models.vit.ViT`, which normalizes and reads the
-    crops' middle columns itself and has the one engine, 'flax'.
+    device -> (N, feature width) float32 features on that device, the
+    width `config.BACKBONES` gives the model's backbone (its class's
+    `backbone_name`; ResNet-50 where it has none). A
+    :class:`h36x_torch.models.crops.CropReader` (ViT-H, HRNet-W48)
+    normalizes and reads the crops' middle columns itself; the engines a
+    backbone runs are the table's.
 
     For ResNet-50, engine='flax' is the plain module (normalize in
     float32, cast to the module dtype; cuDNN on the card). engine='opt' is
@@ -71,11 +75,11 @@ def make_feature_fn(model, mesh=None, engine: str = "flax"):
     on uses the model itself) and returns the features in order, `[:N]`,
     on the frames' device (host frames: the first device's).
     """
-    from h36x_torch.models.vit import ViT
-
-    if isinstance(model, ViT):
-        if engine != "flax":
-            raise ValueError(f"the ViT backbone has no --engine {engine!r}")
+    if engine not in ENGINES:
+        raise ValueError(f"--engine must be {'|'.join(ENGINES)}, got {engine!r}")
+    if engine not in BACKBONES[getattr(model, "backbone_name", DEFAULT_BACKBONE)].engines:
+        raise ValueError(f"the {type(model).__name__} backbone has no --engine {engine!r}")
+    if isinstance(model, CropReader):
 
         def fn(frames_u8):
             with torch.inference_mode():
@@ -98,14 +102,12 @@ def make_feature_fn(model, mesh=None, engine: str = "flax"):
             with torch.inference_mode():
                 return resnet50_opt_forward(frames_u8, box["folded"], box["stem2"],
                                             dtype=model.dtype)
-    elif engine == "flax":
+    else:
 
         def fn(frames_u8):
             with torch.inference_mode():
                 video = imagenet_normalize(frames_u8.float() * (1.0 / 255.0))
                 return model(video.to(model.dtype))
-    else:
-        raise ValueError(f"--engine must be {'|'.join(ENGINES)}, got {engine!r}")
     if mesh is None:
         return fn
     from h36x_torch.parallel.local import Replicas, on_replicas
@@ -129,30 +131,23 @@ def feature_mesh(devices):
 
 
 def _load_backbone(cfg: ExtractConfig, device: torch.device):
-    """The bfloat16 backbone of `--backbone` on `device`: `--weights` or
-    random weights from seed 0. ResNet-50 from a torchvision state_dict;
-    ViT-H (:mod:`h36x_torch.models.vit`, its published widths) built on
-    `meta` and materialized by a ViTPose-layout state_dict's load."""
-    if cfg.backbone == "vit_h":
-        from h36x_torch.models import vit
-
-        if cfg.resize != vit.VIT_H["img_size"][0]:
-            raise ValueError(f"--backbone vit_h reads {vit.VIT_H['img_size'][0]}-pixel "
-                             f"crops; --resize is {cfg.resize}")
-        if not cfg.weights:
-            print("WARNING: no --weights given; using randomly initialized ViT-H "
-                  "(features will not match a pretrained backbone).")
-            return vit.random_vit(device, **vit.VIT_H)
-        model = vit.load_vitpose_file(vit.ViT(**vit.VIT_H), cfg.weights, device)
-        print(f"Loaded ViT-H weights from {cfg.weights}")
-        return model
-    model = ResNet50(dtype=torch.bfloat16, device=device)
-    if cfg.weights:
-        load_torchvision_file(model, cfg.weights)
-        print(f"Loaded ResNet-50 weights from {cfg.weights}")
-    else:
-        print("WARNING: no --weights given; using randomly initialized ResNet-50 "
+    """The bfloat16 backbone of `--backbone` on `device`, built by its model
+    module (`config.BACKBONES`): from `--weights` in the module's layout,
+    or from seeded weights. A backbone that reads its own crops refuses
+    any other --resize."""
+    spec = BACKBONES[cfg.backbone]
+    module = importlib.import_module(f"h36x_torch.models.{spec.module}")
+    if spec.sizes:
+        crop = getattr(module, spec.sizes)["img_size"][0]
+        if cfg.resize != crop:
+            raise ValueError(f"--backbone {cfg.backbone} reads {crop}-pixel crops; "
+                             f"--resize is {cfg.resize}")
+    if not cfg.weights:
+        print(f"WARNING: no --weights given; using randomly initialized {spec.label} "
               "(features will not match a pretrained backbone).")
+    model = module.backbone(cfg.weights, device)
+    if cfg.weights:
+        print(f"Loaded {spec.label} weights from {cfg.weights}")
     return model
 
 
@@ -180,7 +175,7 @@ def validate_extract_config(cfg) -> None:
     it first.
     """
     _parse_partition(getattr(cfg, "partition", ""))
-    for flag, allowed in (("engine", ENGINES), ("backbone", tuple(BACKBONE_FEATURE_DIM)),
+    for flag, allowed in (("engine", ENGINES), ("backbone", tuple(BACKBONES)),
                           ("partition_by", ("clip", "video")),
                           ("crop_scope", ("auto", "clip", "video")),
                           ("jitter_key", ("auto", "clip", "video", "frame"))):
@@ -189,10 +184,12 @@ def validate_extract_config(cfg) -> None:
             raise ValueError(
                 f"--{flag.replace('_', '-')} must be {'|'.join(allowed)}, "
                 f"got {val!r}")
-    if getattr(cfg, "backbone", "resnet50") != "resnet50" and \
-            getattr(cfg, "engine", "flax") != "flax":
-        raise ValueError(f"--engine {cfg.engine} is ResNet-50's; --backbone "
-                         f"{cfg.backbone} runs the plain module (--engine flax)")
+    backbone = getattr(cfg, "backbone", DEFAULT_BACKBONE)
+    engine = getattr(cfg, "engine", ENGINES[0])
+    if engine not in BACKBONES[backbone].engines:
+        owners = " and ".join(b.label for b in BACKBONES.values() if engine in b.engines)
+        raise ValueError(f"--engine {engine} is {owners}'s; --backbone {backbone} runs "
+                         f"the plain module (--engine {BACKBONES[backbone].engines[0]})")
     if not getattr(cfg, "dedup", True):
         _refuse_unique_frame_modes(cfg)
 

@@ -19,6 +19,7 @@ from typing import List
 
 import numpy as np
 
+from h36x_torch.config import DEFAULT_BACKBONE
 from h36x_torch.data.augment import AUG_NAMES, hflip_joints, reverse_joints
 from h36x_torch.data.shards import ShardWriter, write_index
 from h36x_torch.extract.writer import AsyncWriter
@@ -48,7 +49,8 @@ class ShufflePool:
         self.on_flush = on_flush
         # Host-RAM bound on the buffered groups (pool + carry): the default
         # 8192-clip pool holds ~10.7 GB at 4 variants x T=40 x the
-        # backbone's width in f32 (2048 for ResNet-50; 1280 for ViT-H).
+        # backbone's width in f32 (2048 for ResNet-50 and HRNet-W48; 1280 for
+        # ViT-H).
         # 0 = unbounded. Flushing early moves rows BETWEEN shards but never
         # changes row bytes.
         self.max_bytes = int(max_bytes)
@@ -145,9 +147,10 @@ def store_provenance() -> dict:
 
 def backbone_provenance(cfg) -> dict:
     """The backbone a store's rows came from, for the resume check: nothing
-    for ResNet-50, so that its progress files stay as they were."""
-    backbone = getattr(cfg, "backbone", "resnet50")
-    return {} if backbone == "resnet50" else {"backbone": backbone}
+    for the default backbone (ResNet-50), so that its progress files stay
+    as they were."""
+    backbone = getattr(cfg, "backbone", DEFAULT_BACKBONE)
+    return {} if backbone == DEFAULT_BACKBONE else {"backbone": backbone}
 
 
 def run_config(cfg, part_n: int) -> dict:

@@ -187,3 +187,12 @@ def load_torchvision_file(model: ResNet50, path) -> ResNet50:
     if isinstance(raw, dict) and "state_dict" in raw:
         raw = raw["state_dict"]
     return load_torchvision(model, raw)
+
+
+def backbone(weights: str, device) -> ResNet50:
+    """Extraction's bfloat16 ResNet-50 on `device`: drawn from seed 0, then
+    loaded from a torchvision-layout file unless `weights` is ""."""
+    model = ResNet50(dtype=torch.bfloat16, device=device)
+    if weights:
+        load_torchvision_file(model, weights)
+    return model

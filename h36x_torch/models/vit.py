@@ -49,7 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from h36x_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
+from h36x_torch.models.crops import CropReader
 from h36x_torch.utils.profiling import count, span
 
 # ViTPose-H / HMR 2.0's backbone at its published widths
@@ -97,10 +97,12 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(3, dim, patch, stride=patch, padding=padding)
 
 
-class ViT(nn.Module):
+class ViT(CropReader, nn.Module):
     """ViTPose's backbone: (N, S, S, 3) uint8 square crops, S =
     img_size[0] -> (N, dim) float32 token means (:meth:`forward`), the
     middle img_size[1] columns read."""
+
+    backbone_name = "vit_h"
 
     def __init__(self, img_size=VIT_H["img_size"], patch=VIT_H["patch"],
                  padding=VIT_H["padding"], dim=VIT_H["dim"], depth=VIT_H["depth"],
@@ -119,7 +121,6 @@ class ViT(nn.Module):
             self.last_norm = nn.LayerNorm(dim, eps=eps)
         self.to(dtype)
         self.requires_grad_(False)
-        self._stats = {}  # device -> ImageNet's (mean, std) there
         super().train(False)
 
     @property
@@ -129,26 +130,6 @@ class ViT(nn.Module):
     def train(self, mode: bool = True):
         """Inference only."""
         return super().train(False)
-
-    def columns(self, side: int) -> slice:
-        """The columns of a `side`-pixel square crop the model reads."""
-        h, w = self.img_size
-        if side != h:
-            raise ValueError(f"{side}-pixel crops given; this ViT reads {h} x {w} "
-                             f"(extract with --resize {h})")
-        left = (h - w) // 2
-        return slice(left, left + w)
-
-    def normalize(self, x_u8: torch.Tensor) -> torch.Tensor:
-        """ImageNet's normalization in float32, its constants copied to the
-        device once (a copy from pageable memory would wait for the
-        device's queue at every dispatch)."""
-        stats = self._stats.get(x_u8.device)
-        if stats is None:
-            stats = self._stats[x_u8.device] = (
-                torch.from_numpy(IMAGENET_MEAN).to(x_u8.device),
-                torch.from_numpy(IMAGENET_STD).to(x_u8.device))
-        return (x_u8.float() * (1.0 / 255.0) - stats[0]) / stats[1]
 
     def forward(self, frames_u8: torch.Tensor) -> torch.Tensor:
         with span("h36x.vit.embed"):
@@ -214,3 +195,11 @@ def random_vit(device, seed: int = 0, dtype: torch.dtype = torch.bfloat16, **siz
                 p.copy_(nn.init.trunc_normal_(torch.empty(p.shape, device=device), std=0.02,
                                               generator=g))
     return model
+
+
+def backbone(weights: str, device) -> ViT:
+    """Extraction's ViT-H at :data:`VIT_H`'s widths on `device`: from a
+    ViTPose-layout file, or seeded where `weights` is ""."""
+    if not weights:
+        return random_vit(device, **VIT_H)
+    return load_vitpose_file(ViT(**VIT_H), weights, device)

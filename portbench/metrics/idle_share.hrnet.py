@@ -1,0 +1,1 @@
+from portbench.readers import idle_share as read  # noqa: F401

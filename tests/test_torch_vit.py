@@ -199,7 +199,7 @@ def test_published_sizes_and_widths():
     assert next(model.parameters()).device.type == "meta"
     n = sum(p.numel() for p in model.parameters())
     assert 630e6 < n < 634e6, n
-    assert BACKBONE_FEATURE_DIM == {"resnet50": 2048, "vit_h": 1280}
+    assert BACKBONE_FEATURE_DIM == {"resnet50": 2048, "vit_h": 1280, "hrnet_w48": 2048}
     assert model.dim == BACKBONE_FEATURE_DIM["vit_h"]
 
 
@@ -352,7 +352,9 @@ def test_resnet50_stores_stay_byte_identical(tmp_path, dedup, fake_backbone,  # 
     """`--backbone resnet50`, said or left to its default, writes the store
     h36x writes (the port's ResNet-50 path as it was), progress files
     included: a resnet50 run records no backbone, so a store begun before
-    the option existed resumes."""
+    the option existed resumes. `--backbone vit_h` and `hrnet_w48` write the
+    same bytes from the same features: the backbone table changes the model
+    alone."""
     import h36x.extract.pipeline as jax_pipeline
     from h36x.config import ExtractConfig as JaxExtractConfig
 
@@ -375,9 +377,15 @@ def test_resnet50_stores_stay_byte_identical(tmp_path, dedup, fake_backbone,  # 
                                        **kw), dataset=ds, device="cpu")
     pipeline.run_extract(ExtractConfig(out=str(tmp_path / "default"), **kw), dataset=ds,
                          device="cpu")
+    for backbone in ("vit_h", "hrnet_w48"):
+        pipeline.run_extract(ExtractConfig(out=str(tmp_path / backbone), backbone=backbone,
+                                           **kw), dataset=ds, device="cpu")
     want = _store_files(tmp_path / "h36x")
     assert _store_files(tmp_path / "said") == want == _store_files(tmp_path / "default")
+    assert _store_files(tmp_path / "vit_h") == want == _store_files(tmp_path / "hrnet_w48")
     assert store.backbone_provenance(ExtractConfig()) == {}
     assert store.backbone_provenance(ExtractConfig(backbone="vit_h")) == {
         "backbone": "vit_h"}
+    assert store.backbone_provenance(ExtractConfig(backbone="hrnet_w48")) == {
+        "backbone": "hrnet_w48"}
 
