@@ -33,9 +33,11 @@ last one goes at its own size, with no zero rows on one device. The
 sizes follow the row count alone, so a store repeats bit for bit. The
 store contract, row order (clips enter the shuffle pool in global
 clip-index order), per-clip jitter rng and resume/partition semantics are
-those of the per-clip pipeline. On the card, the features of a dispatch
-stay on the device until the next dispatch has been queued and the host
-finalizes this one.
+those of the per-clip pipeline. On one device an hflip row is staged as
+its crop and mirrored by the device after the copy (the dispatch sends
+such rows last); over a mesh the host mirrors it. On the card, the
+features of a dispatch stay on the device until the next dispatch has
+been queued and the host finalizes this one.
 """
 
 from __future__ import annotations
@@ -421,7 +423,9 @@ def run_unique_frames(cfg: ExtractConfig, dataset, groups: List[List[int]], todo
         # hot loop, after the backbone load and worker startup
         raise ValueError(
             f"--frames-per-dispatch must be positive, got {frames_per_dispatch}")
-    pending: List[tuple] = []  # (tag, crop u8 (o,o,3))
+    # (tag, crop u8 (o,o,3), mirrored): a mirrored row is its crop flipped
+    # along the width
+    pending: List[tuple] = []
     inflight = None
     # over a mesh the feature function pads a dispatch to a multiple of this
     replicas = mesh.shape["data"] if mesh else 1
@@ -431,16 +435,24 @@ def run_unique_frames(cfg: ExtractConfig, dataset, groups: List[List[int]], todo
         n = len(chunk)
         with span("h36x.extract.stage"):
             if not mesh:
-                frames = rows_to_device([c for _, c in chunk], n, device)
+                # the rows to mirror go last, each group in queue order; the
+                # card mirrors them, and the tags follow their rows
+                chunk = ([e for e in chunk if not e[2]]
+                         + [e for e in chunk if e[2]])
+                flipped = sum(e[2] for e in chunk)
+                frames = rows_to_device([c for _, c, _ in chunk], n, device,
+                                        flip=flipped)
             else:
                 # over a mesh each device's block goes to it from the host
-                frames = np.stack([c for _, c in chunk])
+                flipped = 0
+                frames = np.stack([c[:, ::-1] if m else c for _, c, m in chunk])
         count("h36x.extract.dispatches")
         count("h36x.extract.pad_rows", -n % replicas)
+        count("h36x.extract.rows_flipped", flipped)
         with span("h36x.extract.feature_fn"):
             feats_dev = DeviceFeatures(feature_fn(frames))
         assembler.backbone_rows += n
-        new = (feats_dev, [t for t, _ in chunk])
+        new = (feats_dev, [t for t, _, _ in chunk])
         if inflight is not None:
             finalize(inflight)
         inflight = new
@@ -455,18 +467,16 @@ def run_unique_frames(cfg: ExtractConfig, dataset, groups: List[List[int]], todo
 
     def enqueue(job: ClipJob):
         for k, crop in job.miss:
-            pending.append((("cache", job.video_idx, k, "o"), crop))
-            if cfg.augment:
-                pending.append(
-                    (("cache", job.video_idx, k, "h"), crop[:, ::-1, :])
-                )
+            pending.append((("cache", job.video_idx, k, "o"), crop, False))
+            if cfg.augment:  # the hflip row: its crop, mirrored at dispatch
+                pending.append((("cache", job.video_idx, k, "h"), crop, True))
         for k, cj in job.cj_miss:
-            pending.append((("cache", job.video_idx, k, "c"), cj))
+            pending.append((("cache", job.video_idx, k, "c"), cj, False))
         if job.cj_window is not None:
             t_len = job.cj_window.shape[0]
             job.cj_feats = [None] * t_len
             for t in range(t_len):
-                pending.append((("job", job, t), job.cj_window[t]))
+                pending.append((("job", job, t), job.cj_window[t], False))
             job.cj_window = None  # crops live in `pending` now; free the ref
         # clear the miss lists too: jobs can sit in the fifo for many
         # dispatches awaiting rows — `pending` owns the frames from here

@@ -43,12 +43,18 @@ def crop_resize_host(frames: np.ndarray, joints2d: np.ndarray, out_size: int,
     return crop_resize_frames(frames, box, out_size), box
 
 
-def rows_to_device(rows, n_rows: int, device: torch.device) -> torch.Tensor:
+def rows_to_device(rows, n_rows: int, device: torch.device,
+                   flip: int = 0) -> torch.Tensor:
     """u8 rows of one shape, zero rows after them up to `n_rows`, as one
     tensor on the device: each row copied once into a pinned buffer, which
     the host allocator hands out again once the card has read it, then one
     asynchronous copy. (Stacking, padding and pinning a stacked array
-    would move every byte three times, twice into freshly mapped pages.)"""
+    would move every byte three times, twice into freshly mapped pages.)
+
+    The last `flip` of `rows`, each (H, W, C), arrive mirrored along W:
+    they are copied as given and mirrored on the device after the copy, in
+    its stream. A mirrored view copied on the host (`row[:, ::-1]`) would
+    move its bytes a pixel at a time."""
     shape = np.shape(rows[0])
     buf = torch.empty((n_rows,) + shape, dtype=torch.uint8,
                       pin_memory=device.type == "cuda")
@@ -56,7 +62,11 @@ def rows_to_device(rows, n_rows: int, device: torch.device) -> torch.Tensor:
     for i, row in enumerate(rows):
         host[i] = row
     host[len(rows):] = 0
-    return buf.to(device, non_blocking=True)
+    frames = buf.to(device, non_blocking=True)
+    if flip:
+        mirrored = frames[len(rows) - flip:len(rows)]
+        mirrored.copy_(mirrored.flip(2))
+    return frames
 
 
 _copy_streams: dict = {}

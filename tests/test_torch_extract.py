@@ -208,6 +208,98 @@ def test_rows_to_device_stacks_in_order_and_zero_pads():
     np.testing.assert_array_equal(full.numpy(), np.stack(rows))
 
 
+@pytest.mark.parametrize("n_rows", [5, 8], ids=["exact", "zero_padded"])
+@pytest.mark.parametrize("flip", [0, 1, 3, 5])
+def test_rows_to_device_mirrors_the_trailing_rows(n_rows, flip):
+    """The last `flip` rows, given as their sources, arrive as the mirrored
+    views a host stack would copy, byte for byte; the zero rows stay zero."""
+    rng = np.random.default_rng(4)
+    rows = [rng.integers(0, 256, (6, 7, 3), dtype=np.uint8) for _ in range(5)]
+    views = rows[:5 - flip] + [r[:, ::-1, :] for r in rows[5 - flip:]]
+    want = np.zeros((n_rows, 6, 7, 3), np.uint8)
+    want[:5] = np.stack(views)
+    before = np.stack(rows)
+    out = pipeline.rows_to_device(rows, n_rows, torch.device("cpu"), flip=flip)
+    assert out.dtype == torch.uint8 and out.is_contiguous()
+    assert out.numpy().tobytes() == want.tobytes()
+    np.testing.assert_array_equal(np.stack(rows), before)  # sources only read
+
+
+def _mirrored_rows_run(tmp_path, monkeypatch, n_devices=1, **kw):
+    """A unique-frame call on `n_devices` CPU devices under a stand-in
+    backbone that keeps each dispatch's rows and features; returns the
+    summary, the dispatches' rows, and the rows stored under each variant
+    (counted at the assembler)."""
+    from h36x_torch.extract import dedup
+    from h36x_torch.utils import runtime
+
+    seen = []
+
+    def make(model, mesh=None, engine="flax"):
+        def fn(frames):
+            x = np.asarray(frames)
+            seen.append(x.copy())
+            flat = x.reshape(len(x), -1).astype(np.float64)
+            return torch.from_numpy(np.tile(np.asarray(flat @ _PROJ, np.float32),
+                                            (1, 2048 // 64)))
+
+        return fn
+
+    stored, store = {}, dedup._Assembler.store
+
+    def counting(assembler, tag, row):
+        var = tag[3] if tag[0] == "cache" else "clip"
+        stored[var] = stored.get(var, 0) + 1
+        store(assembler, tag, row)
+
+    for module in (pipeline, runtime):
+        monkeypatch.setattr(module, "local_devices",
+                            lambda device, n=n_devices: [torch.device("cpu")] * n)
+    monkeypatch.setattr(pipeline, "_load_backbone", lambda cfg, device: None)
+    monkeypatch.setattr(pipeline, "make_feature_fn", make)
+    monkeypatch.setattr(dedup._Assembler, "store", counting)
+    cfg = ExtractConfig(**dict(dict(out=str(tmp_path), seq_len=8, stride=2, resize=16,
+                                    batch_size=2, num_workers=2, augment=True,
+                                    shard_size=4, shuffle_pool=100, shuffle_seed=1),
+                               **kw))
+    summary = pipeline.run_extract(cfg, dataset=FakeOverlapDataset(smooth=False),
+                                   device="cpu")
+    return summary, seen, stored
+
+
+@pytest.mark.parametrize("kw, mirrored", [
+    ({}, True),                                          # production (video/video)
+    (dict(crop_scope="clip", jitter_key="clip"), True),  # reference-keyed
+    (dict(augment=False), False),
+    (dict(dedup=False), False),                          # the per-clip scheduler
+], ids=["production", "reference_keyed", "no_augment", "per_clip"])
+def test_rows_flipped_counts_the_hflip_rows_sent(tmp_path, monkeypatch, kw, mirrored):
+    summary, seen, stored = _mirrored_rows_run(tmp_path, monkeypatch, **kw)
+    flipped = summary["counts"].get("h36x.extract.rows_flipped", 0)
+    sent = sum(len(f) for f in seen)
+    if mirrored:
+        assert flipped == stored["h"] == stored["o"] > 0
+        assert summary["backbone_frames"] == sent
+    else:
+        assert flipped == 0 and "h" not in stored
+
+
+def test_mirrored_rows_reach_the_backbone_as_the_host_stack_sent_them(tmp_path,
+                                                                      monkeypatch):
+    """Over a mesh the host still mirrors and sends each dispatch in queue
+    order (rows_flipped 0); on one device each dispatch holds the same rows,
+    the mirrored ones last: the same bytes, and the same store."""
+    one, rows_one, _ = _mirrored_rows_run(tmp_path / "one", monkeypatch)
+    two, rows_two, _ = _mirrored_rows_run(tmp_path / "two", monkeypatch, n_devices=2)
+    assert two["counts"]["h36x.extract.rows_flipped"] == 0
+    assert one["counts"]["h36x.extract.rows_flipped"] > 0
+    assert [len(f) for f in rows_one] == [len(f) for f in rows_two]
+    for a, b in zip(rows_one, rows_two):
+        key = [r.tobytes() for r in a]
+        assert sorted(key) == sorted(r.tobytes() for r in b)
+    assert _store_files(tmp_path / "one") == _store_files(tmp_path / "two")
+
+
 class _Flaky(FakeOverlapDataset):
     """FakeOverlapDataset whose clip `fail_at` raises, as a bad annotation
     or a decode error would."""

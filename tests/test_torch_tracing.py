@@ -29,10 +29,12 @@ WORKER_SPANS = {"h36x.extract.job", "h36x.extract.crop", "h36x.extract.jitter",
                 "h36x.extract.put_wait", "h36x.store.write"}
 # pad_rows moves only over a mesh (tests/test_torch_dispatch.py), rows_stacked
 # only under jitter_key='clip' (tests/test_torch_worker_rows.py): the
-# unique-frame scheduler counts both, at 0 here
+# unique-frame scheduler counts both, at 0 here; rows_flipped, the hflip
+# rows the device mirrors, only the unique-frame scheduler counts
 COUNTERS = {"h36x.extract.frames_cropped", "h36x.extract.frames_jittered",
             "h36x.extract.jobs_ready", "h36x.extract.dispatches",
-            "h36x.extract.pad_rows", "h36x.extract.rows_stacked"}
+            "h36x.extract.pad_rows", "h36x.extract.rows_stacked",
+            "h36x.extract.rows_flipped"}
 
 
 def _chrome_events(prof, tmp_path):
@@ -162,7 +164,8 @@ def test_run_extract_reports_every_span_and_counter(tmp_path, fake_port_backbone
     if scheduler == "per_clip":
         spans = spans - {"h36x.extract.put_wait"}  # no job queue of its own
         counters = counters - {"h36x.extract.jobs_ready", "h36x.extract.dispatches",
-                               "h36x.extract.pad_rows", "h36x.extract.rows_stacked"}
+                               "h36x.extract.pad_rows", "h36x.extract.rows_stacked",
+                               "h36x.extract.rows_flipped"}
     assert set(summary["host_s"]) == spans
     assert summary["host_s"]["h36x.extract.call"][1] == 1
     assert summary["host_s"]["h36x.extract.load_backbone"][1] == 1
@@ -179,6 +182,7 @@ def test_run_extract_reports_every_span_and_counter(tmp_path, fake_port_backbone
         assert summary["counts"]["h36x.extract.dispatches"] == -(-3 * unique // 30)
         assert summary["counts"]["h36x.extract.pad_rows"] == 0
         assert summary["counts"]["h36x.extract.rows_stacked"] == 0
+        assert summary["counts"]["h36x.extract.rows_flipped"] == unique
     else:
         assert summary["counts"]["h36x.extract.frames_cropped"] == len(ds) * 8
     call_s = summary["host_s"]["h36x.extract.call"][0]
